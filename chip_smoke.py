@@ -6,27 +6,45 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
 1. Check that CUDA is present; print the card's name and power limit.
-2. Build the hand-written kernels from ``ssr_speech_tpu_torch/csrc`` with nvcc.
-3. Hold each kernel against its plain PyTorch version on the card, in bf16 at
-   the prefill shapes of the serving path, and time both. Then hold a small
-   LM's prefill (bf16, through the kernel) and the codec against the port's
-   fp32 CPU path.
-4. Write full-width random-weight bundles (the 830M e830M LM, the default
-   encodec_large_nq4_s320 codec) from the port's seeded init, a seeded 16 kHz
-   synthetic wav and a word alignment, then drive the port's CLI: a watermarked
-   edit (CFG stride 5) and a TTS request, each twice, greedy (--top_k 1).
-   Each run must give a finite 16 kHz wav of the expected length, go through
-   the prefill kernel once per layer, and repeat bit for bit.
-5. Print the kernel report (JSON), the card line, and as the last line
+2. Build the hand-written kernels from ``ssr_speech_tpu_torch/csrc`` with nvcc,
+   one process per source, all at once. Write the training corpus of step 5
+   and take the batch ``train_lm.main`` will train on from it.
+3. Hold each kernel against its plain PyTorch version on the card in bf16, and
+   time both with CUDA events: the attention forward at the prefill shapes of
+   the serving path; the attention forward's log-sum-exp and the backward on
+   the training batch ([B, 16, Sx + Sy, 128] with its own segments) and at
+   [8,16,1280,128] and a ragged S = 1000 (padded-batch segments; every row,
+   two runs bit for bit); the fused CE head's forward, dhidden and dw2/db2 on
+   the training batch (K = 4, N = B(Sy - 1), Hh = 1024, C = 2056, its
+   targets) and at N = 8000. Then hold a small LM's prefill and the codec,
+   and a 4-layer training step (loss and gradients), against the port's fp32
+   CPU path, and train that LM a few steps: the loss must fall.
+4. Serving: write full-width random-weight bundles (the 830M e830M LM, the
+   default encodec_large_nq4_s320 codec) from the port's seeded init, a seeded
+   16 kHz synthetic wav and a word alignment, then drive the port's CLI: a
+   watermarked edit (CFG stride 5) and a TTS request, each twice, greedy
+   (--top_k 1). Each run must give a finite 16 kHz wav of the expected length,
+   go through the prefill kernel once per layer, and repeat bit for bit.
+5. Training: over the seeded synthetic corpus (600 utterances of 2-20 s),
+   drive ``ssr_speech_tpu_torch.train_lm.main`` on the e830M geometry with
+   the flash and fused-CE kernels, ScaledAdam and the CLI's dropouts for 6
+   steps: finite losses, no skipped step, moved parameters, a bundle the
+   serving loader reads, each kernel launched exactly as often as the steps
+   and layers require, and every step on the batch shape the kernels were
+   checked at.
+6. Print the kernel report (JSON; each kernel's launches are those of steps 4
+   and 5, counted from zero before each), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 For kernel work alone, ``pytest -m cuda tests/test_torch_cuda.py`` holds the
-kernels against their plain versions without the main path.
+kernels against their plain versions without the main paths.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import os
 import shutil
 import subprocess
 import sys
@@ -75,13 +93,6 @@ def cuda_time_ms(torch, fn, iters: int = 20) -> float:
 def check_flash(torch, device) -> dict:
     from ssr_speech_tpu_torch.ops import flash_attention as fa
 
-    t0 = time.perf_counter()
-    built = fa.load_kernel()
-    print(f"[build] {built.path.name}: nvcc {built.build_seconds:.2f} s, "
-          f"load total {time.perf_counter() - t0:.2f} s")
-    for line in built.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"[build] {line.strip()}")
     gen = torch.Generator(device=device).manual_seed(0)
     worst, times = 0.0, {}
     # (shape, sx, x_len): the prefills of the smoke's own requests first (the
@@ -145,12 +156,13 @@ def write_inputs(torch, device, work: Path, cfg, codec_cfg) -> dict:
     from ssr_speech_tpu_torch.models import ssr as tssr
     from ssr_speech_tpu_torch.models.codec import wmencodec as twm
     from ssr_speech_tpu_torch.models.pretrained import save_bundle
+    from ssr_speech_tpu_torch.utils.tree import tree_leaves
 
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     params = tssr.init_ssr(gen, cfg, device)
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     lm = work / "lm.pkl"
     save_bundle(str(lm), params=params, model_config=cfg,
                 phn2num={c: i for i, c in enumerate(PHONES)})
@@ -178,17 +190,6 @@ def write_inputs(torch, device, work: Path, cfg, codec_cfg) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
     return dict(lm=str(lm), codec=str(codec), wav=str(wav_path),
                 align=str(align), cfg=cfg, codec_cfg=codec_cfg)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def run_request(torch, device, inputs: dict, out_dir: Path, name: str,
@@ -350,6 +351,475 @@ def check_small_reference(torch, device) -> None:
         raise RuntimeError("codec on the card disagrees with the CPU")
 
 
+# ---------------------------------------------------------------- training
+
+
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce")
+REL = 2e-2  # bf16 outputs: max |kernel - plain| / max |plain|
+LSE_ATOL = 1e-2  # attention log-sum-exp (fp32, natural log): max abs error
+# Besides the training path's own first batch: [B, H, S, Dh] of training
+# attention (416 text + 864 audio positions, and a ragged S), and [K, N, Hh, C]
+# of the 830M CE head at ~8 rows of 1000 frames
+TRAIN_ATTN_SHAPES = ((8, 16, 1280, 128), (8, 16, 1000, 128))
+TRAIN_CE_SHAPE = (4, 8000, 1024, 2056)
+CW = (5.0, 1.0, 0.5, 0.1)
+
+
+def build_kernels() -> None:
+    """nvcc for every kernel source at once (one process each)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ssr_speech_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = list(pool.map(cuda_build.load, KERNEL_SOURCES))
+    print(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.2f} s")
+    for b in built:
+        print(f"[build] {b.path.name}: nvcc {b.build_seconds:.2f} s")
+        for line in b.ptxas_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"[build] {line.strip()}")
+
+
+def train_segments(torch, b: int, s: int, sx: int, gen, device):
+    """Segment ids of a padded training batch: text [0, x_len) and audio
+    [sx, sx + y_len) valid, the rest (text and audio padding) segment 0;
+    x_len 20-150 phonemes, y_len from half the audio slots to all."""
+    seg = torch.zeros((b, s), dtype=torch.int32)
+    x_len = torch.randint(20, 151, (b,), generator=gen)
+    y_len = torch.randint((s - sx) // 2, s - sx + 1, (b,), generator=gen)
+    y_len[0] = s - sx
+    for r in range(b):
+        seg[r, :x_len[r]] = 1
+        seg[r, sx:sx + y_len[r]] = 1
+    return seg.to(device)
+
+
+def first_train_batch(device, argv):
+    """The config of ``train_lm.main(argv)`` and the batch it trains on first
+    (and, with --benchmark_no_load, on every step): its own dataset and
+    batcher at its seed."""
+    from ssr_speech_tpu_torch import train_lm
+
+    args = train_lm.build_parser().parse_args(argv)
+    cfg, tcfg = train_lm.configs_from_args(args, device)
+    _, batcher = train_lm.make_train_batcher(cfg, tcfg, args.seed)
+    return cfg, next(iter(batcher(0)))
+
+
+def train_path_cases(torch, cfg, batch, device):
+    """The kernels' inputs on the training path's batch: attention
+    [B, H, Sx + Sy, Dh] with the batch's key-valid segments (as
+    ``ssr_forward`` derives them), and the CE head [K, B(Sy - 1), Hh, C] with
+    the batch's targets (as ``ssr_loss_from_hidden`` lays them out)."""
+    b, sx = batch["x"].shape
+    sy = batch["y"].shape[1]
+    x_lens, y_lens = (torch.from_numpy(batch[k]).long()[:, None]
+                      for k in ("x_lens", "y_lens"))
+    seg = torch.cat([torch.arange(sx)[None] < x_lens,
+                     torch.arange(sy)[None] < y_lens], dim=1).to(torch.int32)
+    attn = ((b, cfg.nhead, sx + sy, cfg.d_model // cfg.nhead), seg.to(device))
+    k = cfg.n_codebooks
+    tgt = torch.from_numpy(batch["y"][:, 1:]).permute(2, 0, 1).reshape(k, -1)
+    ce = ((k, b * (sy - 1), cfg.head_hidden_dim, cfg.cardinality),
+          tgt.to(device, torch.int32).contiguous())
+    return attn, ce
+
+
+def rel_err(got, want) -> float:
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    return err / scale if scale > 0 else err
+
+
+def plain_backward_ms(torch, out, inputs, grad) -> float:
+    """CUDA-event time of autograd's backward through a built graph, for the
+    gradients of ``inputs`` only."""
+    return cuda_time_ms(torch, lambda: torch.autograd.grad(
+        out, inputs, grad, retain_graph=True), iters=5)
+
+
+def reference_lse(torch, q, k, seg, scale):
+    """Per-row natural log-sum-exp of the masked fp32 scores [B, H, S]."""
+    s = q.shape[2]
+    ok = (seg[:, None, :] == seg[:, :, None]) & torch.ones(
+        (s, s), dtype=torch.bool, device=q.device).tril()
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return torch.logsumexp(scores.masked_fill(~ok[:, None], float("-inf")), -1)
+
+
+def check_flash_backward(torch, device, path_case) -> dict:
+    """K1's training forward (output and log-sum-exp) and K3 on the training
+    path's batch and at the training shapes: dq/dk/dv on every row against
+    autograd through the plain version, two backward runs bit for bit, both
+    timed. The report's times are the training path's."""
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(5)
+    cases = [("train path", *path_case)] + [
+        ("synthetic", shape, train_segments(torch, shape[0], shape[2], 416, gen,
+                                            device))
+        for shape in TRAIN_ATTN_SHAPES]
+    worst, abs_worst, times = 0.0, 0.0, []
+    for label, shape, seg in cases:
+        b, h, s, dh = shape
+        scale = 1.0 / dh ** 0.5
+        q, k, v, dout = (torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+                         for _ in range(4))
+        out, lse = fa.flash_forward(q, k, v, seg, scale, with_lse=True)
+        runs = [fa.flash_backward(q, k, v, seg, out, lse, dout, scale)
+                for _ in range(2)]
+        lse_err = (lse - reference_lse(torch, q, k, seg, scale)).abs().max().item()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = fa.reference_attend(*leaves, seg, scale)
+        want = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, again, w in zip(("dq", "dk", "dv"), runs[0], runs[1], want):
+            if not torch.equal(got, again):
+                raise RuntimeError(f"flash backward {name} differs between two "
+                                   f"runs at {shape}")
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"flash backward: non-finite {name} at {shape}")
+            errs[name] = rel_err(got, w)
+            abs_worst = max(abs_worst, (got.float() - w.float()).abs().max().item())
+        errs["out"] = rel_err(out, ref)
+        ms = cuda_time_ms(torch, lambda: fa.flash_backward(
+            q, k, v, seg, out, lse, dout, scale), iters=5)
+        plain_ms = plain_backward_ms(torch, ref, leaves, dout)
+        print(f"[flash bwd] {label} {shape}: max err / max "
+              + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+              + f" (tol {REL}), lse max abs err {lse_err:.2e} (tol {LSE_ATOL}), "
+              f"two runs bit-identical; kernel {ms:.3f} ms, plain (autograd) "
+              f"{plain_ms:.3f} ms")
+        if max(errs.values()) > REL or not lse_err <= LSE_ATOL:
+            raise RuntimeError(f"flash forward/backward disagrees with the "
+                               f"plain version at {shape}: {errs}, lse {lse_err}")
+        worst = max(worst, max(errs.values()))
+        times.append((ms, plain_ms))
+        del ref, want, leaves
+    ms, plain_ms = times[0]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "ssr_speech_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "ssr_speech_tpu/ops/flash_attention.py:130",
+            "launches": 0, "max_abs_err": abs_worst, "max_rel_err": worst,
+            "ms": ms, "plain_ms": plain_ms, "shape": list(path_case[0])}
+
+
+def check_one_ce(torch, device, shape, tgt, gen) -> dict:
+    """K4-K6 at one [K, N, Hh, C]: errors against the plain version and its
+    autograd (checked), the backward twice bit for bit, and times."""
+    from ssr_speech_tpu_torch.ops import fused_ce as fce
+
+    k, n, hh, c = shape
+    hidden = torch.randn((k, n, hh), generator=gen).to(device, torch.bfloat16)
+    w2 = (torch.randn((k, hh, c), generator=gen) / hh ** 0.5).to(device, torch.bfloat16)
+    b2 = (torch.randn((k, c), generator=gen) * 0.1).to(device, torch.bfloat16)
+    if tgt is None:
+        tgt = torch.randint(0, c, (k, n), generator=gen, dtype=torch.int32).to(device)
+    g = torch.randn((k, n), generator=gen).to(device)
+
+    nll, logz, hits = fce.ce_forward(hidden, w2, b2, tgt)
+    runs = [(fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g),
+             *fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g)) for _ in range(2)]
+    leaves = [t.clone().requires_grad_() for t in (hidden, w2, b2)]
+    p_nll, p_hits = fce.reference_ce_head(*leaves, tgt)
+    want = torch.autograd.grad(p_nll, leaves, g, retain_graph=True)
+    with torch.no_grad():
+        logits = torch.matmul(hidden.float(), w2.float()) + b2.float()[:, None]
+        p_logz = torch.logsumexp(logits, dim=-1)
+        t_logit = torch.gather(logits, -1, tgt.long()[..., None])[..., 0]
+        near_tie = (t_logit - logits.topk(fce.TOP, dim=-1).values[..., -1]
+                    ).abs() <= 1e-3
+        del logits
+    torch.cuda.synchronize()
+    r = {"errs": {"nll": rel_err(nll, p_nll), "logz": rel_err(logz, p_logz)},
+         "abs": {"nll": (nll - p_nll).abs().max().item()}}
+    for name, i, w in (("dhidden", 0, want[0]), ("dw2", 1, want[1]), ("db2", 2, want[2])):
+        if not torch.equal(runs[0][i], runs[1][i]):
+            raise RuntimeError(f"fused CE {name} differs between two runs at {shape}")
+        r["errs"][name] = rel_err(runs[0][i], w)
+        r["abs"][name] = (runs[0][i].float() - w.float()).abs().max().item()
+    bad = hits != p_hits
+    n_bad, n_off = int(bad.sum()), int((bad & ~near_tie).sum())
+    r["fwd"] = cuda_time_ms(torch, lambda: fce.ce_forward(hidden, w2, b2, tgt), iters=5)
+    with torch.no_grad():
+        r["fwd_plain"] = cuda_time_ms(
+            torch, lambda: fce.reference_ce_head(hidden, w2, b2, tgt), iters=5)
+    r["dh"] = cuda_time_ms(torch, lambda: fce.ce_backward_dhidden(
+        hidden, w2, b2, tgt, logz, g), iters=5)
+    r["dw"] = cuda_time_ms(torch, lambda: fce.ce_backward_dw2(
+        hidden, w2, b2, tgt, logz, g), iters=5)
+    r["dh_plain"] = plain_backward_ms(torch, p_nll, leaves[:1], g)
+    r["dw_plain"] = plain_backward_ms(torch, p_nll, leaves[1:], g)
+    r["bwd_plain"] = plain_backward_ms(torch, p_nll, leaves, g)
+    print(f"[fused ce] {shape}: max err / max "
+          + ", ".join(f"{k} {e:.2e}" for k, e in r["errs"].items())
+          + f" (tol {REL}); hits differ on {n_bad} of {k * n} rows, {n_off} of "
+          f"them not near-ties; backward bit-identical over two runs; forward "
+          f"{r['fwd']:.3f} ms (plain {r['fwd_plain']:.3f}), dhidden "
+          f"{r['dh']:.3f} ms (plain {r['dh_plain']:.3f}), dw2/db2 {r['dw']:.3f} "
+          f"ms (plain {r['dw_plain']:.3f}); backward {r['dh'] + r['dw']:.3f} ms "
+          f"against {r['bwd_plain']:.3f} ms for the plain backward of all three "
+          f"gradients")
+    if max(r["errs"].values()) > REL or n_off:
+        raise RuntimeError(f"fused CE disagrees with the plain version at "
+                           f"{shape}: {r['errs']}, {n_off} hit mismatches away "
+                           f"from ties")
+    return r
+
+
+def check_fused_ce(torch, device, path_case) -> list:
+    """K4-K6 on the training path's batch (its N and targets) and at the
+    830M head with N = 8000: nll, logz, hits, dhidden, dw2 and db2 against
+    the plain version and its autograd, the backward twice bit for bit, each
+    timed. Hits may differ only where the target logit is within 1e-3 of the
+    10th largest (fp32 summation order decides those). The report's times
+    are the training path's."""
+    gen = torch.Generator().manual_seed(6)
+    shape, tgt = path_case
+    res = [check_one_ce(torch, device, shape, tgt, gen),
+           check_one_ce(torch, device, TRAIN_CE_SHAPE, None, gen)]
+    worst = {key: max(r["errs"][key] for r in res) for key in res[0]["errs"]}
+    worst_abs = {key: max(r["abs"][key] for r in res) for key in res[0]["abs"]}
+    t = res[0]
+    common = {"route": "cuda", "source": "ssr_speech_tpu_torch/csrc/fused_ce.cu",
+              "launches": 0, "shape": list(shape)}
+    return [
+        {"name": "fused_ce_fwd", "replaces": "ssr_speech_tpu/ops/fused_ce.py:80",
+         "max_abs_err": worst_abs["nll"],
+         "max_rel_err": max(worst["nll"], worst["logz"]),
+         "ms": t["fwd"], "plain_ms": t["fwd_plain"], **common},
+        {"name": "fused_ce_bwd_dhidden",
+         "replaces": "ssr_speech_tpu/ops/fused_ce.py:100",
+         "max_abs_err": worst_abs["dhidden"], "max_rel_err": worst["dhidden"],
+         "ms": t["dh"], "plain_ms": t["dh_plain"], **common},
+        {"name": "fused_ce_bwd_dw2", "replaces": "ssr_speech_tpu/ops/fused_ce.py:121",
+         "max_abs_err": max(worst_abs["dw2"], worst_abs["db2"]),
+         "max_rel_err": max(worst["dw2"], worst["db2"]),
+         "ms": t["dw"], "plain_ms": t["dw_plain"],
+         "plain_bwd_all_ms": t["bwd_plain"], **common},
+    ]
+
+
+# A 4-layer, head_dim 128 LM with sharpened attention (qkv_w x 3): on the CPU,
+# bf16 alone moves the compared gradients by 5.8e-2 (qkv_w, layers 1-3) and
+# 1.5e-2 (head2_w) of their max, while attending one future key moves them by
+# 0.51 / 0.20 and ignoring the segments by 0.62 / 0.34. At the init's scale
+# the attention is near uniform and a mask error hides inside the bf16 noise.
+SMALL_TRAIN = dict(d_model=256, nhead=2, num_layers=4, n_codebooks=4,
+                   audio_embedding_dim=256, text_vocab_size=30, head_hidden=128,
+                   max_position=1024, trm_dropout=0.0, text_embedding_dropout=0.0,
+                   text_positional_embedding_dropout=0.0,
+                   audio_positional_embedding_dropout=0.0, attn_impl="flash",
+                   ce_impl="fused")
+QKV_SCALE = 3.0
+GRAD_TOL = {"qkv_w": 0.2, "head2_w": 0.07}
+
+
+def small_train_batch():
+    import numpy as np
+
+    from ssr_speech_tpu.config import SSRModelConfig
+
+    cfg = SSRModelConfig(**SMALL_TRAIN)
+    ts = cfg.tokens
+    rng = np.random.default_rng(3)
+    b, sx, sy = 4, 64, 256
+    x_lens = np.array([64, 40, 23, 51])
+    y_lens = np.array([256, 200, 256, 131])
+    x = rng.integers(0, cfg.text_vocab_size - 1, size=(b, sx))
+    y = rng.integers(0, ts.audio_vocab_size, size=(b, sy, cfg.n_codebooks))
+    y[:, 0] = ts.sos
+    y[:, 100] = ts.mts
+    for r in range(b):
+        x[r, x_lens[r]:] = cfg.text_pad_token
+        y[r, y_lens[r]:] = ts.pad
+    return cfg, dict(x=x, x_lens=x_lens, y=y, y_lens=y_lens)
+
+
+def check_small_train_step(torch, device) -> None:
+    """One training forward/backward on the card (bf16, flash + fused CE
+    kernels) against the port's fp32 CPU path: the loss, and the gradients
+    of qkv_w in layers 1-3 and of head2_w relative to their max. Then eight
+    ScaledAdam steps on the one batch: the loss must fall."""
+    from ssr_speech_tpu.config import OptimConfig, TrainConfig
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models.from_jax import trainable_lm_from_jax
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+    from ssr_speech_tpu_torch.ops import fused_ce as fce
+    from ssr_speech_tpu_torch.training.optim import build_optimizer
+    from ssr_speech_tpu_torch.training.trainer import make_train_step
+
+    cfg, batch = small_train_batch()
+    params = tssr.init_ssr(torch.Generator().manual_seed(3), cfg)
+    params["decoder"]["layers"]["qkv_w"] *= QKV_SCALE
+
+    def run(dev, dtype):
+        model = trainable_lm_from_jax(params, cfg, device=dev)
+        out = tssr.ssr_forward(model, cfg, {k: torch.from_numpy(v).to(dev)
+                                            for k, v in batch.items()},
+                               compute_dtype=dtype, codebook_weight=CW)
+        out["loss"].backward()
+        return (out["loss"].item(),
+                model["decoder"]["layers"]["qkv_w"].grad[1:].cpu(),
+                model["head2_w"].grad.cpu())
+
+    fa.reset_launches()
+    fce.reset_launches()
+    card = run(device, torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = (fa.launches, fa.bwd_launches, fce.fwd_launches,
+              fce.dhidden_launches, fce.dw2_launches)
+    if counts != (cfg.num_layers, cfg.num_layers, 1, 1, 1):
+        raise RuntimeError(f"small train step launched {counts} (flash fwd, "
+                           f"bwd, ce fwd, dhidden, dw2)")
+    cpu = run(torch.device("cpu"), torch.float32)
+    errs = {"loss": abs(card[0] - cpu[0]) / abs(cpu[0]),
+            "qkv_w": rel_err(card[1], cpu[1]), "head2_w": rel_err(card[2], cpu[2])}
+    print(f"[train-small] 4-layer Dh=128 step, bf16 card vs fp32 CPU: loss "
+          f"{card[0]:.4f} vs {cpu[0]:.4f} (rel {errs['loss']:.2e}); grad max "
+          f"err / max: qkv_w layers 1-3 {errs['qkv_w']:.2e} (tol "
+          f"{GRAD_TOL['qkv_w']}), head2_w {errs['head2_w']:.2e} (tol "
+          f"{GRAD_TOL['head2_w']}); launches {counts}")
+    if errs["loss"] > 1e-2 or any(errs[k] > t for k, t in GRAD_TOL.items()):
+        raise RuntimeError(f"small train step on the card disagrees with the "
+                           f"CPU: {errs}")
+
+    tcfg = TrainConfig(precision="bfloat16", codebook_weight=CW,
+                       optim=OptimConfig(optimizer_name="scaledadam", lr=0.05))
+    opt, _ = build_optimizer(tcfg.optim)
+    model = trainable_lm_from_jax(params, cfg, device=device)
+    state = opt.init(model.tree())
+    step = make_train_step(cfg, tcfg, opt, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ms = [step(model, state, batch, gen) for _ in range(8)]
+    losses = [float(m["loss"]) for m in ms]
+    print(f"[train-small] 8 ScaledAdam steps on one batch: loss "
+          + " ".join(f"{x:.2f}" for x in losses))
+    if any(m["skipped"] for m in ms) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"small training run did not lower the loss: {losses}")
+
+
+TRAIN_STEPS = 5  # --num_steps: the loop runs steps 0..TRAIN_STEPS
+TRAIN_TOKENS = 20000  # --max_num_tokens, the CLI default
+TRAIN_PHONES = 119  # text vocab 120 (the e830M geometry of __graft_entry__.py)
+
+
+def write_corpus(root: Path, n: int = 600, seed: int = 0) -> str:
+    """A seeded synthetic corpus in the training dataset's layout (the
+    recipe of tests/test_training.py::make_synth_corpus) at realistic
+    lengths: 2-20 s of audio (100-1000 codec frames at 50 Hz) and 20-150
+    phonemes per utterance, 4 codebooks of 2048 codes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = root / "corpus"
+    for sub in ("manifest", "phonemes", "codes"):
+        (d / sub).mkdir(parents=True, exist_ok=True)
+    phones = [f"ph{i}" for i in range(TRAIN_PHONES)]
+    (d / "vocab.txt").write_text("\n".join(f"{i} {p}" for i, p in enumerate(phones)))
+    lines = []
+    for i in range(n):
+        seg = f"utt{i:04d}"
+        frames = int(rng.integers(100, 1001))
+        lines.append(f"0\t{seg}\t{frames}")
+        toks = rng.choice(phones, size=int(rng.integers(20, 151)))
+        (d / "phonemes" / f"{seg}.txt").write_text(" ".join(toks))
+        codes = rng.integers(0, 2048, size=(4, frames))
+        (d / "codes" / f"{seg}.txt").write_text(
+            "\n".join(" ".join(str(c) for c in row) for row in codes))
+    (d / "manifest" / "train.txt").write_text("\n".join(lines))
+    return str(d)
+
+
+def train_argv(device, work: Path, root: str, layers: int = 16,
+               d_model: int = 2048, nhead: int = 16):
+    return ["--device", str(device), "--exp_dir", str(work / "train_exp"),
+            "--dataset_dir", root, "--encodec_folder_name", "codes",
+            "--d_model", str(d_model), "--nhead", str(nhead),
+            "--num_decoder_layers", str(layers), "--n_codebooks", "4",
+            "--text_vocab_size", str(TRAIN_PHONES + 1),
+            "--attn_impl", "flash", "--ce_impl", "fused",
+            "--optimizer_name", "scaledadam", "--lr", "0.05",
+            "--codebook_weight", ",".join(str(w) for w in CW),
+            "--max_num_tokens", str(TRAIN_TOKENS), "--benchmark_no_load",
+            "--num_steps", str(TRAIN_STEPS), "--print_every_n_steps", "1",
+            "--val_every_n_steps", "1000000"]
+
+
+def drive_training_path(torch, device, argv, card: str, checked) -> dict:
+    """``train_lm.main(argv)`` (by default the e830M geometry: d_model 2048,
+    16 heads, 16 layers, 4 codebooks) over the synthetic corpus, with the
+    CLI's dropouts: finite losses, no skipped step, changed parameters, a
+    bundle that the serving loader reads, the exact launch counts (flash
+    forward and backward once per layer per step, each CE kernel once per
+    step), and every step on the batch shape ``checked`` (B, Sx, Sy) at which
+    the kernels were held against their plain versions. Returns the launches
+    of this path by kernel."""
+    from ssr_speech_tpu_torch import train_lm
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models.pretrained import load_lm
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+    from ssr_speech_tpu_torch.ops import fused_ce as fce
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # count only this path's launches
+    fce.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_lm.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches,
+                "fused_ce_fwd": fce.fwd_launches,
+                "fused_ce_bwd_dhidden": fce.dhidden_launches,
+                "fused_ce_bwd_dw2": fce.dw2_launches}
+    hist, cfg = trainer.history, trainer.cfg
+    steps = len(hist)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+    b, sx, sy = hist[0]["batch_shape"]
+    step_s = sum(h["seconds"] for h in hist[1:]) / max(steps - 1, 1)
+    print(f"[train-830M] {steps} steps of [B={b}, S={sx}+{sy}] ({b * (sx + sy)} "
+          f"positions, {hist[0]['real_tokens']} unpadded), "
+          f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f}M "
+          f"params; first step {hist[0]['seconds']:.2f} s, then "
+          f"{step_s * 1e3:.1f} ms/step = {b * (sx + sy) / step_s:.0f} "
+          f"positions/s ({hist[0]['real_tokens'] / step_s:.0f} unpadded/s); "
+          f"peak {peak:.2f} GiB; main() {wall:.1f} s [{card}]")
+    print("[train-830M] loss/ntokens by step: " + " ".join(
+        f"{h['loss'] / max(h['ntokens'], 1):.4f}" for h in hist))
+    if steps != TRAIN_STEPS + 1:
+        raise RuntimeError(f"{steps} training steps, expected {TRAIN_STEPS + 1}")
+    if any(tuple(h["batch_shape"]) != tuple(checked) for h in hist):
+        raise RuntimeError(f"training ran on batch shapes "
+                           f"{sorted({tuple(h['batch_shape']) for h in hist})}; "
+                           f"the kernel checks took {tuple(checked)}")
+    if not all(math.isfinite(h["loss"]) and h["skipped"] == 0.0 for h in hist):
+        raise RuntimeError(f"non-finite or skipped training steps: {hist}")
+    want = {"flash_attention_fwd": cfg.num_layers * steps,
+            "flash_attention_bwd": cfg.num_layers * steps,
+            "fused_ce_fwd": steps, "fused_ce_bwd_dhidden": steps,
+            "fused_ce_bwd_dw2": steps}
+    if launches != want:
+        raise RuntimeError(f"training launches {launches}, expected {want}")
+    init = tssr.init_ssr(torch.Generator(device=device).manual_seed(
+        trainer.tcfg.seed + 1), cfg, device)
+    for key in ("head2_w", "text_emb"):
+        if torch.equal(init[key], trainer.model[key].detach()):
+            raise RuntimeError(f"training left {key} at its init")
+    del init
+    served, served_cfg, _ = load_lm(os.path.join(trainer.exp_dir, "bundle.pkl"), device)
+    if served_cfg != cfg or not torch.equal(served["head2_w"],
+                                            trainer.model["head2_w"].detach()):
+        raise RuntimeError("the serving loader does not read the trained bundle")
+    print(f"[train-830M] finite losses, no skipped step, parameters moved, "
+          f"bundle loads for serving; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not (REPO / "ssr_speech_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -368,13 +838,35 @@ def main() -> int:
     set_precision_policy()
     card = card_line()
     print(f"[card] {card}")
-    kernels = [check_flash(torch, device)]
-    check_small_reference(torch, device)
+    t0 = time.perf_counter()
+    build_kernels()
     work = REPO / ".smoke_work"
     try:
-        kernels[0]["launches"] = drive_main_path(torch, device, work, card)
+        argv = train_argv(device, work, write_corpus(work))
+        cfg, batch = first_train_batch(device, argv)
+        attn_case, ce_case = train_path_cases(torch, cfg, batch, device)
+        print(f"[train-830M] first batch: x {list(batch['x'].shape)}, y "
+              f"{list(batch['y'].shape)}; kernel checks at attention "
+              f"{list(attn_case[0])} and CE {list(ce_case[0])}")
+        kernels = [check_flash(torch, device),
+                   check_flash_backward(torch, device, attn_case),
+                   *check_fused_ce(torch, device, ce_case)]
+        del attn_case, ce_case
+        check_small_reference(torch, device)
+        check_small_train_step(torch, device)
+        serving = drive_main_path(torch, device, work, card)
+        training = drive_training_path(
+            torch, device, argv, card,
+            (batch["x"].shape[0], batch["x"].shape[1], batch["y"].shape[1]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    for entry in kernels:
+        entry["launches"] = training[entry["name"]]
+    fwd = kernels[0]
+    fwd["launches_by_path"] = {"serving": serving,
+                               "training": training[fwd["name"]]}
+    fwd["launches"] = serving + training[fwd["name"]]
+    print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,10 @@
 // rounded to bf16 for the second product, as the plain version rounds the
 // normalised probabilities.
 //
+// With a non-null `lse` it also writes each row's log-sum-exp (fp32, natural
+// log of the scaled scores), which the backward (flash_attention_bwd.cu)
+// reads instead of recomputing the softmax statistics.
+//
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (ssr_speech_tpu_torch/ops/cuda_build.py).
 
@@ -27,9 +31,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
+
+#include "mma_fragments.cuh"
 
 namespace {
+
+using ssr::ld32;
+using ssr::mma_16816;
+using ssr::pack_bf16;
 
 constexpr int kHeadDim = 128;
 constexpr int kBlockM = 64;  // query rows per block, 16 per warp
@@ -42,31 +51,11 @@ constexpr int kPitch = kHeadDim + 8;
 constexpr size_t kSmemBytes =
     2 * kBlockN * kPitch * sizeof(uint16_t) + kBlockN * sizeof(int);
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t r;
-  memcpy(&r, &v, sizeof(r));
-  return r;
-}
-
-// D = A.B + D for one 16x8x16 tile; A row-major 16x16, B column-major 16x8.
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                  const uint16_t* __restrict__ v, const int* __restrict__ seg,
-                 uint16_t* __restrict__ out, int H, int S, float scale_log2) {
+                 uint16_t* __restrict__ out, float* __restrict__ lse, int H,
+                 int S, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* ks = reinterpret_cast<uint16_t*>(smem_raw);
   uint16_t* vs = ks + kBlockN * kPitch;
@@ -88,6 +77,7 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   const uint16_t* vh = v + head;
   uint16_t* oh = out + head;
   const int* segb = seg + static_cast<size_t>(b) * S;
+  float* lseh = lse == nullptr ? nullptr : lse + (static_cast<size_t>(b) * H + h) * S;
 
   const int m0 = m_block * kBlockM;
   const int row0 = m0 + warp * 16 + g;  // this thread's two rows
@@ -228,6 +218,13 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (lseh != nullptr && t4 == 0) {
+    // natural-log log-sum-exp of the scaled scores: m and l are in the log2
+    // domain of scores * sm_scale
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (in0) lseh[row0] = (m_run[0] + log2f(l0)) * kLn2;
+    if (in1) lseh[row1] = (m_run[1] + log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int dt = 0; dt < kHeadDim / 8; ++dt) {
     const int c = dt * 8 + t4 * 2;
@@ -247,11 +244,12 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 // Launches on `stream` (a cudaStream_t) and returns cudaGetLastError(): a
 // refused launch (bad shape, too much shared memory) is reported here, not at
 // the next synchronise. Returns cudaErrorInvalidValue for shapes the kernel
-// does not take.
+// does not take. `lse` (fp32 [B, H, S], the per-row log-sum-exp the backward
+// needs) may be null: the serving path does not keep it.
 extern "C" int ssr_flash_attention_fwd_bf16(const void* q, const void* k,
                                             const void* v, const void* seg,
-                                            void* out, int B, int H, int S,
-                                            int head_dim, float sm_scale,
+                                            void* out, void* lse, int B, int H,
+                                            int S, int head_dim, float sm_scale,
                                             void* stream) {
   if (head_dim != kHeadDim || B <= 0 || H <= 0 || S <= 0 || H > 65535 ||
       B > 65535) {
@@ -263,6 +261,6 @@ extern "C" int ssr_flash_attention_fwd_bf16(const void* q, const void* k,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const int*>(seg),
-      static_cast<uint16_t*>(out), H, S, scale_log2);
+      static_cast<uint16_t*>(out), static_cast<float*>(lse), H, S, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

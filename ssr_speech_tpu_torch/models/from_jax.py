@@ -2,10 +2,12 @@
 
 A JAX bundle (``ssr_speech_tpu/utils/checkpoint.py``) is a pickle of nested
 dicts and lists of numpy arrays. :class:`ParamTree` mirrors that nesting as an
-``nn.Module`` (dict -> submodule, list -> ``nn.ModuleList``, array -> buffer),
-so ``.to(device)`` moves a whole model and the port's functions index it with
-the JAX keys: ``params["decoder"]["layers"]["qkv_w"]``. Arrays become buffers,
-not parameters: the port serves, it does not train yet.
+``nn.Module`` (dict -> submodule, list -> ``nn.ModuleList``), so ``.to(device)``
+moves a whole model and the port's functions index it with the JAX keys:
+``params["decoder"]["layers"]["qkv_w"]``. For serving an array becomes a
+buffer (:func:`lm_from_jax`); for training it becomes a trainable fp32
+``nn.Parameter`` (:func:`trainable_lm_from_jax`), and :func:`lm_to_numpy` turns
+the trained tree back into a bundle pytree that both packages load.
 """
 
 from __future__ import annotations
@@ -18,17 +20,23 @@ from torch import nn
 
 from ssr_speech_tpu.config import CodecConfig, SSRModelConfig
 
+from ..utils.tree import tree_map
+
 
 class ParamTree(nn.Module):
     """A nested parameter dict as a module; indexed like the JAX pytree."""
 
-    def __init__(self, tree: Dict[str, Any]):
+    def __init__(self, tree: Dict[str, Any], trainable: bool = False):
         super().__init__()
         for key, val in tree.items():
             if isinstance(val, dict):
-                self.add_module(key, ParamTree(val))
+                self.add_module(key, ParamTree(val, trainable))
             elif isinstance(val, (list, tuple)):
-                self.add_module(key, nn.ModuleList(ParamTree(x) for x in val))
+                self.add_module(key, nn.ModuleList(ParamTree(x, trainable)
+                                                   for x in val))
+            elif trainable:  # an fp32 master copy, never a view of ``val``
+                self.register_parameter(key, nn.Parameter(
+                    _as_tensor(val).to(torch.float32, copy=True)))
             else:
                 self.register_buffer(key, _as_tensor(val))
 
@@ -36,7 +44,17 @@ class ParamTree(nn.Module):
         return getattr(self, key)
 
     def __contains__(self, key: str) -> bool:
-        return key in self._buffers or key in self._modules
+        return (key in self._parameters or key in self._buffers
+                or key in self._modules)
+
+    def tree(self) -> Dict[str, Any]:
+        """The tensors themselves (parameters or buffers) in the JAX
+        nesting: dicts, lists for ``nn.ModuleList``."""
+        out: Dict[str, Any] = {**self._parameters, **self._buffers}
+        for key, mod in self._modules.items():
+            out[key] = ([m.tree() for m in mod] if isinstance(mod, nn.ModuleList)
+                        else mod.tree())
+        return out
 
 
 def _as_tensor(val) -> torch.Tensor:
@@ -51,8 +69,9 @@ def _as_tensor(val) -> torch.Tensor:
 class SSRLM(ParamTree):
     """SSR-Speech LM parameters plus the config they were built for."""
 
-    def __init__(self, params: Dict[str, Any], cfg: SSRModelConfig):
-        super().__init__(params)
+    def __init__(self, params: Dict[str, Any], cfg: SSRModelConfig,
+                 trainable: bool = False):
+        super().__init__(params, trainable)
         self.cfg = cfg
         _check_shape(self["decoder"]["layers"]["qkv_w"],
                      (cfg.num_layers, cfg.d_model, 3 * cfg.d_model), "qkv_w")
@@ -96,6 +115,21 @@ def lm_from_jax(params: Dict[str, Any], cfg: SSRModelConfig, *,
     return model.eval()
 
 
+def trainable_lm_from_jax(params: Dict[str, Any], cfg: SSRModelConfig, *,
+                          device="cpu") -> SSRLM:
+    """JAX ``init_ssr`` / bundle params (or the port's ``init_ssr`` tree) ->
+    :class:`SSRLM` of fp32 ``nn.Parameter`` master weights on ``device``, in
+    the same nesting. The trainer casts them to the compute dtype at each
+    use, as the JAX trainer does."""
+    return SSRLM(params, cfg, trainable=True).to(device)
+
+
+def lm_to_numpy(model: ParamTree) -> Dict[str, Any]:
+    """Inverse of :func:`trainable_lm_from_jax`: the params pytree as numpy
+    arrays (what ``params`` holds in a bundle)."""
+    return to_numpy_tree(model.tree())
+
+
 def codec_from_jax(params: Dict[str, Any], cfg: CodecConfig, *,
                    device="cpu") -> WMEncodec:
     """JAX ``init_wmencodec`` / bundle params -> :class:`WMEncodec` (fp32,
@@ -105,10 +139,5 @@ def codec_from_jax(params: Dict[str, Any], cfg: CodecConfig, *,
 
 def to_numpy_tree(tree):
     """Tensors -> numpy arrays throughout a nested dict/list (for bundles)."""
-    if isinstance(tree, dict):
-        return {k: to_numpy_tree(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [to_numpy_tree(v) for v in tree]
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
-    return tree
+    return tree_map(lambda t: t.detach().cpu().numpy()
+                    if isinstance(t, torch.Tensor) else t, tree)

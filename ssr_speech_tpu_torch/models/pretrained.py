@@ -14,6 +14,7 @@ import dataclasses
 import json
 import os
 import pickle
+import re
 from typing import Any, Dict, Tuple
 
 import torch
@@ -68,3 +69,16 @@ def save_bundle(path: str, **entries: Any) -> None:
     with open(tmp, "wb") as f:
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
     os.replace(tmp, path)
+
+
+def save_step_checkpoint(dirpath: str, step: int, keep_last: int = 3,
+                         **entries: Any) -> None:
+    """``ckpt_<step:08d>.pkl`` under ``dirpath``, keeping the newest
+    ``keep_last`` (the rule of the JAX ``save_step_checkpoint``; the JAX
+    ``latest_checkpoint`` finds them)."""
+    os.makedirs(dirpath, exist_ok=True)
+    save_bundle(os.path.join(dirpath, f"ckpt_{step:08d}.pkl"), **entries)
+    cks = sorted(f for f in os.listdir(dirpath)
+                 if re.fullmatch(r"ckpt_\d+\.pkl", f))
+    for old in cks[:-keep_last]:
+        os.remove(os.path.join(dirpath, old))

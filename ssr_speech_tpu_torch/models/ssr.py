@@ -1,8 +1,10 @@
 """SSR-Speech LM over [phoneme tokens ; codec tokens] (port of
 ``ssr_speech_tpu/models/ssr.py``): embeddings, sinusoidal positions with a
-learnable alpha, the K per-codebook GELU heads, and the forward-only masked
-span loss with its metrics. Functions take the :class:`from_jax.SSRLM` tree
-as ``params``, indexed with the JAX keys.
+learnable alpha, the K per-codebook GELU heads, and the masked-span training
+loss with its metrics (unfused, or through the fused CE head kernels).
+Functions take the :class:`from_jax.SSRLM` tree as ``params``, indexed with
+the JAX keys; they are differentiable, and the serving and eval callers run
+them under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 
 from ssr_speech_tpu.config import SSRModelConfig
 
+from ..ops.fused_ce import fused_ce_head
 from ..ops.masking import make_pad_mask, xy_attn_bias
 from . import transformer as trf
 
@@ -89,17 +92,21 @@ def predict_logits(params, h: torch.Tensor, dtype=torch.float32) -> torch.Tensor
     return torch.einsum("...kh,khc->...kc", hidden, w2) + b2
 
 
-def ssr_embed(params, cfg: SSRModelConfig, batch: Dict[str, torch.Tensor]
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[x ; y] -> (h [B, Sx+Sy, D], bias [B, 1, S, S]); deterministic (no
-    dropout)."""
+def ssr_embed(params, cfg: SSRModelConfig, batch: Dict[str, torch.Tensor], *,
+              deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """[x ; y] -> h [B, Sx+Sy, D], with the text and audio positional
+    dropouts (in that order) unless ``deterministic``."""
     x, y = batch["x"], batch["y"]
     sx, sy = x.shape[1], y.shape[1]
     pe = sine_table(max(sx, sy), cfg.d_model, device=x.device)
-    x_h = embed_text(params, cfg, x, pe)
+    x_h = trf.dropout(embed_text(params, cfg, x, pe),
+                      cfg.text_positional_embedding_dropout, generator,
+                      deterministic)
     y_h = apply_audio_pos(params, embed_audio_tokens(params, cfg, y), pe, 0)
-    h = torch.cat([x_h, y_h], dim=1)
-    return h, xy_attn_bias(batch["x_lens"], batch["y_lens"], sx, sy)
+    y_h = trf.dropout(y_h, cfg.audio_positional_embedding_dropout, generator,
+                      deterministic)
+    return torch.cat([x_h, y_h], dim=1)
 
 
 def ssr_loss_from_hidden(params, cfg: SSRModelConfig, y_out: torch.Tensor,
@@ -108,9 +115,12 @@ def ssr_loss_from_hidden(params, cfg: SSRModelConfig, y_out: torch.Tensor,
                          predict_all: bool = False,
                          codebook_weight: Optional[Tuple[float, ...]] = None,
                          head_dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """Heads + masked-span CE over the audio positions (y_out [B, Sy, D]),
-    the unfused path of JAX: sum_k mean-CE_k * ntokens_k * weight_k, and the
-    top-10 hit by rank counting (#logits > target < 10), not a sort."""
+    """Heads + masked-span CE over the audio positions (y_out [B, Sy, D]):
+    sum_k mean-CE_k * ntokens_k * weight_k, and the top-10 hit by rank
+    counting (#logits > target < 10), not a sort. ``cfg.ce_impl`` "fused"
+    runs the second head matmul and the CE through :func:`fused_ce_head`
+    (fp32 logits from ``head_dtype`` operands); "unfused" materialises the
+    logits in ``head_dtype``."""
     y, y_lens = batch["y"], batch["y_lens"]
     sy = y.shape[1]
     K = cfg.n_codebooks
@@ -127,13 +137,27 @@ def ssr_loss_from_hidden(params, cfg: SSRModelConfig, y_out: torch.Tensor,
         last_mts = torch.where(is_mts, pos, -1).amax(dim=1, keepdim=True)
         tmp_masks = masks & (pos >= last_mts)
 
-    logits = predict_logits(params, y_out, dtype=head_dtype)[:, :-1]
-    logf = logits.float()
-    logz = torch.logsumexp(logf, dim=-1)
-    tgt_logit = torch.gather(logf, -1, targets[..., None].long())[..., 0]
-    nll = logz - tgt_logit  # [B, S-1, K]
-    rank = (logf > tgt_logit[..., None]).float().sum(dim=-1)
-    hit = (rank < 10.0).float()
+    if cfg.ce_impl == "fused":
+        b, sm1 = targets.shape[:2]
+        dt = head_dtype
+        hid = F.gelu(torch.einsum("bsd,kdh->bskh", y_out[:, :-1].to(dt),
+                                  params["head1_w"].to(dt))
+                     + params["head1_b"].to(dt), approximate="none")
+        rows = hid.permute(2, 0, 1, 3).reshape(K, b * sm1, -1).contiguous()
+        tgt_rows = targets.permute(2, 0, 1).reshape(K, b * sm1)
+        nll_k, hit_k = fused_ce_head(rows, params["head2_w"].to(dt).contiguous(),
+                                     params["head2_b"].to(dt).contiguous(),
+                                     tgt_rows.to(torch.int32).contiguous())
+        nll = nll_k.reshape(K, b, sm1).permute(1, 2, 0)
+        hit = hit_k.reshape(K, b, sm1).permute(1, 2, 0)
+    else:
+        logits = predict_logits(params, y_out, dtype=head_dtype)[:, :-1]
+        logf = logits.float()
+        logz = torch.logsumexp(logf, dim=-1)
+        tgt_logit = torch.gather(logf, -1, targets[..., None].long())[..., 0]
+        nll = logz - tgt_logit  # [B, S-1, K]
+        rank = (logf > tgt_logit[..., None]).float().sum(dim=-1)
+        hit = (rank < 10.0).float()
 
     sel = tmp_masks.float()
     ce_sum = (nll * sel).sum(dim=(0, 1))
@@ -149,28 +173,35 @@ def ssr_loss_from_hidden(params, cfg: SSRModelConfig, y_out: torch.Tensor,
                 top10acc=(acc_k * ntokens).sum())
 
 
-@torch.no_grad()
 def ssr_forward(params, cfg: SSRModelConfig, batch: Dict[str, torch.Tensor], *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
                 compute_dtype=None, predict_mask_token: bool = True,
                 predict_all: bool = False,
                 codebook_weight: Optional[Tuple[float, ...]] = None
                 ) -> Dict[str, torch.Tensor]:
-    """Forward-only training/eval loss. batch: x [B,Sx], x_lens [B],
-    y [B,Sy,K], y_lens [B]. With ``cfg.attn_impl`` "flash" the attention is
-    the fused kernel over the key-validity mask derived here (the
-    full-sequence forward the TPU kernel carries). ``compute_dtype``
-    defaults to the dtype of the decoder's matmul weights."""
+    """Training/eval loss. batch: x [B,Sx], x_lens [B], y [B,Sy,K], y_lens
+    [B]. With ``cfg.attn_impl`` "flash" the attention is the fused kernel
+    over the key-validity mask derived here; "einsum" builds the additive
+    [B, 1, S, S] bias instead. Unless ``deterministic``, the positional and
+    transformer dropouts draw from ``generator`` in JAX's order.
+    ``compute_dtype`` (also the heads' dtype) defaults to the dtype of the
+    decoder's matmul weights."""
     if compute_dtype is None:
         compute_dtype = params["decoder"]["layers"]["qkv_w"].dtype
-    sx = batch["x"].shape[1]
-    h, bias = ssr_embed(params, cfg, batch)
-    key_valid = None
+    sx, sy = batch["x"].shape[1], batch["y"].shape[1]
+    h = ssr_embed(params, cfg, batch, deterministic=deterministic,
+                  generator=generator)
+    bias = key_valid = None
     if cfg.attn_impl in ("flash", "splash"):
-        sy = batch["y"].shape[1]
         key_valid = ~torch.cat([make_pad_mask(batch["x_lens"], sx),
                                 make_pad_mask(batch["y_lens"], sy)], dim=1)
+    else:
+        bias = xy_attn_bias(batch["x_lens"], batch["y_lens"], sx, sy)
     out = trf.transformer_forward(params["decoder"], h, cfg, bias=bias,
-                                  key_valid=key_valid, dtype=compute_dtype)
+                                  key_valid=key_valid, dtype=compute_dtype,
+                                  deterministic=deterministic,
+                                  generator=generator)
     return ssr_loss_from_hidden(
         params, cfg, out[:, sx:], batch, predict_mask_token=predict_mask_token,
         predict_all=predict_all, codebook_weight=codebook_weight,

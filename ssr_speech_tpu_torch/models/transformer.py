@@ -8,9 +8,14 @@ of the stacked tensors. LayerNorm statistics, attention scores and softmax run
 in fp32 whatever the compute dtype, as in JAX.
 
 The full-sequence attention of the prefill and of the training forward goes
-through ``ops.flash_attention.flash_attend_xy`` (the hand-written Hopper kernel
-on CUDA); the one-token decode attention stays plain matmul/softmax, as JAX
-leaves it to XLA einsums.
+through ``ops.flash_attention.flash_attend_xy`` (the hand-written Hopper
+kernels on CUDA, forward and backward); the one-token decode attention stays
+plain matmul/softmax, as JAX leaves it to XLA einsums.
+
+Matmul weights are cast to the activations' dtype at each use, as JAX casts
+them: a no-op for the serving path's stored bf16 (or fp32) weights, and the
+bf16 compute copy of the trainer's fp32 master weights. The training forward
+draws its inverted dropout from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -76,6 +81,20 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y * w + b).to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout (JAX ``transformer._dropout``): keep each element with
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate). The draw
+    comes from ``generator``, so a seeded generator repeats it."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator when not deterministic")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / (1.0 - rate), zero)
+
+
 def _split_heads(x: torch.Tensor, nhead: int) -> torch.Tensor:
     b, s, d = x.shape
     return x.reshape(b, s, nhead, d // nhead).transpose(1, 2)
@@ -111,40 +130,54 @@ def layer_params(params) -> List[Dict[str, torch.Tensor]]:
     return [{k: t[l] for k, t in stacked.items()} for l in range(n)]
 
 
+def _linear(x, w, b):
+    return x @ w.to(x.dtype) + b.to(x.dtype)
+
+
 def _qkv(lp, hn, nhead):
-    qkv = hn @ lp["qkv_w"] + lp["qkv_b"]
+    qkv = _linear(hn, lp["qkv_w"], lp["qkv_b"])
     return [_split_heads(t, nhead) for t in qkv.chunk(3, dim=-1)]
 
 
-def _post_attention(lp, h, attn, act, *, bias_last: bool):
-    """out projection + residual, then the FFN block + residual.
+def _post_attention(lp, h, attn, act, *, bias_last: bool, drop=None):
+    """out projection + residual, then the FFN block + residual; ``drop`` is
+    the training forward's dropout at JAX's three places.
 
     ``bias_last`` keeps the JAX prefill/decode order of the last residual,
     ``(h + ff @ w2) + b2``; the training forward adds ``h + (ff @ w2 + b2)``.
     The two round differently in fp32, and greedy parity is held bit for
     bit."""
-    h = h + (attn @ lp["out_w"] + lp["out_b"])
+    drop = drop or (lambda x: x)
+    h = h + drop(_linear(attn, lp["out_w"], lp["out_b"]))
     hn = layer_norm(h, lp["ln2_w"], lp["ln2_b"])
-    ff = act(hn @ lp["ffn1_w"] + lp["ffn1_b"])
+    ff = drop(act(_linear(hn, lp["ffn1_w"], lp["ffn1_b"])))
     if bias_last:
         return h + ff @ lp["ffn2_w"] + lp["ffn2_b"]
-    return h + (ff @ lp["ffn2_w"] + lp["ffn2_b"])
+    return h + drop(_linear(ff, lp["ffn2_w"], lp["ffn2_b"]))
 
 
 def transformer_forward(params, h: torch.Tensor, cfg: SSRModelConfig, *,
                         bias: Optional[torch.Tensor] = None,
                         key_valid: Optional[torch.Tensor] = None,
-                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Deterministic full-sequence forward. h: [B, S, D] -> [B, S, D] after
-    the final LayerNorm. With ``cfg.attn_impl`` "flash"/"splash" the attention
-    is the fused kernel over ``key_valid`` [B, S]; with "einsum" it is
-    ``_attend`` over the additive ``bias`` [B, 1, S, S]."""
+                        dtype: torch.dtype = torch.float32,
+                        deterministic: bool = True,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """Full-sequence forward (training and eval). h: [B, S, D] -> [B, S, D]
+    after the final LayerNorm. With ``cfg.attn_impl`` "flash"/"splash" the
+    attention is the fused kernel over ``key_valid`` [B, S]; with "einsum" it
+    is ``_attend`` over the additive ``bias`` [B, 1, S, S]. Unless
+    ``deterministic``, ``cfg.trm_dropout`` is drawn from ``generator``."""
     act = _ffn_act(cfg)
     use_flash = cfg.attn_impl in ("flash", "splash")
     if use_flash and key_valid is None:
         raise ValueError(f"attn_impl={cfg.attn_impl!r} needs key_valid")
     if not use_flash and bias is None:
         raise ValueError("attn_impl='einsum' needs bias")
+
+    def drop(x):
+        return dropout(x, cfg.trm_dropout, generator, deterministic)
+
     h = h.to(dtype)
     for lp in layer_params(params):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
@@ -154,7 +187,8 @@ def transformer_forward(params, h: torch.Tensor, cfg: SSRModelConfig, *,
                                    v.contiguous(), key_valid)
         else:
             attn = _attend(q, k, v, bias.float())
-        h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=False)
+        h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=False,
+                            drop=drop)
     return layer_norm(h, params["final_ln_w"], params["final_ln_b"])
 
 

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled for Hopper
 (``sm_90a``) into ``csrc/build/lib<name>_<hash>.so`` at first use; the hash
-covers the source and the flags, so an edited source rebuilds and an unchanged
-one is loaded as built. Nothing here runs at import time: a CPU-only process
+covers the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one is loaded as built. Nothing here runs at import time: a CPU-only process
 imports the wrappers and never builds.
 """
 
@@ -50,12 +50,26 @@ class BuiltLibrary:
         self.ptxas_log = ptxas_log
 
 
+def check_layout(kernel: str, **tensors) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned CUDA tensor
+    (what the kernels' vector loads and raw pointers assume)."""
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel} kernel: {name} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} kernel needs contiguous {name}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel} kernel needs 16-byte aligned {name}")
+
+
 @functools.cache
 def load(name: str) -> BuiltLibrary:
     """Compile ``csrc/<name>.cu`` if needed and ``dlopen`` it (once per
     process)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}_{digest}.so"
     seconds, log = 0.0, ""

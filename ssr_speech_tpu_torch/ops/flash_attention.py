@@ -1,26 +1,37 @@
-"""Fused causal + segment-id attention forward (port of
+"""Fused causal + segment-id attention, forward and backward (port of
 ``ssr_speech_tpu/ops/flash_attention.py::flash_attend_xy``).
 
 Semantics, as in JAX: query i attends key j iff ``j <= i`` and
 ``seg[b, i] == seg[b, j]``; valid positions carry segment 1 and padded or
 banned ones segment 0. Valid query rows therefore see exactly the un-padded
-causal prefix; rows of segment 0 attend keys of their own segment, which is
-finite garbage that no caller reads.
+causal prefix; rows of segment 0 attend keys of their own segment causally,
+which is finite and defined (the kernels agree with the plain version on every
+row) but no caller reads it.
 
-Kernel: ``csrc/flash_attention_fwd.cu``, hand-written for Hopper (sm_90a). It
-replaces both TPU kernels behind the JAX wrapper, ``_kernel_attend`` (the Pallas
-library flash_attention forward) and ``_splash_attend`` (the splash forward);
-the flash/splash split is not carried over. At the prefill shapes of the
-serving path (B = 2 CFG rows, H = 16, Dh = 128, S ~ 300-1300) the work is
+Kernels, hand-written for Hopper (sm_90a):
+- ``csrc/flash_attention_fwd.cu`` replaces both TPU forward kernels behind the
+  JAX wrapper, ``_kernel_attend`` (the Pallas library flash_attention forward)
+  and ``_splash_attend`` (the splash forward); the flash/splash split is not
+  carried over. When a gradient is needed it also writes each row's
+  log-sum-exp.
+- ``csrc/flash_attention_bwd.cu`` replaces their backward (the library custom
+  VJP and splash's fused dq/dkv kernel): a dq kernel and a dk/dv kernel, no
+  atomics, bit-reproducible. :class:`FlashAttention` binds the pair as a
+  ``torch.autograd.Function``.
+
+At the prefill shapes of the serving path (B = 2 CFG rows, H = 16, Dh = 128, S ~ 300-1300) the work is
 4*B*H*S^2*Dh/2 flops over a few MB of Q/K/V, far above the H100's ~295 flop per
 byte balance point: the kernel is bound by the tensor-core rate of the QK^T and
 PV products. The simple design leaves on the table what makes flash attention
 fast on Hopper: wgmma instead of mma.sync, TMA loads double-buffered against
 the products instead of synchronous 16-byte loads, skipping fully masked key
-tiles per warp, and a persistent schedule over (tile, head) pairs.
+tiles per warp, and a persistent schedule over (tile, head) pairs. The
+backward does about 2.5x the forward's tensor-core work and is bound the same
+way.
 
 On a CPU tensor the wrapper takes the plain version :func:`reference_attend`
-(the CPU tests); on a CUDA tensor it launches the kernel or raises.
+(the CPU tests), whose backward is autograd's; on a CUDA tensor it launches
+the kernels or raises.
 """
 
 from __future__ import annotations
@@ -30,16 +41,20 @@ import math
 
 import torch
 
-# kernel launches since the last reset (plain integer; read by chip_smoke.py)
-launches = 0
+from .cuda_build import check_layout, load
+
+# kernel launches since the last reset (plain integers; read by chip_smoke.py)
+launches = 0  # forward
+bwd_launches = 0  # backward (one per dq + dk/dv pair)
 
 _KERNEL = "flash_attention_fwd"
+_BWD_KERNEL = "flash_attention_bwd"
 HEAD_DIM = 128
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bwd_launches
+    launches = bwd_launches = 0
 
 
 def reference_attend(q, k, v, key_valid, sm_scale):
@@ -59,14 +74,23 @@ def reference_attend(q, k, v, key_valid, sm_scale):
 
 
 def load_kernel():
-    """Build (first call only) and bind the CUDA kernel; returns the
+    """Build (first call only) and bind the forward kernel; returns the
     ``cuda_build.BuiltLibrary``."""
-    from .cuda_build import load
-
     built = load(_KERNEL)
     fn = built.lib.ssr_flash_attention_fwd_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return built
+
+
+def load_bwd_kernel():
+    """Build (first call only) and bind the backward kernels."""
+    built = load(_BWD_KERNEL)
+    fn = built.lib.ssr_flash_attention_bwd_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return built
@@ -84,14 +108,71 @@ def _check_cuda_args(q, k, v, seg):
     b, _, s, _ = q.shape
     if seg.shape != (b, s) or seg.device != q.device:
         raise ValueError(f"segment ids must be [{b}, {s}] on {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("seg", seg)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash kernel needs contiguous {name}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash kernel needs 16-byte aligned {name}")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError("flash kernel has no backward yet: call it on "
-                           "tensors that do not require grad")
+    check_layout("flash", q=q, k=k, v=v, seg=seg)
+
+
+def flash_forward(q, k, v, seg, sm_scale, *, with_lse: bool):
+    """Launch the forward kernel on checked CUDA tensors; returns (out, lse),
+    lse fp32 [B, H, S] or None."""
+    global launches
+    fn = load_kernel().lib.ssr_flash_attention_fwd_bf16
+    b, h, s, dh = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+                 out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, h, s,
+                 dh, float(sm_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
+                           f"{err} at q {tuple(q.shape)}")
+    launches += 1
+    return out, lse
+
+
+def flash_backward(q, k, v, seg, out, lse, dout, sm_scale):
+    """Launch the backward kernels; returns (dq, dk, dv) in q's dtype."""
+    global bwd_launches
+    if dout.dtype != q.dtype or dout.shape != q.shape:
+        raise ValueError(f"flash backward takes dO like q, got {dout.dtype} "
+                         f"{tuple(dout.shape)}")
+    check_layout("flash backward", dout=dout, out=out, lse=lse)
+    fn = load_bwd_kernel().lib.ssr_flash_attention_bwd_bf16
+    b, h, s, dh = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 b, h, s, dh, float(sm_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward launch failed: CUDA "
+                           f"error {err} at q {tuple(q.shape)}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel, whose backward is the backward kernels. Saves q, k,
+    v, the output and the per-row log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, sm_scale):
+        out, lse = flash_forward(q, k, v, seg, sm_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, seg, out, lse)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seg, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, seg, out, lse,
+                                    dout.contiguous(), ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attend_xy(q, k, v, key_valid, *, sm_scale=None):
@@ -100,8 +181,8 @@ def flash_attend_xy(q, k, v, key_valid, *, sm_scale=None):
     q/k/v: [B, H, S, Dh] (q NOT pre-scaled); key_valid: [B, S] bool (True at
     real positions) or int segment ids. Returns [B, H, S, Dh] in q's dtype;
     valid rows match ``_attend`` with ``xy_attn_bias`` to online-softmax
-    reassociation tolerance."""
-    global launches
+    reassociation tolerance. Differentiable: with grad enabled and any input
+    requiring it, the CUDA path goes through :class:`FlashAttention`."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -110,15 +191,7 @@ def flash_attend_xy(q, k, v, key_valid, *, sm_scale=None):
         raise ValueError(f"flash_attend_xy: unsupported device {q.device}")
     seg = key_valid.to(torch.int32).contiguous()
     _check_cuda_args(q, k, v, seg)
-    fn = load_kernel().lib.ssr_flash_attention_fwd_bf16
-    b, h, s, dh = q.shape
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-                 out.data_ptr(), b, h, s, dh, float(sm_scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
-                           f"{err} at q {tuple(q.shape)}")
-    launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, seg, float(sm_scale))
+    return flash_forward(q, k, v, seg, sm_scale, with_lse=False)[0]

@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels of the port against their plain PyTorch versions,
-on the card. Skipped where torch.cuda.is_available() is false.
+on the card: the flash-attention forward and backward, the fused CE head's
+forward, dhidden and dw2/db2. Skipped where torch.cuda.is_available() is
+false.
 
 Run on a GPU machine (which needs neither JAX nor tests/conftest.py):
 
@@ -13,10 +15,15 @@ import pytest
 import torch
 
 from ssr_speech_tpu_torch.ops import flash_attention as fa
+from ssr_speech_tpu_torch.ops import fused_ce as fce
 
 pytestmark = pytest.mark.cuda
 
 ATOL = 2e-2  # bf16 inputs and output, unit-normal data, Dh = 128
+# gradients, bf16 in and out: max |kernel - plain| / max |plain|. The plain
+# backward rounds dP and dV to bf16 where the kernels accumulate in fp32, and
+# the kernels round P and dS to bf16 as mma operands: each ~2^-9 relative.
+REL = 2e-2
 
 
 @pytest.fixture(scope="module")
@@ -72,8 +79,150 @@ def test_flash_kernel_refuses_what_it_cannot_take(device):
     with pytest.raises(ValueError):
         fa.flash_attend_xy(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), seg)
-    with pytest.raises(RuntimeError):
-        fa.flash_attend_xy(q.requires_grad_(), k, v, seg)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=device)
+    shifted = flat[1:].view(q.shape)  # 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError):
+        fa.flash_attend_xy(shifted, k, v, seg)
+    dout = torch.ones_like(q)
+    out, lse = fa.flash_forward(q, k, v, seg, 0.1, with_lse=True)
+    with pytest.raises(ValueError):
+        fa.flash_backward(q, k, v, seg, out, lse, dout.transpose(2, 3), 0.1)
+    with pytest.raises(ValueError):
+        fa.flash_backward(q, k, v, seg, out, lse, dout.float(), 0.1)
+
+
+def _train_segments(b, s, seed):
+    """A padded training batch's segment ids: [text ; audio], text padding
+    on every row, audio padding on some."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((b, s), np.int32)
+    sx = max(s // 4, 1)
+    for r in range(b):
+        seg[r, :rng.integers(1, sx + 1)] = 1
+        seg[r, sx:sx + rng.integers(0, s - sx + 1)] = 1
+    return seg
+
+
+def _rel(got, want):
+    """max |got - want| / max |want| (0 where both are exactly 0)."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    return err / scale if scale > 0 else err
+
+
+def _attention_grads(q, k, v, seg, dout, kernel: bool):
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    if kernel:
+        out = fa.flash_attend_xy(qg, kg, vg, seg)
+    else:
+        out = fa.reference_attend(qg, kg, vg, seg, 1.0 / math.sqrt(q.shape[-1]))
+    out.backward(dout)
+    return out.detach(), qg.grad, kg.grad, vg.grad
+
+
+@pytest.mark.parametrize("b,h,s", [(1, 1, 1), (1, 2, 63), (2, 2, 64),
+                                   (2, 3, 65), (1, 2, 130), (2, 4, 1000)])
+@pytest.mark.parametrize("pattern", ["train", "random"])
+def test_flash_backward_matches_plain(device, b, h, s, pattern):
+    """dq/dk/dv on every row (segment-0 rows are defined too), the
+    log-sum-exp, and two backward runs bit for bit."""
+    q, k, v = _qkv((b, h, s, fa.HEAD_DIM), s + 7 * b, device)
+    dout = _qkv((b, h, s, fa.HEAD_DIM), s + 1, device)[0]
+    rng = np.random.default_rng(s)
+    seg = (_train_segments(b, s, s) if pattern == "train"
+           else rng.integers(0, 3, size=(b, s)).astype(np.int32))
+    seg = torch.from_numpy(seg).to(device)
+    fa.reset_launches()
+    got = _attention_grads(q, k, v, seg, dout, kernel=True)
+    again = _attention_grads(q, k, v, seg, dout, kernel=True)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (2, 2)
+    want = _attention_grads(q, k, v, seg, dout, kernel=False)
+    assert _rel(got[0], want[0]) <= REL
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got[1:], want[1:], again[1:]):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, w) <= REL, (name, _rel(g, w))
+        assert torch.equal(g, g2), name
+    _, lse = fa.flash_forward(q, k, v, seg.to(torch.int32), 1.0 / math.sqrt(fa.HEAD_DIM),
+                              with_lse=True)
+    same = seg[:, None, :] == seg[:, :, None]
+    causal = torch.ones(s, s, dtype=torch.bool, device=device).tril()
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(fa.HEAD_DIM)
+    scores = scores.masked_fill(~(same & causal)[:, None], -torch.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(scores, -1), atol=1e-3, rtol=1e-4)
+
+
+def _ce_inputs(k, n, hh, c, seed, device):
+    rng = np.random.default_rng(seed)
+    hidden = torch.from_numpy(rng.standard_normal((k, n, hh)).astype(np.float32))
+    w2 = torch.from_numpy((rng.standard_normal((k, hh, c)) / math.sqrt(hh)
+                           ).astype(np.float32))
+    b2 = torch.from_numpy(rng.standard_normal((k, c)).astype(np.float32) * 0.1)
+    tgt = torch.from_numpy(rng.integers(0, c, size=(k, n)).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    bf = dict(device=device, dtype=torch.bfloat16)
+    return (hidden.to(**bf), w2.to(**bf), b2.to(**bf), tgt.to(device),
+            g.to(device))
+
+
+def _ce_grads(hidden, w2, b2, tgt, g, kernel: bool):
+    leaves = [t.clone().requires_grad_() for t in (hidden, w2, b2)]
+    fn = fce.fused_ce_head if kernel else fce.reference_ce_head
+    nll, hits = fn(*leaves, tgt)
+    (nll * g).sum().backward()
+    return nll.detach(), hits, *(t.grad for t in leaves)
+
+
+def near_ties(hidden, w2, b2, tgt, rows, top=fce.TOP, tol=1e-3):
+    """Whether the target logit of each [k, n] in ``rows`` lies within
+    ``tol`` of the top-th largest logit (a hit decided by fp32 summation
+    order)."""
+    logits = torch.matmul(hidden.float(), w2.float()) + b2.float()[:, None]
+    if logits.shape[-1] < top:  # every target is a hit: no tie to break
+        return torch.zeros_like(rows)[rows]
+    t = torch.gather(logits, -1, tgt.long()[..., None])[..., 0]
+    kth = logits.topk(top, dim=-1).values[..., -1]
+    return ((t - kth).abs() <= tol)[rows]
+
+
+@pytest.mark.parametrize("k,n,hh,c", [(1, 1, 128, 1), (2, 63, 128, 130),
+                                      (4, 333, 256, 2056), (4, 1000, 1024, 2056)])
+def test_fused_ce_matches_plain(device, k, n, hh, c):
+    """nll, hits, dhidden, dw2 and db2 against the plain version and its
+    autograd; the vocab tail (C not a multiple of 32) never enters logz."""
+    args = _ce_inputs(k, n, hh, c, n + c, device)
+    fce.reset_launches()
+    got = _ce_grads(*args, kernel=True)
+    again = _ce_grads(*args, kernel=True)
+    torch.cuda.synchronize()
+    assert (fce.fwd_launches, fce.dhidden_launches, fce.dw2_launches) == (2, 2, 2)
+    want = _ce_grads(*args, kernel=False)
+    # nll: fp32 logits from exact bf16 products, summed in another order
+    torch.testing.assert_close(got[0], want[0], atol=1e-3, rtol=1e-4)
+    bad = got[1] != want[1]
+    assert near_ties(args[0], args[1], args[2], args[3], bad).all()
+    for name, gk, gp, g2 in zip(("dhidden", "dw2", "db2"), got[2:], want[2:],
+                                again[2:]):
+        assert gk.dtype == gp.dtype == torch.bfloat16, name
+        assert _rel(gk, gp) <= REL, (name, _rel(gk, gp))
+        assert torch.equal(gk, g2), name
+
+
+def test_fused_ce_refuses_what_it_cannot_take(device):
+    hidden, w2, b2, tgt, _ = _ce_inputs(2, 64, 128, 256, 0, device)
+    with pytest.raises(TypeError):
+        fce.fused_ce_head(hidden.float(), w2.float(), b2.float(), tgt)
+    with pytest.raises(TypeError):
+        fce.fused_ce_head(hidden, w2, b2, tgt.long())
+    with pytest.raises(ValueError):
+        fce.fused_ce_head(hidden[..., :64].contiguous(), w2[:, :64].contiguous(),
+                          b2, tgt)
+    with pytest.raises(ValueError):
+        fce.fused_ce_head(hidden.transpose(0, 1).contiguous().transpose(0, 1),
+                          w2, b2, tgt)
+    flat = torch.empty(hidden.numel() + 1, dtype=hidden.dtype, device=device)
+    with pytest.raises(ValueError):
+        fce.fused_ce_head(flat[1:].view(hidden.shape), w2, b2, tgt)
 
 
 SMALL = dict(d_model=256, nhead=2, num_layers=2, n_codebooks=4,
