@@ -16,9 +16,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    [8,16,1280,128] and a ragged S = 1000 (padded-batch segments; every row,
    two runs bit for bit); the fused CE head's forward, dhidden and dw2/db2 on
    the training batch (K = 4, N = B(Sy - 1), Hh = 1024, C = 2056, its
-   targets) and at N = 8000. Then hold a small LM's prefill and the codec,
-   and a 4-layer training step (loss and gradients), against the port's fp32
-   CPU path, and train that LM a few steps: the loss must fall.
+   targets) and at N = 8000; the int8 weight-streaming matvecs at the
+   probe's full width (2 and 8 rows against [2048, 8192] int8: the
+   fp32-dequant kernel, one layer and the 16-layer chain in both modes, the
+   16-layer megakernel; the int8 mode bit for bit, every kernel twice bit
+   for bit). Beside the attention kernels one PyTorch call that computes the
+   same function (``scaled_dot_product_attention`` and its autograd backward)
+   is timed as a yardstick; the port never calls it. Then hold a small LM's
+   prefill and the codec, and a 4-layer training step (loss and gradients),
+   against the port's fp32 CPU path, and train that LM a few steps: the loss
+   must fall.
 4. Serving: write full-width random-weight bundles (the 830M e830M LM, the
    default encodec_large_nq4_s320 codec) from the port's seeded init, a seeded
    16 kHz synthetic wav and a word alignment, then drive the port's CLI: a
@@ -32,8 +39,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    serving loader reads, each kernel launched exactly as often as the steps
    and layers require, and every step on the batch shape the kernels were
    checked at.
-6. Print the kernel report (JSON; each kernel's launches are those of steps 4
-   and 5, counted from zero before each), the card line, and as the last line
+6. The int8 probe: ``ssr_speech_tpu_torch.int8_probe.main`` at its full width
+   (d_model 2048, FFN 8192, 16 layers, 2 and 8 rows): every chain must launch
+   its kernel once per layer and call, the megakernel once per call, with
+   finite outputs.
+7. Print the kernel report (JSON; each kernel's launches are those of steps
+   4 to 6, counted from zero before each; ``bound_ms`` is the least time the
+   card could take for the same work, from the inputs' bytes and operations
+   and the published peaks below), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 For kernel work alone, ``pytest -m cuda tests/test_torch_cuda.py`` holds the
@@ -42,6 +55,7 @@ kernels against their plain versions without the main paths.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -90,6 +104,42 @@ def cuda_time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Published peaks of one H100 SXM (dense, at its full 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+
+
+def bound(n_bytes: float, ops: float, dtype: str) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once) over
+    the memory rate and its operations over the peak rate of their type."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def attended_pairs(seg) -> int:
+    """(query, key) pairs the mask lets through: key <= query, same
+    segment."""
+    total = 0
+    for v in seg.unique().tolist():
+        c = (seg == v).sum(dim=1).double()
+        total += int((c * (c + 1) / 2).sum().item())
+    return total
+
+
+def attention_mask(torch, seg):
+    """The kernels' mask as a boolean [B, 1, S, S] for the library call."""
+    s = seg.shape[1]
+    return ((seg[:, None, :] == seg[:, :, None]) & torch.ones(
+        (s, s), dtype=torch.bool, device=seg.device).tril())[:, None]
+
+
 def check_flash(torch, device) -> dict:
     from ssr_speech_tpu_torch.ops import flash_attention as fa
 
@@ -121,6 +171,13 @@ def check_flash(torch, device) -> dict:
         ms = cuda_time_ms(torch, lambda: fa.flash_attend_xy(q, k, v, seg))
         plain_ms = cuda_time_ms(
             torch, lambda: fa.reference_attend(q, k, v, seg, 1.0 / dh ** 0.5))
+        if shape == MAIN_PATH_SHAPE:
+            mask = attention_mask(torch, seg)
+            library_ms = cuda_time_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask))
+            lower = bound(nbytes(q, k, v, seg) + nbytes(q),
+                          4 * h * dh * attended_pairs(seg), "bf16")
         print(f"[flash] {shape} sx={sx} x_len={x_len}: max_abs_err valid "
               f"rows {err:.3e} (all rows {err_all:.3e}, tol {ATOL}); kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -135,7 +192,9 @@ def check_flash(torch, device) -> dict:
             "source": "ssr_speech_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "ssr_speech_tpu/ops/flash_attention.py:68",
             "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "shape": list(MAIN_PATH_SHAPE)}
+            "plain_ms": plain_ms, **lower, "library_ms": library_ms,
+            "library": "F.scaled_dot_product_attention(attn_mask=causal & "
+                       "same segment)", "shape": list(MAIN_PATH_SHAPE)}
 
 
 WORDS = ["but", "when", "i", "had", "approached", "so", "near", "to",
@@ -152,7 +211,7 @@ def write_inputs(torch, device, work: Path, cfg, codec_cfg) -> dict:
 
     import numpy as np
 
-    from ssr_speech_tpu.utils import audio as audio_io
+    from ssr_speech_tpu_torch.utils import audio as audio_io
     from ssr_speech_tpu_torch.models import ssr as tssr
     from ssr_speech_tpu_torch.models.codec import wmencodec as twm
     from ssr_speech_tpu_torch.models.pretrained import save_bundle
@@ -243,7 +302,7 @@ def drive_main_path(torch, device, work: Path, card: str, cfg=None,
     the default encodec_large_nq4_s320 codec): an edit with the watermark
     splice and CFG (stride 5), and a TTS request, each twice. Returns the
     flash kernel's launches in this phase."""
-    from ssr_speech_tpu.config import CodecConfig, SSRModelConfig
+    from ssr_speech_tpu_torch.config import CodecConfig, SSRModelConfig
     from ssr_speech_tpu_torch.ops import flash_attention as fa
 
     cfg = cfg or SSRModelConfig(d_model=2048, nhead=16, num_layers=16,
@@ -290,7 +349,7 @@ def check_small_reference(torch, device) -> None:
     0.067. Codec: encode/decode in fp32 on both."""
     import numpy as np
 
-    from ssr_speech_tpu.config import CodecConfig, SSRModelConfig
+    from ssr_speech_tpu_torch.config import CodecConfig, SSRModelConfig
     from ssr_speech_tpu_torch.inference import decode as tdecode
     from ssr_speech_tpu_torch.models import ssr as tssr
     from ssr_speech_tpu_torch.models.codec import wmencodec as twm
@@ -354,7 +413,8 @@ def check_small_reference(torch, device) -> None:
 # ---------------------------------------------------------------- training
 
 
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce",
+                  "int8_matmul")
 REL = 2e-2  # bf16 outputs: max |kernel - plain| / max |plain|
 LSE_ATOL = 1e-2  # attention log-sum-exp (fp32, natural log): max abs error
 # Besides the training path's own first batch: [B, H, S, Dh] of training
@@ -488,6 +548,13 @@ def check_flash_backward(torch, device, path_case) -> dict:
         ms = cuda_time_ms(torch, lambda: fa.flash_backward(
             q, k, v, seg, out, lse, dout, scale), iters=5)
         plain_ms = plain_backward_ms(torch, ref, leaves, dout)
+        if label == "train path":
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=attention_mask(torch, seg))
+            library_ms = plain_backward_ms(torch, lib_out, leaves, dout)
+            del lib_out
+            lower = bound(nbytes(q, k, v, out, dout, lse, seg) + 3 * nbytes(q),
+                          10 * h * dh * attended_pairs(seg), "bf16")
         print(f"[flash bwd] {label} {shape}: max err / max "
               + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
               + f" (tol {REL}), lse max abs err {lse_err:.2e} (tol {LSE_ATOL}), "
@@ -504,7 +571,9 @@ def check_flash_backward(torch, device, path_case) -> dict:
             "source": "ssr_speech_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": "ssr_speech_tpu/ops/flash_attention.py:130",
             "launches": 0, "max_abs_err": abs_worst, "max_rel_err": worst,
-            "ms": ms, "plain_ms": plain_ms, "shape": list(path_case[0])}
+            "ms": ms, "plain_ms": plain_ms, **lower, "library_ms": library_ms,
+            "library": "autograd backward of F.scaled_dot_product_attention",
+            "shape": list(path_case[0])}
 
 
 def check_one_ce(torch, device, shape, tgt, gen) -> dict:
@@ -554,6 +623,13 @@ def check_one_ce(torch, device, shape, tgt, gen) -> dict:
     r["dh_plain"] = plain_backward_ms(torch, p_nll, leaves[:1], g)
     r["dw_plain"] = plain_backward_ms(torch, p_nll, leaves[1:], g)
     r["bwd_plain"] = plain_backward_ms(torch, p_nll, leaves, g)
+    one_pass = 2 * k * n * hh * c  # operations of one [N, Hh] x [Hh, C] product
+    ins = nbytes(hidden, w2, b2, tgt)
+    r["bounds"] = {  # the backward kernels recompute the logits: two products
+        "fwd": bound(ins + nbytes(nll, logz, hits), one_pass, "bf16"),
+        "dh": bound(ins + nbytes(logz, g, hidden), 2 * one_pass, "bf16"),
+        "dw": bound(ins + nbytes(logz, g) + 4 * (w2.numel() + b2.numel()),
+                    2 * one_pass, "bf16")}
     print(f"[fused ce] {shape}: max err / max "
           + ", ".join(f"{k} {e:.2e}" for k, e in r["errs"].items())
           + f" (tol {REL}); hits differ on {n_bad} of {k * n} rows, {n_off} of "
@@ -585,21 +661,23 @@ def check_fused_ce(torch, device, path_case) -> list:
     worst_abs = {key: max(r["abs"][key] for r in res) for key in res[0]["abs"]}
     t = res[0]
     common = {"route": "cuda", "source": "ssr_speech_tpu_torch/csrc/fused_ce.cu",
-              "launches": 0, "shape": list(shape)}
+              "launches": 0, "library_ms": None, "shape": list(shape)}
     return [
         {"name": "fused_ce_fwd", "replaces": "ssr_speech_tpu/ops/fused_ce.py:80",
          "max_abs_err": worst_abs["nll"],
          "max_rel_err": max(worst["nll"], worst["logz"]),
-         "ms": t["fwd"], "plain_ms": t["fwd_plain"], **common},
+         "ms": t["fwd"], "plain_ms": t["fwd_plain"], **t["bounds"]["fwd"],
+         **common},
         {"name": "fused_ce_bwd_dhidden",
          "replaces": "ssr_speech_tpu/ops/fused_ce.py:100",
          "max_abs_err": worst_abs["dhidden"], "max_rel_err": worst["dhidden"],
-         "ms": t["dh"], "plain_ms": t["dh_plain"], **common},
+         "ms": t["dh"], "plain_ms": t["dh_plain"], **t["bounds"]["dh"],
+         **common},
         {"name": "fused_ce_bwd_dw2", "replaces": "ssr_speech_tpu/ops/fused_ce.py:121",
          "max_abs_err": max(worst_abs["dw2"], worst_abs["db2"]),
          "max_rel_err": max(worst["dw2"], worst["db2"]),
          "ms": t["dw"], "plain_ms": t["dw_plain"],
-         "plain_bwd_all_ms": t["bwd_plain"], **common},
+         "plain_bwd_all_ms": t["bwd_plain"], **t["bounds"]["dw"], **common},
     ]
 
 
@@ -621,7 +699,7 @@ GRAD_TOL = {"qkv_w": 0.2, "head2_w": 0.07}
 def small_train_batch():
     import numpy as np
 
-    from ssr_speech_tpu.config import SSRModelConfig
+    from ssr_speech_tpu_torch.config import SSRModelConfig
 
     cfg = SSRModelConfig(**SMALL_TRAIN)
     ts = cfg.tokens
@@ -644,7 +722,7 @@ def check_small_train_step(torch, device) -> None:
     kernels) against the port's fp32 CPU path: the loss, and the gradients
     of qkv_w in layers 1-3 and of head2_w relative to their max. Then eight
     ScaledAdam steps on the one batch: the loss must fall."""
-    from ssr_speech_tpu.config import OptimConfig, TrainConfig
+    from ssr_speech_tpu_torch.config import OptimConfig, TrainConfig
     from ssr_speech_tpu_torch.models import ssr as tssr
     from ssr_speech_tpu_torch.models.from_jax import trainable_lm_from_jax
     from ssr_speech_tpu_torch.ops import flash_attention as fa
@@ -820,6 +898,200 @@ def drive_training_path(torch, device, argv, card: str, checked) -> dict:
     return launches
 
 
+# ------------------------------------------------------ int8 weight streaming
+
+INT8_SHAPE = (2048, 8192, 16)  # d_model, FFN width, layers of the 830M LM
+INT8_ROWS = (2, 8)  # the TPU probes' own row counts
+CHAIN_REL = 5e-2  # 16 layers: a bf16 rounding flip in h feeds every later layer
+INT8_SRC = "ssr_speech_tpu_torch/csrc/int8_matmul.cu"
+
+
+def check_int8(torch, device) -> list:
+    """K7-K9 at the probe's full width against their plain versions on the
+    card. One layer at ``REL`` of the max (the int8 mode bit for bit), the
+    16-layer chains and the megakernel at ``CHAIN_REL`` (int8 mode bit for
+    bit), every kernel twice bit for bit. Times are per wrapper call over 16
+    distinct matrices (268 MB, more than the L2 holds): a chain's 16
+    launches, the megakernel's one; ``int8_matvec`` is timed as that chain
+    and reported per launch. ``ms`` is the call as made (eager launches),
+    ``device_ms`` the same launches queued behind a blocker so that they run
+    back to back (``int8_probe.queued_ms``). The report's rows: 2 for the
+    launches-per-layer kernels, 8 for the megakernel (the TPU probes' own)."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.int8_probe import (QUEUED_CALLS, matvec_chain,
+                                                 queued_ms)
+    from ssr_speech_tpu_torch.ops import int8_matmul as i8
+
+    d, f, n_layers = INT8_SHAPE
+    rng = np.random.default_rng(7)
+    wq = torch.from_numpy(rng.integers(-127, 127, size=(n_layers, d, f)
+                                       ).astype(np.int8)).to(device)
+    s = torch.from_numpy((np.abs(rng.normal(size=(n_layers, 1, f))) * 0.01
+                          ).astype(np.float32)).to(device)
+    w1 = torch.from_numpy(rng.normal(size=(d, f), scale=0.02).astype(np.float32))
+    q1, s1 = i8.quantize_weight(w1.to(device))
+    res = {}
+
+    def twice(fn, label):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.isfinite(a.float()).all():
+            raise RuntimeError(f"{label}: non-finite output")
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{label}: two runs differ")
+        return a
+
+    def hold(label, got, want, tol):
+        abs_err = (got.float() - want.float()).abs().max().item()
+        rel = rel_err(got, want)
+        ok = torch.equal(got, want) if tol == 0 else rel <= tol
+        if not ok:
+            raise RuntimeError(f"{label} disagrees with its plain version: max "
+                               f"err / max {rel:.3e} (tol {tol})")
+        return abs_err, rel
+
+    def plain_matvec_chain(x, w, sc):
+        h = x
+        for layer in range(n_layers):
+            h = i8.reference_int8_matvec(h, w[layer], sc[layer, 0])[:, :d]
+        return h
+
+    for rows in INT8_ROWS:
+        x = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)
+                             ).to(device, torch.bfloat16)
+        i8.reset_launches()
+        # K7: one layer on quantize_weight's output, then the chain
+        one = hold(f"int8_matvec rows {rows}",
+                   twice(lambda: i8.int8_matvec(x, q1, s1), "int8_matvec"),
+                   i8.reference_int8_matvec(x, q1, s1), REL)
+        chain = hold(f"int8_matvec chain rows {rows}",
+                     twice(lambda: matvec_chain(x, wq, s, n_layers), "int8_matvec chain"),
+                     plain_matvec_chain(x, wq, s), CHAIN_REL)
+        if i8.matvec_launches != 2 + 2 * n_layers:
+            raise RuntimeError("int8_matvec did not launch its kernel")
+        ms = cuda_time_ms(torch, lambda: matvec_chain(x, wq, s, n_layers))
+        dev = queued_ms(lambda: matvec_chain(x, wq, s, n_layers), ms, device) / n_layers
+        ms /= n_layers
+        plain_ms = cuda_time_ms(torch, lambda: plain_matvec_chain(x, wq, s),
+                                iters=5) / n_layers
+        out = torch.empty((rows, f), dtype=torch.bfloat16, device=device)
+        res[("int8_matvec", rows)] = dict(
+            abs=one[0], rel=max(one[1], chain[1]), ms=ms, device_ms=dev,
+            plain_ms=plain_ms,
+            **bound(nbytes(x, q1, s1, out), 2 * rows * d * f, "fp32"))
+        # K8: one layer and the chain, both modes
+        for mode in i8.MODES:
+            tol = 0 if mode == "int8" else REL
+            one = hold(f"int8 layer {mode} rows {rows}",
+                       twice(lambda: i8.int8_matvec_layer(x, wq[0], s[0, 0], mode),
+                             f"int8 layer {mode}"),
+                       i8.reference_int8_layer(x, wq[0], s[0, 0], mode), tol)
+            tol = 0 if mode == "int8" else CHAIN_REL
+            chain = hold(f"int8 chain {mode} rows {rows}",
+                         twice(lambda: i8.int8_matvec_chain(x, wq, s, mode, n_layers),
+                               f"int8 chain {mode}"),
+                         i8.reference_int8_chain(x, wq, s, mode, n_layers), tol)
+            ms = cuda_time_ms(torch, lambda: i8.int8_matvec_chain(
+                x, wq, s, mode, n_layers))
+            dev = queued_ms(lambda: i8.int8_matvec_chain(x, wq, s, mode, n_layers),
+                            ms, device)
+            plain_ms = cuda_time_ms(torch, lambda: i8.reference_int8_chain(
+                x, wq, s, mode, n_layers), iters=5)
+            res[(f"int8_chain_{mode}", rows)] = dict(
+                abs=one[0], rel=max(one[1], chain[1]), ms=ms, device_ms=dev,
+                plain_ms=plain_ms,
+                **bound(n_layers * nbytes(x, wq[0], s[0], out),
+                        2 * rows * d * f * n_layers, mode))
+        if (i8.chain_bf16_launches, i8.chain_int8_launches) != (
+                (2 + (2 + 21 + QUEUED_CALLS) * n_layers,) * 2):
+            raise RuntimeError("int8_matvec_chain did not launch once a layer")
+        # K9: one layer at the tight tolerance, then all 16 in one launch
+        one = hold(f"int8_megakernel 1 layer rows {rows}",
+                   twice(lambda: i8.int8_megakernel(x, wq[:1], s[:1]), "megakernel"),
+                   i8.reference_int8_mega(x, wq[:1], s[:1]), REL)
+        full = hold(f"int8_megakernel rows {rows}",
+                    twice(lambda: i8.int8_megakernel(x, wq, s), "megakernel"),
+                    i8.reference_int8_mega(x, wq, s), CHAIN_REL)
+        if i8.mega_launches != 4:
+            raise RuntimeError("int8_megakernel did not launch once a call")
+        ms = cuda_time_ms(torch, lambda: i8.int8_megakernel(x, wq, s))
+        dev = queued_ms(lambda: i8.int8_megakernel(x, wq, s), ms, device)
+        plain_ms = cuda_time_ms(torch, lambda: i8.reference_int8_mega(x, wq, s),
+                                iters=5)
+        res[("int8_megakernel", rows)] = dict(
+            abs=one[0], rel=max(one[1], full[1]), ms=ms, device_ms=dev,
+            plain_ms=plain_ms,
+            **bound(nbytes(x, wq, s, x), 2 * rows * d * f * n_layers, "bf16"))
+        for (name, r), v in res.items():
+            if r == rows:
+                print(f"[int8] rows {rows} {name}: max err / max {v['rel']:.2e} "
+                      f"(one layer max abs {v['abs']:.2e}), two runs "
+                      f"bit-identical; kernel {v['ms']:.4f} ms as called, "
+                      f"{v['device_ms']:.4f} ms queued, plain "
+                      f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+                      f"{v['bound_by']}")
+    i8.reset_launches()
+    replaces = {"int8_matvec": "tools/int8_matmul.py:55",
+                "int8_chain_bf16": "tools/int8_kernel_probe2.py:25",
+                "int8_chain_int8": "tools/int8_kernel_probe2.py:25",
+                "int8_megakernel": "tools/int8_kernel_probe3.py:36"}
+    entries = []
+    for name, where in replaces.items():
+        rows = 8 if name == "int8_megakernel" else 2
+        v = res[(name, rows)]
+        entries.append({
+            "name": name, "route": "cuda", "source": INT8_SRC, "replaces": where,
+            "launches": 0, "max_abs_err": v["abs"], "max_rel_err": v["rel"],
+            "ms": v["ms"], "device_ms": v["device_ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": None,
+            "shape": [rows, d, f, n_layers],
+            "by_rows": {str(r): {k: val[k] for k in ("ms", "device_ms", "plain_ms",
+                                                     "bound_ms")}
+                        for (nm, r), val in res.items() if nm == name}})
+    return entries
+
+
+def drive_int8_probe(torch, card: str) -> dict:
+    """``int8_probe.main`` at its defaults (the 830M widths, 16 layers, 2 and
+    8 rows, the card): every measured line finite, each chain's kernel
+    launched once per layer per call and the megakernel once per call.
+    Returns this path's launches by kernel."""
+    from ssr_speech_tpu_torch import int8_probe
+    from ssr_speech_tpu_torch.ops import int8_matmul as i8
+
+    i8.reset_launches()  # count only this path's launches
+    t0 = time.perf_counter()
+    res = int8_probe.main([])
+    torch.cuda.synchronize()
+    launches = {"int8_matvec": i8.matvec_launches,
+                "int8_chain_bf16": i8.chain_bf16_launches,
+                "int8_chain_int8": i8.chain_int8_launches,
+                "int8_megakernel": i8.mega_launches}
+    if (res["d_model"], res["ffn_dim"], res["layers"]) != INT8_SHAPE:
+        raise RuntimeError(f"the probe ran at {res['d_model']}, {res['ffn_dim']}, "
+                           f"{res['layers']}; the kernel checks took {INT8_SHAPE}")
+    want = dict.fromkeys(launches, 0)
+    for line in res["lines"]:
+        if not line["finite"] or line["device"] != "cuda":
+            raise RuntimeError(f"int8 probe: bad line {line}")
+        if line["kernel"] is None:
+            continue
+        per_call = 1 if line["kernel"] == "int8_megakernel" else res["layers"]
+        if line["launches"] != per_call * line["calls"]:
+            raise RuntimeError(f"int8 probe: {line['name']} launched "
+                               f"{line['launches']} times in {line['calls']} "
+                               f"calls, expected {per_call} a call")
+        want[line["kernel"]] += per_call * (line["calls"] + 1)  # + the output's
+    if launches != want or not all(launches.values()):
+        raise RuntimeError(f"int8 probe launches {launches}, expected {want}")
+    print(f"[int8-probe] {len(res['lines'])} lines in "
+          f"{time.perf_counter() - t0:.1f} s, finite outputs; launches "
+          f"{launches} [{card}]")
+    return launches
+
+
 def main() -> int:
     if not (REPO / "ssr_speech_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -850,7 +1122,8 @@ def main() -> int:
               f"{list(attn_case[0])} and CE {list(ce_case[0])}")
         kernels = [check_flash(torch, device),
                    check_flash_backward(torch, device, attn_case),
-                   *check_fused_ce(torch, device, ce_case)]
+                   *check_fused_ce(torch, device, ce_case),
+                   *check_int8(torch, device)]
         del attn_case, ce_case
         check_small_reference(torch, device)
         check_small_train_step(torch, device)
@@ -858,14 +1131,22 @@ def main() -> int:
         training = drive_training_path(
             torch, device, argv, card,
             (batch["x"].shape[0], batch["x"].shape[1], batch["y"].shape[1]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        streaming = drive_int8_probe(torch, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for entry in kernels:
-        entry["launches"] = training[entry["name"]]
+        entry["launches"] = {**training, **streaming}[entry["name"]]
     fwd = kernels[0]
     fwd["launches_by_path"] = {"serving": serving,
                                "training": training[fwd["name"]]}
     fwd["launches"] = serving + training[fwd["name"]]
+    # the TPU package has two forward kernels (library flash and splash); one
+    # Hopper kernel replaces both, so the report lists it once for each
+    kernels.insert(1, {**fwd, "name": "flash_attention_fwd_splash",
+                       "replaces": "ssr_speech_tpu/ops/flash_attention.py:103",
+                       "same_kernel_as": fwd["name"]})
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,8 +15,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ssr_speech_tpu.config import CodecConfig
-from ssr_speech_tpu.utils import audio as audio_io
+from ..config import CodecConfig
+from ..utils import audio as audio_io
 
 from ..models.codec import wmencodec as wm
 

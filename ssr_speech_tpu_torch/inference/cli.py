@@ -90,8 +90,8 @@ def prepare_job(words, orig_transcript, target_transcript, audio_dur, *,
     Returns (orig_transcript, target_transcript, target_text,
     mask_intervals); ``target_text`` is what the LM reads (for TTS the
     prompt transcript is prepended)."""
-    from ssr_speech_tpu.inference import edit as edit_mod
-    from ssr_speech_tpu.utils.text_norm import (normalize_aligned_words,
+    from ..inference import edit as edit_mod
+    from ..utils.text_norm import (normalize_aligned_words,
                                                 replace_numbers_with_words)
 
     from . import pipeline
@@ -136,8 +136,8 @@ def main(argv=None) -> Optional[Dict]:
     logging.basicConfig(level=logging.INFO)
     t0 = time.perf_counter()
 
-    from ssr_speech_tpu.config import DecodeConfig
-    from ssr_speech_tpu.utils import audio as audio_io
+    from ..config import DecodeConfig
+    from ..utils import audio as audio_io
 
     from ..data.tokenizer import TextTokenizer
     from ..device import resolve_device, set_precision_policy

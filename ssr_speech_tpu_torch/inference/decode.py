@@ -27,8 +27,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ssr_speech_tpu.config import DecodeConfig, SSRModelConfig
-from ssr_speech_tpu.ops import patterns
+from ..config import DecodeConfig, SSRModelConfig
+from ..ops import patterns
 
 from ..models import ssr as ssr_model
 from ..models import transformer as trf

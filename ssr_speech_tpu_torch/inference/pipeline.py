@@ -16,7 +16,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ssr_speech_tpu.config import DecodeConfig, SSRModelConfig
+from ..config import DecodeConfig, SSRModelConfig
 
 from ..data.tokenizer import (AudioTokenizer, TextTokenizer, tokenize_audio,
                               tokenize_text)

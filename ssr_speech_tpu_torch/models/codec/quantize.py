@@ -7,7 +7,7 @@ from typing import Optional
 
 import torch
 
-from ssr_speech_tpu.config import RVQConfig
+from ...config import RVQConfig
 
 
 def init_rvq(gen, cfg: RVQConfig, device="cpu"):

@@ -10,7 +10,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from ssr_speech_tpu.config import SEANetConfig
+from ...config import SEANetConfig
 
 from . import conv as cv
 

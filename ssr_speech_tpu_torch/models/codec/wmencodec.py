@@ -9,7 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ssr_speech_tpu.config import CodecConfig
+from ...config import CodecConfig
 
 from . import quantize as q
 from . import seanet

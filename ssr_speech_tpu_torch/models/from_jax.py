@@ -18,9 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ssr_speech_tpu.config import CodecConfig, SSRModelConfig
-
-from ..utils.tree import tree_map
+from ..config import CodecConfig, SSRModelConfig
+from ..utils.tree import to_numpy_tree
 
 
 class ParamTree(nn.Module):
@@ -137,7 +136,17 @@ def codec_from_jax(params: Dict[str, Any], cfg: CodecConfig, *,
     return WMEncodec(params, cfg).to(device).eval()
 
 
-def to_numpy_tree(tree):
-    """Tensors -> numpy arrays throughout a nested dict/list (for bundles)."""
-    return tree_map(lambda t: t.detach().cpu().numpy()
-                    if isinstance(t, torch.Tensor) else t, tree)
+def int8_ffn_from_jax(params: Dict[str, Any], device="cpu"):
+    """The LM's stacked first FFN weight ``decoder/layers/ffn1_w``
+    ([L, d_model, ffn_dim] in a JAX parameter tree, bundle params or the
+    port's own tree) quantised per output channel, as the inputs of
+    ``ops.int8_matmul.int8_megakernel``: ``(w_q int8 [L, K, N], scale fp32
+    [L, 1, N])`` on ``device``."""
+    from ..ops.int8_matmul import quantize_weight
+
+    w1 = _as_tensor(params["decoder"]["layers"]["ffn1_w"]).float()
+    if w1.dim() != 3:
+        raise ValueError(f"ffn1_w: expected [L, K, N], got {tuple(w1.shape)}")
+    pairs = [quantize_weight(w1[layer].to(device)) for layer in range(w1.shape[0])]
+    return (torch.stack([q for q, _ in pairs]).contiguous(),
+            torch.stack([s for _, s in pairs])[:, None, :].contiguous())

@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ssr_speech_tpu.config import SSRModelConfig
+from ..config import SSRModelConfig
 
 from ..ops.fused_ce import fused_ce_head
 from ..ops.masking import make_pad_mask, xy_attn_bias

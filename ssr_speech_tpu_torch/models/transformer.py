@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ssr_speech_tpu.config import SSRModelConfig
+from ..config import SSRModelConfig
 
 from ..ops.flash_attention import flash_attend_xy
 

@@ -125,7 +125,7 @@ def build_parser():
 
 def configs_from_args(args, device):
     """(SSRModelConfig, TrainConfig) of parsed CLI arguments."""
-    from ssr_speech_tpu.config import (DataConfig, MaskingConfig, OptimConfig,
+    from .config import (DataConfig, MaskingConfig, OptimConfig,
                                        SSRModelConfig, TokenSpace, TrainConfig)
 
     attn_impl = args.attn_impl or (
@@ -203,8 +203,8 @@ def configs_from_args(args, device):
 def make_train_batcher(cfg, tcfg, seed: int):
     """(training set, its bucket batcher): ``batcher(epoch)`` yields the
     batches ``main`` trains on, in order, the same for the same seed."""
-    from ssr_speech_tpu.data.batching import BucketBatcher
-    from ssr_speech_tpu.data.dataset import SpeechDataset
+    from .data.batching import BucketBatcher
+    from .data.dataset import SpeechDataset
 
     train_ds = SpeechDataset(cfg, tcfg.data, tcfg.masking, "train", seed=seed)
     return train_ds, BucketBatcher(train_ds, cfg, tcfg.data, seed=seed)
@@ -216,10 +216,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    from ssr_speech_tpu.data.batching import BucketBatcher
-    from ssr_speech_tpu.data.dataset import SpeechDataset
-    from ssr_speech_tpu.data.prefetch import prefetch
-    from ssr_speech_tpu.utils.checkpoint import latest_checkpoint
+    from .data.batching import BucketBatcher
+    from .data.dataset import SpeechDataset
+    from .data.prefetch import prefetch
+    from .utils.checkpoint import latest_checkpoint
 
     from .device import resolve_device, set_precision_policy
     from .training.trainer import Trainer

@@ -28,7 +28,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from ssr_speech_tpu.config import OptimConfig
+from ..config import OptimConfig
 
 from ..utils.tree import tree_leaves, tree_map
 

@@ -30,16 +30,14 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ssr_speech_tpu.config import SSRModelConfig, TrainConfig
-from ssr_speech_tpu.utils.checkpoint import load_bundle
-from ssr_speech_tpu.utils.watchdog import DeadlockDetect
-
+from ..config import SSRModelConfig, TrainConfig
 from ..models import ssr as ssr_model
-from ..models.from_jax import lm_to_numpy, to_numpy_tree, trainable_lm_from_jax
-from ..models.pretrained import save_bundle, save_step_checkpoint
+from ..models.from_jax import lm_to_numpy, trainable_lm_from_jax
+from ..utils.checkpoint import load_bundle, save_bundle, save_step_checkpoint
 from ..utils.metrics import AverageMeter, MetricsWriter
 from ..utils.profiler import Profiler, annotate
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import to_numpy_tree, tree_leaves, tree_map
+from ..utils.watchdog import DeadlockDetect
 from . import optim as optimlib
 
 logger = logging.getLogger(__name__)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+import torch
+
 
 def tree_leaves(tree) -> List[Any]:
     """Leaves in ``jax.tree.leaves`` order (empty containers have none)."""
@@ -27,3 +29,9 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *items) for items in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def to_numpy_tree(tree):
+    """Tensors -> numpy arrays throughout a nested dict/list (for bundles)."""
+    return tree_map(lambda t: t.detach().cpu().numpy()
+                    if isinstance(t, torch.Tensor) else t, tree)

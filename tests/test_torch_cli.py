@@ -29,6 +29,7 @@ from ssr_speech_tpu_torch.inference import cli as tcli
 from ssr_speech_tpu_torch.models import pretrained as tpretrained
 from ssr_speech_tpu_torch.models import ssr as tssr
 from ssr_speech_tpu_torch.models.codec import wmencodec as twm
+from tests.test_torch_hostcopies import NO_JAX_PACKAGE, port_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = tiny_ssr_config(text_vocab_size=40)
@@ -110,9 +111,9 @@ def test_port_bundles_load_in_jax(tmp_path):
     """A bundle written by the port's save_bundle from its own init is a JAX
     bundle: the JAX loader reads it, with the JAX init's tree structure."""
     gen = torch.Generator().manual_seed(0)
-    params = tssr.init_ssr(gen, CFG)
+    params = tssr.init_ssr(gen, port_config(CFG))
     path = str(tmp_path / "lm.pkl")
-    tpretrained.save_bundle(path, params=params, model_config=CFG,
+    tpretrained.save_bundle(path, params=params, model_config=port_config(CFG),
                             phn2num={"a": 0})
     jparams, jcfg, phn2num = jpretrained.load_lm(path)
     assert jcfg == CFG and phn2num == {"a": 0}
@@ -128,7 +129,7 @@ def test_port_bundles_load_in_jax(tmp_path):
 @pytest.mark.parametrize("cfg", [tiny_codec_config(), CODEC],
                          ids=["tiny", "cli"])
 def test_codec_init_structure_matches_jax(cfg):
-    ours = twm.init_wmencodec(torch.Generator().manual_seed(0), cfg)
+    ours = twm.init_wmencodec(torch.Generator().manual_seed(0), port_config(cfg))
     ref = jwm.init_wmencodec(jax.random.PRNGKey(0), cfg)
     ours = jax.tree.map(lambda t: t.numpy(), ours)
     assert jax.tree.structure(ours) == jax.tree.structure(ref)
@@ -162,15 +163,16 @@ def test_pipeline_host_helpers_match_jax(helper, args):
 
 
 def test_cli_imports_no_jax():
-    """The port never imports JAX: importing its CLI and running the parser
-    in a fresh interpreter leaves jax out of sys.modules."""
+    """The port imports neither JAX nor the JAX package: importing its CLI
+    and running the parser in a fresh interpreter leaves ``jax`` and every
+    ``ssr_speech_tpu.*`` module out of sys.modules."""
     code = ("import sys; from ssr_speech_tpu_torch.inference import cli; "
             "cli.build_parser().parse_args(['--model_path', 'm', "
             "'--codec_path', 'c', '--orig_audio', 'a', "
             "'--target_transcript', 't']); "
             "import ssr_speech_tpu_torch.models.pretrained, "
-            "ssr_speech_tpu_torch.inference.pipeline; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "ssr_speech_tpu_torch.inference.pipeline, "
+            "ssr_speech_tpu_torch.inference.edit; " + NO_JAX_PACKAGE)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -14,6 +14,7 @@ from ssr_speech_tpu.models.codec import wmencodec as jwm
 from ssr_speech_tpu_torch.models.codec import conv as tconv
 from ssr_speech_tpu_torch.models.codec import wmencodec as twm
 from ssr_speech_tpu_torch.models.from_jax import codec_from_jax
+from tests.test_torch_hostcopies import port_config
 
 CLI_CODEC = CodecConfig(  # tests/test_cli_integration.py
     seanet=SEANetConfig(dimension=16, n_filters=2, n_residual_layers=1,
@@ -31,7 +32,8 @@ MAE = 1e-5
 def codec(request):
     cfg = CONFIGS[request.param]
     params = jwm.init_wmencodec(jax.random.PRNGKey(1), cfg)
-    return cfg, params, codec_from_jax(jax.tree.map(np.asarray, params), cfg)
+    return cfg, params, codec_from_jax(jax.tree.map(np.asarray, params),
+                                       port_config(cfg))
 
 
 def _wav(cfg, frames, seed=0):
@@ -44,7 +46,7 @@ def test_encode_codes_identical(codec):
     cfg, params, model = codec
     wav = _wav(cfg, 13)
     codes_j, _, emb_j = jwm.encode(params, wav, cfg)
-    codes_t, scale, emb_t = twm.encode(model, torch.from_numpy(wav), cfg)
+    codes_t, scale, emb_t = twm.encode(model, torch.from_numpy(wav), model.cfg)
     assert scale is None
     np.testing.assert_allclose(emb_t.numpy(), np.asarray(emb_j), atol=1e-5)
     np.testing.assert_array_equal(codes_t.numpy(), np.asarray(codes_j))
@@ -57,7 +59,7 @@ def test_decode_and_wmdecode_waveforms(codec):
     # out-of-range ids (an untrained LM's special tokens) are clipped
     codes = rng.integers(0, cfg.rvq.bins + 6, size=(1, cfg.rvq.n_q, frames))
     wav_j = np.asarray(jwm.decode(params, codes, cfg))
-    wav_t = twm.decode(model, torch.from_numpy(codes), cfg).numpy()
+    wav_t = twm.decode(model, torch.from_numpy(codes), model.cfg).numpy()
     assert wav_t.shape == wav_j.shape == (1, frames * cfg.hop_length, 1)
     assert np.abs(wav_t - wav_j).mean() <= MAE
 
@@ -68,7 +70,7 @@ def test_decode_and_wmdecode_waveforms(codec):
     out_j, mark_j = jwm.wmdecode(params, codes, labels, orig, cfg)
     out_t, mark_t = twm.wmdecode(model, torch.from_numpy(codes),
                                  torch.from_numpy(labels).long(),
-                                 torch.from_numpy(orig), cfg)
+                                 torch.from_numpy(orig), model.cfg)
     assert np.abs(out_t.numpy() - np.asarray(out_j)).mean() <= MAE
     np.testing.assert_allclose(mark_t.numpy(), np.asarray(mark_j), atol=1e-4)
 
@@ -77,7 +79,7 @@ def test_detect_watermark_identical(codec):
     cfg, params, model = codec
     wav = _wav(cfg, 9, seed=5)
     want = np.asarray(jwm.detect_watermark(params, wav, cfg))
-    got = twm.detect_watermark(model, torch.from_numpy(wav), cfg).numpy()
+    got = twm.detect_watermark(model, torch.from_numpy(wav), model.cfg).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -108,16 +110,16 @@ def test_weight_norm_and_conv_transpose_match():
 def test_renormalize_scale_round_trip():
     cfg = tiny_codec_config(renormalize=True)
     params = jwm.init_wmencodec(jax.random.PRNGKey(3), cfg)
-    model = codec_from_jax(jax.tree.map(np.asarray, params), cfg)
+    model = codec_from_jax(jax.tree.map(np.asarray, params), port_config(cfg))
     wav = _wav(cfg, 7, seed=8) * 3.0
     codes_j, scale_j, _ = jwm.encode(params, wav, cfg)
-    codes_t, scale_t, _ = twm.encode(model, torch.from_numpy(wav), cfg)
+    codes_t, scale_t, _ = twm.encode(model, torch.from_numpy(wav), model.cfg)
     np.testing.assert_allclose(scale_t.numpy(), np.asarray(scale_j), rtol=1e-6)
     np.testing.assert_array_equal(codes_t.numpy(), np.asarray(codes_j))
     out_j = np.asarray(jwm.decode(params, codes_j, cfg, scale_j))
-    out_t = twm.decode(model, codes_t, cfg, scale_t).numpy()
+    out_t = twm.decode(model, codes_t, model.cfg, scale_t).numpy()
     assert np.abs(out_t - out_j).mean() <= MAE
     causal = tiny_codec_config(renormalize=True, seanet=SEANetConfig(
         dimension=16, n_filters=4, lstm=1, ratios=(4, 2), causal=True))
     with pytest.raises(ValueError):
-        twm.preprocess(torch.from_numpy(wav), causal)
+        twm.preprocess(torch.from_numpy(wav), port_config(causal))

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port against their plain PyTorch versions,
 on the card: the flash-attention forward and backward, the fused CE head's
-forward, dhidden and dw2/db2. Skipped where torch.cuda.is_available() is
-false.
+forward, dhidden and dw2/db2, and the int8 weight-streaming matvecs (the
+fp32-dequant kernel, the chain in both modes, the megakernel). Skipped where
+torch.cuda.is_available() is false.
 
 Run on a GPU machine (which needs neither JAX nor tests/conftest.py):
 
@@ -16,6 +17,7 @@ import torch
 
 from ssr_speech_tpu_torch.ops import flash_attention as fa
 from ssr_speech_tpu_torch.ops import fused_ce as fce
+from ssr_speech_tpu_torch.ops import int8_matmul as i8
 
 pytestmark = pytest.mark.cuda
 
@@ -230,9 +232,162 @@ SMALL = dict(d_model=256, nhead=2, num_layers=2, n_codebooks=4,
              max_position=1024)
 
 
+# ------------------------------------------------ int8 weight streaming
+
+I8_SHAPES = [(1, 32, 64), (2, 128, 512), (3, 96, 192), (8, 128, 512),
+             (5, 1024, 2048), (2, 2048, 8192), (8, 2048, 8192)]
+CHAIN_REL = 5e-2  # 16 layers: a bf16 rounding flip in h feeds every later layer
+
+
+def _i8_inputs(b, k, n, seed, device, layers=None):
+    """The probes' weights: int8 in [-127, 127), scales 0.01 |normal|."""
+    rng = np.random.default_rng(seed)
+    lead = () if layers is None else (layers,)
+    wq = torch.from_numpy(rng.integers(-127, 127, size=lead + (k, n)).astype(np.int8))
+    s = torch.from_numpy((np.abs(rng.normal(size=lead + (1, n))) * 0.01
+                          ).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32))
+    return x.to(device, torch.bfloat16), wq.to(device), s.to(device)
+
+
+@pytest.mark.parametrize("b,k,n", I8_SHAPES)
+def test_int8_matvec_matches_plain(device, b, k, n):
+    rng = np.random.default_rng(b + k)
+    w = torch.from_numpy(rng.normal(size=(k, n), scale=0.02).astype(np.float32))
+    wq, s = i8.quantize_weight(w.to(device))
+    x = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32)
+                         ).to(device, torch.bfloat16)
+    i8.reset_launches()
+    got, again = i8.int8_matvec(x, wq, s), i8.int8_matvec(x, wq, s)
+    want = i8.reference_int8_matvec(x, wq, s)
+    torch.cuda.synchronize()
+    assert i8.matvec_launches == 2 and got.shape == (b, n)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert _rel(got, want) <= REL
+
+
+@pytest.mark.parametrize("b,k,n", I8_SHAPES)
+def test_int8_layer_matches_plain_in_both_modes(device, b, k, n):
+    x, wq, s = _i8_inputs(b, k, n, b * k, device)
+    s = s.reshape(-1)
+    i8.reset_launches()
+    for mode in i8.MODES:
+        got = i8.int8_matvec_layer(x, wq, s, mode)
+        again = i8.int8_matvec_layer(x, wq, s, mode)
+        want = i8.reference_int8_layer(x, wq, s, mode)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        if mode == "int8":  # exact int32 sums: bit for bit
+            assert torch.equal(got, want)
+        else:
+            assert _rel(got, want) <= REL
+    assert (i8.chain_bf16_launches, i8.chain_int8_launches) == (2, 2)
+
+
+def test_int8_mode_rounds_half_to_even_on_the_card(device):
+    k, n = 128, 192
+    x = torch.zeros((2, k))
+    x[0, :8] = torch.tensor([1, 3, 5, 7, -1, -3, -5, 300]) / 64.0
+    x[1, :3] = torch.tensor([100.0, -100.0, 3.97])
+    wq = torch.zeros((k, n), dtype=torch.int8)
+    wq[torch.arange(k), torch.arange(k)] = 1
+    s = torch.ones(n)
+    x, wq, s = x.to(device, torch.bfloat16), wq.to(device), s.to(device)
+    got = i8.int8_matvec_layer(x, wq, s, "int8")
+    assert torch.equal(got, i8.reference_int8_layer(x, wq, s, "int8"))
+    want0 = torch.tensor([0, 2, 2, 4, 0, -2, -2, 127]) / 32.0
+    assert torch.equal(got[0, :8].float().cpu(), want0)
+
+
+@pytest.mark.parametrize("b,k,n,shared", [(2, 128, 512, True), (8, 128, 512, False),
+                                          (2, 2048, 8192, True),
+                                          (8, 2048, 8192, False)])
+def test_int8_chain_matches_plain(device, b, k, n, shared):
+    layers = 16
+    x, wq, s = _i8_inputs(b, k, n, k + b, device, None if shared else layers)
+    i8.reset_launches()
+    for mode in i8.MODES:
+        got = i8.int8_matvec_chain(x, wq, s, mode, layers)
+        again = i8.int8_matvec_chain(x, wq, s, mode, layers)
+        want = i8.reference_int8_chain(x, wq, s, mode, layers)
+        torch.cuda.synchronize()
+        assert got.shape == (b, k) and torch.isfinite(got).all()
+        assert torch.equal(got, again)
+        if mode == "int8":
+            assert torch.equal(got, want)
+        else:
+            assert _rel(got, want) <= CHAIN_REL
+    assert (i8.chain_bf16_launches, i8.chain_int8_launches) == (32, 32)
+
+
+@pytest.mark.parametrize("b,layers,k,n", [(8, 3, 128, 512), (2, 16, 128, 128),
+                                          (5, 4, 256, 16384), (8, 16, 2048, 8192)])
+def test_int8_megakernel_matches_plain(device, b, layers, k, n):
+    x, wq, s = _i8_inputs(b, k, n, layers, device, layers)
+    i8.reset_launches()
+    got, again = i8.int8_megakernel(x, wq, s), i8.int8_megakernel(x, wq, s)
+    want = i8.reference_int8_mega(x, wq, s)
+    chain = i8.int8_matvec_chain(x, wq, s, "bf16", layers)
+    torch.cuda.synchronize()
+    assert i8.mega_launches == 2 and got.shape == (b, k)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert _rel(got, want) <= CHAIN_REL
+    assert _rel(got, chain) <= CHAIN_REL  # one launch against one per layer
+    # a single layer at the tight tolerance
+    one = i8.int8_megakernel(x, wq[:1], s[:1])
+    assert _rel(one, i8.reference_int8_mega(x, wq[:1], s[:1])) <= REL
+
+
+def test_int8_megakernel_smaller_grid_and_co_residency(device):
+    """Fewer blocks than tiles: each block walks several tiles, same result
+    bit for bit. More blocks than the device holds at once: refused with an
+    error instead of a launch that would never pass its barrier."""
+    x, wq, s = _i8_inputs(8, 256, 16384, 9, device, 3)
+    full = i8.int8_megakernel(x, wq, s)
+    assert torch.equal(i8.int8_megakernel(x, wq, s, grid_blocks=7), full)
+    i8.reset_launches()
+    with pytest.raises(RuntimeError, match="resident"):
+        i8.int8_megakernel(x, wq, s, grid_blocks=100000)
+    assert i8.mega_launches == 0
+    torch.cuda.synchronize()
+    assert torch.equal(i8.int8_megakernel(x, wq, s), full)  # the device is fine
+
+
+def test_int8_kernels_refuse_what_they_cannot_take(device):
+    x, wq, s = _i8_inputs(2, 128, 512, 0, device)
+    s1 = s.reshape(-1)
+    with pytest.raises(TypeError):
+        i8.int8_matvec(x.float(), wq, s1)
+    with pytest.raises(TypeError):
+        i8.int8_matvec(x, wq.int(), s1)
+    with pytest.raises(ValueError):
+        i8.int8_matvec(x, wq[:96], s1)  # K mismatch
+    with pytest.raises(ValueError):
+        i8.int8_matvec(x, wq[:, :100].contiguous(), s1[:100].contiguous())
+    with pytest.raises(ValueError):
+        i8.int8_matvec(x, wq.t().contiguous().t(), s1)  # not contiguous
+    with pytest.raises(ValueError):
+        i8.int8_matvec(x.repeat(5, 1), wq, s1)  # 10 rows
+    with pytest.raises(ValueError):
+        i8.int8_matvec(x, wq.cpu(), s1)
+    with pytest.raises(ValueError):
+        i8.int8_matvec_layer(x, wq, s1, "fp8")
+    with pytest.raises(ValueError):
+        i8.int8_megakernel(x, wq[None], s1[None])  # scale not [L, 1, N]
+    with pytest.raises(ValueError):
+        i8.int8_megakernel(x, wq[None, :, :64].contiguous(),
+                           s[None, :, :64].contiguous())  # N < K
+    # a column slice of a wider output (the chain's feedback) is taken as is
+    wide = i8.int8_matvec(x, wq, s1)
+    h = wide[:, :128]
+    assert not h.is_contiguous()
+    assert torch.equal(i8.int8_matvec(h, wq, s1),
+                       i8.int8_matvec(h.contiguous(), wq, s1))
+
+
 @pytest.fixture(scope="module")
 def small_lm(device):
-    from ssr_speech_tpu.config import SSRModelConfig
+    from ssr_speech_tpu_torch.config import SSRModelConfig
     from ssr_speech_tpu_torch.models import ssr as tssr
     from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
 
@@ -279,7 +434,7 @@ def test_prefill_on_card_matches_cpu(device, small_lm):
 
 
 def test_generate_on_card_is_deterministic(device, small_lm):
-    from ssr_speech_tpu.config import DecodeConfig
+    from ssr_speech_tpu_torch.config import DecodeConfig
     from ssr_speech_tpu_torch.inference import decode as tdecode
 
     cfg, _, gpu = small_lm

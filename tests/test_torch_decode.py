@@ -17,15 +17,17 @@ from ssr_speech_tpu.inference import decode as jdecode
 from ssr_speech_tpu.models import ssr as jssr
 from ssr_speech_tpu_torch.inference import decode as tdecode
 from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
+from tests.test_torch_hostcopies import port_config
 
 CFG = tiny_ssr_config()
 TS = CFG.tokens
+TCFG = port_config(CFG)  # the port's own config class, same values
 
 
 @pytest.fixture(scope="module")
 def models():
     params = jssr.init_ssr(jax.random.PRNGKey(0), CFG)
-    return params, lm_from_jax(jax.tree.map(np.asarray, params), CFG)
+    return params, lm_from_jax(jax.tree.map(np.asarray, params), TCFG)
 
 
 def _dec(**kw):
@@ -40,7 +42,7 @@ def _both(models, dec, x, y, mask, **kw):
     params, model = models
     want = jdecode.generate(params, CFG, dec, x, y, mask,
                             jax.random.PRNGKey(0), dtype_name="float32", **kw)
-    got = tdecode.generate(model, CFG, dec, x, y, mask,
+    got = tdecode.generate(model, TCFG, port_config(dec), x, y, mask,
                            torch.Generator().manual_seed(0), **kw)
     return want, got
 
@@ -139,7 +141,7 @@ def test_advance_chains_matches_jax(stop_repetition, temperature):
         num_cfg=np.array([1, 2, 3, 1, 2], np.int32),
         done=np.array([False, False, False, False, True]))
     num_cfg = np.array([2, 3, 1, 2, 2], np.int32)
-    kw = dict(dec=dec, num_task=num_task, length_cap=40, n_tasks=num_task)
+    kw = dict(num_task=num_task, length_cap=40, n_tasks=num_task)
     sent = np.arange(TS.mts, TS.mts + TS.max_n_spans, dtype=np.int32)
 
     js = jdecode.ChainState(cache=None, key=None,
@@ -147,7 +149,7 @@ def test_advance_chains_matches_jax(stop_repetition, temperature):
     want = jdecode._advance_chains(
         js, jnp.asarray(lg), jax.random.PRNGKey(0), jnp.asarray(num_cfg),
         ts=TS, sentinel_ids=jnp.asarray(sent), static_ban=jdecode._static_ban(TS),
-        silence=jnp.asarray(silence, jnp.int32), **kw)
+        silence=jnp.asarray(silence, jnp.int32), dec=dec, **kw)
 
     ts_fields = {k: torch.from_numpy(np.asarray(v)).long()
                  for k, v in fields.items() if k not in ("y_pos", "done")}
@@ -155,10 +157,10 @@ def test_advance_chains_matches_jax(stop_repetition, temperature):
                             **ts_fields)
     got = tdecode._advance_chains(
         st, torch.from_numpy(lg), torch.Generator().manual_seed(0),
-        torch.from_numpy(num_cfg).long(), ts=TS,
+        torch.from_numpy(num_cfg).long(), ts=TCFG.tokens,
         sentinel_ids=torch.from_numpy(sent).long(),
-        static_ban=tdecode._static_ban(TS, "cpu"),
-        silence=torch.tensor(silence), **kw)
+        static_ban=tdecode._static_ban(TCFG.tokens, "cpu"),
+        silence=torch.tensor(silence), dec=port_config(dec), **kw)
     assert got.y_pos == int(want["y_pos"])
     for key in ("next_tokens", "out", "out_len", "span_idx", "span_end",
                 "num_gen", "num_eog", "prev_token", "consec_silence",

@@ -23,6 +23,7 @@ from ssr_speech_tpu_torch.inference import decode as tdecode
 from ssr_speech_tpu_torch.models import ssr as tssr
 from ssr_speech_tpu_torch.models import transformer as ttrf
 from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
+from tests.test_torch_hostcopies import port_config
 from ssr_speech_tpu_torch.ops import flash_attention as tfa
 from ssr_speech_tpu_torch.ops import masking as tmask
 from ssr_speech_tpu_torch.ops import sampling as tsamp
@@ -99,7 +100,8 @@ def test_sampling_filter_matches_jax(top_k, top_p):
 def lm(request):
     cfg = CONFIGS[request.param]
     params = jssr.init_ssr(jax.random.PRNGKey(2), cfg)
-    return cfg, params, lm_from_jax(jax.tree.map(np.asarray, params), cfg)
+    return cfg, params, lm_from_jax(jax.tree.map(np.asarray, params),
+                                    port_config(cfg))
 
 
 def test_heads_norm_and_positions_match_jax(lm):
@@ -139,7 +141,7 @@ def test_ssr_forward_loss_and_metrics_match_jax(lm, predict_all):
     want = jssr.ssr_forward(params, cfg, {k: jnp.asarray(v) for k, v in
                                           batch.items()},
                             remat=False, predict_all=predict_all)
-    got = tssr.ssr_forward(model, cfg, {k: torch.from_numpy(v) for k, v in
+    got = tssr.ssr_forward(model, model.cfg, {k: torch.from_numpy(v) for k, v in
                                         batch.items()},
                            predict_all=predict_all)
     for key in ("loss", "effective_ntoken", "loss_by_codebook",
@@ -164,13 +166,13 @@ def test_prefill_cache_and_decode_step_match_jax(lm, aug_text):
     prefix[:, :p_len] = rng.integers(0, cfg.tokens.audio_vocab_size,
                                      size=(K, p_len))
     tmax = 256
-    kw = dict(cfg=cfg, tmax=tmax, cfg_pretrained=True, aug_text=aug_text)
+    kw = dict(tmax=tmax, cfg_pretrained=True, aug_text=aug_text)
     jcache, jban = jdecode._prefill_impl(
         params, jnp.asarray(x), jnp.asarray(prefix), jnp.asarray(x_len),
-        jnp.asarray(p_len), dtype_name="float32", **kw)
+        jnp.asarray(p_len), dtype_name="float32", cfg=cfg, **kw)
     tcache, tban = tdecode._prefill_impl(
         model, torch.from_numpy(x).long(), torch.from_numpy(prefix).long(),
-        x_len, p_len, dtype=torch.float32, **kw)
+        x_len, p_len, dtype=torch.float32, cfg=model.cfg, **kw)
     np.testing.assert_array_equal(tban.numpy(), np.asarray(jban))
     assert tcache.length == int(jcache.length) == sx + p_len
     n = sx + p_len
@@ -189,7 +191,7 @@ def test_prefill_cache_and_decode_step_match_jax(lm, aug_text):
                                              cfg, dtype=jnp.float32)
     tout, tc2 = ttrf.transformer_decode_step(model["decoder"],
                                              torch.from_numpy(h), tcache, tban,
-                                             cfg, dtype=torch.float32)
+                                             model.cfg, dtype=torch.float32)
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
     assert tc2.length == int(jc2.length) == n + 1
     np.testing.assert_allclose(tc2.k[:, :, :, n].numpy(),
@@ -201,18 +203,18 @@ def test_decode_step_attention_sees_exactly_the_fill():
     nothing (JAX masks them; the port does not read them)."""
     cfg = CONFIGS["tiny_dh16"]
     params = jssr.init_ssr(jax.random.PRNGKey(3), cfg)
-    model = lm_from_jax(jax.tree.map(np.asarray, params), cfg)
-    cache = ttrf.init_kv_cache(cfg, 1, 16, dtype=torch.float32)
+    model = lm_from_jax(jax.tree.map(np.asarray, params), port_config(cfg))
+    cache = ttrf.init_kv_cache(model.cfg, 1, 16, dtype=torch.float32)
     gen = torch.Generator().manual_seed(0)
     cache.k.normal_(generator=gen)
     cache.v.normal_(generator=gen)
     cache = ttrf.KVCache(cache.k, cache.v, 5)
     ban = torch.tensor([[1, 2]])
     h = torch.randn((1, cfg.d_model), generator=gen)
-    a, _ = ttrf.transformer_decode_step(model["decoder"], h, cache, ban, cfg,
+    a, _ = ttrf.transformer_decode_step(model["decoder"], h, cache, ban, model.cfg,
                                         dtype=torch.float32)
     cache.k[:, :, :, 7:] = 1e3
     cache = ttrf.KVCache(cache.k, cache.v, 5)
-    b, _ = ttrf.transformer_decode_step(model["decoder"], h, cache, ban, cfg,
+    b, _ = ttrf.transformer_decode_step(model["decoder"], h, cache, ban, model.cfg,
                                         dtype=torch.float32)
     torch.testing.assert_close(a, b, rtol=0, atol=0)

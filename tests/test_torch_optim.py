@@ -19,6 +19,7 @@ from ssr_speech_tpu.config import OptimConfig
 from ssr_speech_tpu.training import optim as joptim
 from ssr_speech_tpu_torch.training import optim as toptim
 from ssr_speech_tpu_torch.utils.tree import tree_leaves, tree_map
+from tests.test_torch_hostcopies import port_config
 
 STEPS = 12
 
@@ -73,7 +74,7 @@ def test_scaled_adam_matches_jax(moments):
                       moments_dtype=moments, warmup_batches=5.0,
                       reduce_lr_start_step=10, pseudo_epoch_size=6)
     jopt, _ = joptim.build_optimizer(cfg)
-    topt, _ = toptim.build_optimizer(cfg)
+    topt, _ = toptim.build_optimizer(port_config(cfg))
     tstate, jstate = _run(jopt, topt, inject_big_grad_at=9)
     assert int(tstate[0]) == int(jstate.step) == STEPS
     assert np.isfinite(float(tstate[3])) and float(tstate[3]) == pytest.approx(
@@ -91,7 +92,7 @@ def test_eve_and_adamw_match_jax(name):
     cfg = OptimConfig(optimizer_name=name, lr=0.01, warmup_fraction=0.25,
                       weight_decay=0.05, gradient_clip_val=1.0)
     jopt, _ = joptim.build_optimizer(cfg, total_steps=20)
-    topt, _ = toptim.build_optimizer(cfg, total_steps=20)
+    topt, _ = toptim.build_optimizer(port_config(cfg), total_steps=20)
     tstate, jstate = _run(jopt, topt, scale=1.0)
     _assert_states_match(tstate, jstate)
 

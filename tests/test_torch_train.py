@@ -29,6 +29,7 @@ from ssr_speech_tpu_torch.models.from_jax import (lm_to_numpy,
 from ssr_speech_tpu_torch.ops import flash_attention as tfa
 from ssr_speech_tpu_torch.ops import fused_ce as tfce
 from ssr_speech_tpu_torch.utils.tree import tree_leaves
+from tests.test_torch_hostcopies import port_config
 
 ATOL = 1e-5
 NO_DROPOUT = dict(trm_dropout=0.0, text_embedding_dropout=0.0,
@@ -144,8 +145,8 @@ def test_ssr_forward_loss_metrics_and_every_grad_match_jax(lm, attn, ce,
         return out["loss"], out
 
     (_, want), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
-    model = trainable_lm_from_jax(params, cfg)
-    got = tssr.ssr_forward(model, cfg, {k: torch.from_numpy(v) for k, v in
+    model = trainable_lm_from_jax(params, port_config(cfg))
+    got = tssr.ssr_forward(model, model.cfg, {k: torch.from_numpy(v) for k, v in
                                         batch.items()}, **kw)
     got["loss"].backward()
     for key in ("loss", "effective_ntoken", "loss_by_codebook",
@@ -173,7 +174,7 @@ def test_trainable_params_round_trip(lm):
     """JAX pytree -> fp32 nn.Parameters in the same nesting -> numpy, bit
     for bit, without aliasing the arrays it came from."""
     cfg, params = lm
-    model = trainable_lm_from_jax(params, cfg)
+    model = trainable_lm_from_jax(params, port_config(cfg))
     assert all(isinstance(p, torch.nn.Parameter) and p.dtype == torch.float32
                for p in tree_leaves(model.tree()))
     back = lm_to_numpy(model)
@@ -200,15 +201,15 @@ def test_dropout_keeps_its_share_and_repeats_with_the_seed():
 
     cfg = dataclasses.replace(tiny_ssr_config(), trm_dropout=0.2)
     params = jax.tree.map(np.asarray, jssr.init_ssr(jax.random.PRNGKey(0), cfg))
-    model = trainable_lm_from_jax(params, cfg)
+    model = trainable_lm_from_jax(params, port_config(cfg))
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 1).items()}
 
     def loss(seed):
         gen = torch.Generator().manual_seed(seed)
-        return tssr.ssr_forward(model, cfg, batch, deterministic=False,
+        return tssr.ssr_forward(model, model.cfg, batch, deterministic=False,
                                 generator=gen)["loss"].item()
 
     assert loss(7) == loss(7)
     assert loss(7) != loss(8)
     with pytest.raises(ValueError, match="Generator"):
-        tssr.ssr_forward(model, cfg, batch, deterministic=False)
+        tssr.ssr_forward(model, model.cfg, batch, deterministic=False)

@@ -36,6 +36,8 @@ from ssr_speech_tpu_torch.models.pretrained import load_lm
 from ssr_speech_tpu_torch.training import optim as toptim
 from ssr_speech_tpu_torch.training.trainer import make_train_step
 from ssr_speech_tpu_torch.utils.tree import tree_leaves
+from tests.test_torch_hostcopies import (NO_JAX_PACKAGE, jax_config,
+                                         port_config)
 from tests.test_training import make_synth_corpus
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -90,10 +92,10 @@ def test_train_steps_match_jax(name, accum):
     jparams = jax.tree.map(jnp.asarray, params)
     jstate = jopt.init(jparams)
     jstep = jmake_train_step(CFG, tcfg, jopt)
-    topt, _ = toptim.build_optimizer(tcfg.optim, total_steps=100)
-    model = trainable_lm_from_jax(params, CFG)
+    topt, _ = toptim.build_optimizer(port_config(tcfg.optim), total_steps=100)
+    model = trainable_lm_from_jax(params, port_config(CFG))
     tstate = topt.init(model.tree())
-    tstep = make_train_step(CFG, tcfg, topt, torch.device("cpu"))
+    tstep = make_train_step(model.cfg, port_config(tcfg), topt, torch.device("cpu"))
     rng = np.random.default_rng(4)
     for i in range(3):
         batch = _batch(rng)
@@ -131,11 +133,11 @@ def test_nan_batch_is_skipped_like_jax():
     jparams = jax.tree.map(jnp.asarray, params)
     _, _, jm = jmake_train_step(CFG, tcfg, jopt)(jparams, jopt.init(jparams),
                                                  batch, jax.random.PRNGKey(0))
-    topt, _ = toptim.build_optimizer(tcfg.optim)
-    model = trainable_lm_from_jax(params, CFG)
+    topt, _ = toptim.build_optimizer(port_config(tcfg.optim))
+    model = trainable_lm_from_jax(params, port_config(CFG))
     tstate = topt.init(model.tree())
     before = [t.detach().clone() for t in tree_leaves((model.tree(), tstate))]
-    tm = make_train_step(CFG, tcfg, topt, torch.device("cpu"))(
+    tm = make_train_step(model.cfg, port_config(tcfg), topt, torch.device("cpu"))(
         model, tstate, batch, torch.Generator())
     assert tm["skipped"] == float(jm["skipped"]) == 1.0
     after = tree_leaves((model.tree(), tstate))
@@ -158,9 +160,11 @@ TINY = ["--d_model", "64", "--nhead", "4", "--num_decoder_layers", "2",
 
 
 def _first_batch(argv):
-    """The CLI's first training batch, rebuilt from its configs and seed."""
+    """The CLI's first training batch, rebuilt by the JAX package's dataset
+    and batcher from the CLI's configs (as JAX-package objects) and seed."""
     args = ttrain_lm.build_parser().parse_args(argv)
-    cfg, tcfg = ttrain_lm.configs_from_args(args, torch.device("cpu"))
+    cfg, tcfg = (jax_config(c) for c in ttrain_lm.configs_from_args(
+        args, torch.device("cpu")))
     ds = SpeechDataset(cfg, tcfg.data, tcfg.masking, "train", seed=args.seed)
     return cfg, tcfg, next(iter(BucketBatcher(ds, cfg, tcfg.data, seed=args.seed)(0)))
 
@@ -195,7 +199,7 @@ def test_train_lm_cli_resume_and_bundles_interoperate(tmp_path):
     # the serving loader reads the training bundle
     served, served_cfg, _ = load_lm(os.path.join(exp, "bundle.pkl"),
                                     torch.device("cpu"))
-    assert served_cfg == cfg
+    assert served_cfg == port_config(cfg)
     # the JAX trainer resumes from it: params and optimizer state line up
     jtr = JTrainer(cfg, dataclasses.replace(tcfg, num_steps=2), None,
                    exp_dir=str(tmp_path / "jax_exp"))
@@ -225,13 +229,12 @@ def test_train_lm_cli_resume_and_bundles_interoperate(tmp_path):
 
 def test_train_lm_imports_no_jax(tmp_path):
     """The port's training CLI, run for two steps in a fresh interpreter,
-    leaves jax out of sys.modules."""
+    leaves ``jax`` and every ``ssr_speech_tpu.*`` module out of sys.modules."""
     root = make_synth_corpus(tmp_path, n=8)
     argv = ["--exp_dir", str(tmp_path / "exp"), "--dataset_dir", root,
             "--encodec_folder_name", "codes", "--num_steps", "1", *TINY]
     code = ("import sys; from ssr_speech_tpu_torch import train_lm; "
-            f"train_lm.main({argv!r}); "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            f"train_lm.main({argv!r}); " + NO_JAX_PACKAGE)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -242,7 +245,7 @@ def test_split_microbatches_takes_strided_rows_and_pads_with_empty_rows():
 
     batch = _batch(np.random.default_rng(1), B=4)
     batch = {k: np.concatenate([v, v[:1]]) for k, v in batch.items()}  # B = 5
-    micro = split_microbatches(batch, 2, CFG)
+    micro = split_microbatches(batch, 2, port_config(CFG))
     assert micro["x"].shape == (2, 3, batch["x"].shape[1])
     np.testing.assert_array_equal(micro["y"][0], batch["y"][0::2])
     np.testing.assert_array_equal(micro["y"][1, :2], batch["y"][1::2])

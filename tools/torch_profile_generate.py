@@ -73,7 +73,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import card_line, cuda_time_ms, prefill_segments
-    from ssr_speech_tpu.config import DecodeConfig, SSRModelConfig
+    from ssr_speech_tpu_torch.config import DecodeConfig, SSRModelConfig
     from ssr_speech_tpu_torch.device import resolve_device, set_precision_policy
     from ssr_speech_tpu_torch.inference import decode
     from ssr_speech_tpu_torch.models import ssr as tssr
