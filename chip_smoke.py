@@ -14,7 +14,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the serving path; the attention forward's log-sum-exp and the backward on
    the training batch ([B, 16, Sx + Sy, 128] with its own segments) and at
    [8,16,1280,128] and a ragged S = 1000 (padded-batch segments; every row,
-   two runs bit for bit); the fused CE head's forward, dhidden and dw2/db2 on
+   two runs bit for bit); both also on five layouts that make the kernels
+   skip tiles (a text-pad block, an audio-pad block, the banned [1, sx) row,
+   ids beyond {0, 1}, rows alone in their segment), against the dense and
+   the tiled plain versions; ``tile_visits`` on the card against the dense
+   mask at every case, with the visited share of the causal tiles; the
+   forward timed at the training batch's shape too; the fused CE head's forward, dhidden and dw2/db2 on
    the training batch (K = 4, N = B(Sy - 1), Hh = 1024, C = 2056, its
    targets) and at N = 8000; the int8 weight-streaming matvecs at the
    probe's full width (2 and 8 rows against [2048, 8192] int8: the
@@ -140,11 +145,72 @@ def attention_mask(torch, seg):
         (s, s), dtype=torch.bool, device=seg.device).tril())[:, None]
 
 
+SKIP_SHAPE = (5, 4, 640, 128)  # one batch row per layout of skip_segments
+
+
+def skip_segments(torch, s: int, sx: int, device):
+    """Five rows of segment ids that make the kernels skip tiles, one layout
+    each: a block of text padding, a block of audio padding, the
+    unconditional CFG row's banned [1, sx), runs of ids beyond {0, 1}, and
+    rows alone in their segment (the first, a middle and the last)."""
+    seg = torch.ones((5, s), dtype=torch.int32)
+    seg[0, 40:sx] = 0
+    seg[1, s - 170:] = 0
+    seg[2, 1:sx] = 0
+    ids = torch.tensor([-7, 3, 1 << 20, 0, 5, -(1 << 30)], dtype=torch.int32)
+    seg[3] = ids[(torch.arange(s) // 90) % len(ids)]
+    seg[4, 0], seg[4, s // 2], seg[4, s - 1] = 9, 7, 3
+    return seg.to(device)
+
+
+def check_tile_visits(torch, fa, seg) -> float:
+    """``tile_visits`` on the card against the dense mask: no tile that holds
+    an attending pair is skipped, every diagonal tile is visited. Returns the
+    visited share of the causal tiles."""
+    b, s = seg.shape
+    vis = fa.tile_visits(seg)
+    t = vis.shape[1]
+    pad = t * fa.TILE - s
+    ok = torch.nn.functional.pad(attention_mask(torch, seg)[:, 0], (0, pad, 0, pad))
+    need = ok.view(b, t, fa.TILE, t, fa.TILE).any(4).any(2)
+    if (need & ~vis).any() or not vis.diagonal(dim1=1, dim2=2).all():
+        raise RuntimeError(f"tile_visits skips a tile the mask needs at S = {s}")
+    causal = torch.ones((t, t), dtype=torch.bool, device=seg.device).tril()
+    return (vis & causal).sum().item() / (b * causal.sum().item())
+
+
 def check_flash(torch, device) -> dict:
     from ssr_speech_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(0)
     worst, times = 0.0, {}
+    # the layouts that exercise the skip rule: every row against the dense
+    # plain version, the output and LSE against the tiled plain version too
+    q, k, v = (torch.randn(SKIP_SHAPE, generator=gen, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+               for _ in range(3))
+    seg = skip_segments(torch, SKIP_SHAPE[2], 192, device)
+    scale = 1.0 / SKIP_SHAPE[3] ** 0.5
+    share = check_tile_visits(torch, fa, seg)
+    got, lse = fa.flash_forward(q, k, v, seg, scale, with_lse=True)
+    want = fa.reference_attend(q, k, v, seg, scale)
+    tiled, tiled_lse = fa.tiled_forward(q, k, v, seg, scale)
+    torch.cuda.synchronize()
+    errs = {"dense plain": (got.float() - want.float()).abs().max().item(),
+            "tiled plain": (got.float() - tiled.float()).abs().max().item()}
+    lse_err = (lse - tiled_lse).abs().max().item()
+    print(f"[flash] skip layouts {SKIP_SHAPE} (text pad, audio pad, banned "
+          f"[1, sx), ids beyond {{0, 1}}, rows alone): max_abs_err on every row "
+          + ", ".join(f"vs {k_} {e:.3e}" for k_, e in errs.items())
+          + f" (tol {ATOL}); lse vs tiled plain {lse_err:.2e} (tol {LSE_ATOL}); "
+          f"tile_visits covers the dense mask, visits {share:.3f} of the "
+          f"causal tiles")
+    if not (max(errs.values()) <= ATOL and lse_err <= LSE_ATOL
+            and torch.isfinite(got).all()):
+        raise RuntimeError(f"flash kernel disagrees with its plain versions on "
+                           f"the skip layouts: {errs}, lse {lse_err}")
+    worst = max(errs.values())
+    del q, k, v, got, want, tiled
     # (shape, sx, x_len): the prefills of the smoke's own requests first (the
     # edit's two CFG rows, the TTS request's one row; 128 text + 256 prefix
     # slots), then longer prompts, one of them ragged
@@ -156,6 +222,7 @@ def check_flash(torch, device) -> dict:
                                dtype=torch.float32).to(torch.bfloat16)
                    for _ in range(3))
         seg = prefill_segments(torch, b, s, sx, x_len, device)
+        share = check_tile_visits(torch, fa, seg)
         fa.reset_launches()
         got = fa.flash_attend_xy(q, k, v, seg)
         torch.cuda.synchronize()
@@ -180,7 +247,8 @@ def check_flash(torch, device) -> dict:
                           4 * h * dh * attended_pairs(seg), "bf16")
         print(f"[flash] {shape} sx={sx} x_len={x_len}: max_abs_err valid "
               f"rows {err:.3e} (all rows {err_all:.3e}, tol {ATOL}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; visits {share:.3f} of "
+              f"the causal tiles")
         if not err <= ATOL:
             raise RuntimeError(f"flash kernel disagrees with the plain "
                                f"version at {shape}: {err} > {ATOL}")
@@ -188,6 +256,9 @@ def check_flash(torch, device) -> dict:
         times[shape] = (ms, plain_ms)
     fa.reset_launches()
     ms, plain_ms = times[MAIN_PATH_SHAPE]
+    print(f"[flash] encoding the launch's three TMA tensor maps on the host: "
+          f"{fa.last_encode_us():.2f} us (of {ms * 1e3:.1f} us a call at "
+          f"{MAIN_PATH_SHAPE})")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "ssr_speech_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "ssr_speech_tpu/ops/flash_attention.py:68",
@@ -509,18 +580,24 @@ def reference_lse(torch, q, k, seg, scale):
     return torch.logsumexp(scores.masked_fill(~ok[:, None], float("-inf")), -1)
 
 
-def check_flash_backward(torch, device, path_case) -> dict:
+def check_flash_backward(torch, device, path_case):
     """K1's training forward (output and log-sum-exp) and K3 on the training
-    path's batch and at the training shapes: dq/dk/dv on every row against
-    autograd through the plain version, two backward runs bit for bit, both
-    timed. The report's times are the training path's."""
+    path's batch, at the training shapes and on the layouts that exercise the
+    skip rule: dq/dk/dv on every row against autograd through the plain
+    version (and, on the skip layouts, against the tiled plain backward), two
+    backward runs bit for bit, both timed. The report's times are the
+    training path's; the forward is timed there too, beside its bound and
+    the library call. Returns (K3's entry, K1's numbers at the training
+    shape)."""
     from ssr_speech_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(5)
     cases = [("train path", *path_case)] + [
         ("synthetic", shape, train_segments(torch, shape[0], shape[2], 416, gen,
                                             device))
-        for shape in TRAIN_ATTN_SHAPES]
+        for shape in TRAIN_ATTN_SHAPES] + [
+        ("skip layouts", SKIP_SHAPE, skip_segments(torch, SKIP_SHAPE[2], 192,
+                                                   device))]
     worst, abs_worst, times = 0.0, 0.0, []
     for label, shape, seg in cases:
         b, h, s, dh = shape
@@ -545,21 +622,51 @@ def check_flash_backward(torch, device, path_case) -> dict:
             errs[name] = rel_err(got, w)
             abs_worst = max(abs_worst, (got.float() - w.float()).abs().max().item())
         errs["out"] = rel_err(out, ref)
+        share = check_tile_visits(torch, fa, seg)
+        if label == "skip layouts":
+            tiled = fa.tiled_backward(q, k, v, seg, out, lse, dout, scale)
+            for name, got, w in zip(("dq", "dk", "dv"), runs[0], tiled):
+                errs[f"{name} vs tiled plain"] = rel_err(got, w)
+            del tiled
         ms = cuda_time_ms(torch, lambda: fa.flash_backward(
             q, k, v, seg, out, lse, dout, scale), iters=5)
         plain_ms = plain_backward_ms(torch, ref, leaves, dout)
         if label == "train path":
+            mask = attention_mask(torch, seg)
             lib_out = torch.nn.functional.scaled_dot_product_attention(
-                *leaves, attn_mask=attention_mask(torch, seg))
+                *leaves, attn_mask=mask)
             library_ms = plain_backward_ms(torch, lib_out, leaves, dout)
             del lib_out
+            pairs = attended_pairs(seg)
             lower = bound(nbytes(q, k, v, out, dout, lse, seg) + 3 * nbytes(q),
-                          10 * h * dh * attended_pairs(seg), "bf16")
+                          10 * h * dh * pairs, "bf16")
+            with torch.no_grad():
+                fwd_train = {
+                    "shape": list(shape), "max_abs_err": (
+                        out.float() - ref.float()).abs().max().item(),
+                    "ms": cuda_time_ms(torch, lambda: fa.flash_forward(
+                        q, k, v, seg, scale, with_lse=True)),
+                    "plain_ms": cuda_time_ms(torch, lambda: fa.reference_attend(
+                        q, k, v, seg, scale), iters=5),
+                    "library_ms": cuda_time_ms(
+                        torch, lambda: torch.nn.functional
+                        .scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+                    **bound(nbytes(q, k, v, seg, out, lse),
+                            4 * h * dh * pairs, "bf16"),
+                    "visited_share_of_causal_tiles": share}
+            del mask
+            print(f"[flash] train path {shape} forward with LSE: kernel "
+                  f"{fwd_train['ms']:.4f} ms, plain {fwd_train['plain_ms']:.3f} "
+                  f"ms, library {fwd_train['library_ms']:.4f} ms, bound "
+                  f"{fwd_train['bound_ms']:.4f} ms by {fwd_train['bound_by']}; "
+                  f"the batch's segments visit {share:.3f} of the causal tiles "
+                  f"({pairs / (b * s * (s + 1) / 2):.3f} of the causal pairs "
+                  f"attend)")
         print(f"[flash bwd] {label} {shape}: max err / max "
               + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
               + f" (tol {REL}), lse max abs err {lse_err:.2e} (tol {LSE_ATOL}), "
               f"two runs bit-identical; kernel {ms:.3f} ms, plain (autograd) "
-              f"{plain_ms:.3f} ms")
+              f"{plain_ms:.3f} ms; visits {share:.3f} of the causal tiles")
         if max(errs.values()) > REL or not lse_err <= LSE_ATOL:
             raise RuntimeError(f"flash forward/backward disagrees with the "
                                f"plain version at {shape}: {errs}, lse {lse_err}")
@@ -567,13 +674,16 @@ def check_flash_backward(torch, device, path_case) -> dict:
         times.append((ms, plain_ms))
         del ref, want, leaves
     ms, plain_ms = times[0]
+    print(f"[flash bwd] train path: kernel {ms:.3f} ms, library (autograd of "
+          f"scaled_dot_product_attention) {library_ms:.3f} ms, bound "
+          f"{lower['bound_ms']:.4f} ms by {lower['bound_by']}")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "ssr_speech_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": "ssr_speech_tpu/ops/flash_attention.py:130",
             "launches": 0, "max_abs_err": abs_worst, "max_rel_err": worst,
             "ms": ms, "plain_ms": plain_ms, **lower, "library_ms": library_ms,
             "library": "autograd backward of F.scaled_dot_product_attention",
-            "shape": list(path_case[0])}
+            "shape": list(path_case[0])}, fwd_train
 
 
 def check_one_ce(torch, device, shape, tgt, gen) -> dict:
@@ -1120,8 +1230,8 @@ def main() -> int:
         print(f"[train-830M] first batch: x {list(batch['x'].shape)}, y "
               f"{list(batch['y'].shape)}; kernel checks at attention "
               f"{list(attn_case[0])} and CE {list(ce_case[0])}")
-        kernels = [check_flash(torch, device),
-                   check_flash_backward(torch, device, attn_case),
+        flash_bwd, fwd_train = check_flash_backward(torch, device, attn_case)
+        kernels = [check_flash(torch, device), flash_bwd,
                    *check_fused_ce(torch, device, ce_case),
                    *check_int8(torch, device)]
         del attn_case, ce_case
@@ -1142,6 +1252,12 @@ def main() -> int:
     fwd["launches_by_path"] = {"serving": serving,
                                "training": training[fwd["name"]]}
     fwd["launches"] = serving + training[fwd["name"]]
+    # the top-level numbers are the serving prefill's; both paths' shapes here
+    fwd["by_shape"] = {
+        "serving": {key: fwd[key] for key in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")},
+        "training": fwd_train}
     # the TPU package has two forward kernels (library flash and splash); one
     # Hopper kernel replaces both, so the report lists it once for each
     kernels.insert(1, {**fwd, "name": "flash_attention_fwd_splash",

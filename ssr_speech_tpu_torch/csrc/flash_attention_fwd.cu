@@ -8,17 +8,45 @@
 //                           j <= i  and  seg[b,i] == seg[b,j] ) . v[b,h,j]
 //
 // with an online softmax and fp32 accumulation. Inputs are bf16 [B, H, S, 128]
-// contiguous, seg is int32 [B, S]; any S is accepted (the ragged tail is masked
-// here, nothing is padded). A row always sees its own diagonal.
+// contiguous, seg is int32 [B, S] with any ids; any S is accepted (rows past S
+// arrive as zeros from the TMA unit and are masked, nothing is padded). A row
+// always sees its own diagonal.
 //
-// Design (simple first): one block of 4 warps per (query tile of 64 rows, head,
-// batch row); each warp owns 16 query rows and keeps its Q fragments, its
-// running max/sum and its 16x128 fp32 output tile in registers. The block walks
-// the key/value tiles (64 keys) up to the causal limit; each tile is staged in
-// shared memory with plain 16-byte loads, and both products (Q.K^T and P.V)
-// run on the tensor cores through mma.sync m16n8k16 (bf16 in, fp32 out). P is
-// rounded to bf16 for the second product, as the plain version rounds the
-// normalised probabilities.
+// Design. The work is 4 S^2/2 Dh flops a head over a few MB, far above the
+// card's flops-per-byte balance: bound by the tensor cores. One block per
+// (64-query tile, head, batch row) holds two warpgroups:
+//  * a producer warp (its warpgroup gives its registers away with setmaxnreg)
+//    starts TMA loads of K and V tiles of 64 keys into a ring of two stages,
+//    each with a full/empty mbarrier pair; its lanes also stage the tile's
+//    segment ids. Q's load is started by the thread that initialises the
+//    barriers, before the tile flags are computed, so it runs beside them;
+//  * a consumer warpgroup owns the 64 query rows: S = Q.K^T is wgmma m64n64k16
+//    with both operands in shared memory (128-byte swizzle, as TMA wrote
+//    them), the online softmax runs on the accumulators in registers, P is
+//    rounded to bf16 into the A fragments of O += P.V (wgmma m64n128k16, V
+//    read [key][dh] through the transpose bit), O stays in 64 registers.
+// The output leaves through Q's buffer as 16-byte coalesced stores.
+// A block's fixed cost matters as much as its products: at [128,16,64,128]
+// (H100 80GB HBM3, 700 W; flash_bench.py) 2,048 blocks of one tile each took
+// 0.056 ms, 7.3 us a block with two on an SM, as long as several tiles of
+// products. Starting Q early, starting a tile's TMA before fetching its ids
+// while the ring fills, and the coalesced stores took the kernel at
+// [18,16,1152,128] from 0.241 to 0.214 ms.
+// Two blocks share an SM (84 KB of shared memory each; the consumer asks for
+// 216 registers a thread, the producer keeps 40), so one block's softmax
+// overlaps the other's products. The row max is taken on the raw scores and
+// the scaling folded into the exponent's multiply-add, which needs
+// sm_scale > 0 (anything else is refused).
+// Key tiles in which no pair can attend are never loaded or multiplied
+// (flash_attention_tiles.cuh): those above the diagonal and those whose
+// segment-id range is disjoint from the query tile's; tiles of one segment
+// below the diagonal skip the per-element mask.
+// Query tiles stay 64 rows at every S. Blocks of 128 rows (two consumer
+// warpgroups sharing the K/V ring, alone on their SM) were measured beside
+// them on an H100 80GB HBM3 at 700 W: 0.277 against 0.281 ms at the training
+// shape [18,16,1152,128], 0.0133 against 0.0116 ms at the one-row prefill
+// [1,16,384,128], 0.0134-0.0163 against 0.0141 ms at [2,16,384,128]: no gain
+// where it could matter and a loss on the small grids, so one shape serves all.
 //
 // With a non-null `lse` it also writes each row's log-sum-exp (fp32, natural
 // log of the scaled scores), which the backward (flash_attention_bwd.cu)
@@ -32,235 +60,258 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_fragments.cuh"
+#include <chrono>
+
+#include "flash_attention_tiles.cuh"
 
 namespace {
 
-using ssr::ld32;
-using ssr::mma_16816;
-using ssr::pack_bf16;
+using namespace ssr;
+using namespace ssr::flash;
 
-constexpr int kHeadDim = 128;
-constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per tile
-constexpr int kWarps = kBlockM / 16;
-constexpr int kThreads = kWarps * 32;
-// shared-memory row pitch in bf16 elements: +8 (16 bytes) moves consecutive
-// rows 4 banks apart, so the fragment loads below are conflict-free
-constexpr int kPitch = kHeadDim + 8;
-constexpr size_t kSmemBytes =
-    2 * kBlockN * kPitch * sizeof(uint16_t) + kBlockN * sizeof(int);
+constexpr int kStages = 2;
+constexpr int kThreads = 256;  // consumer warpgroup, producer warpgroup
+// shared memory, from a 1024-byte boundary
+constexpr int kOffQ = 0;
+constexpr int kOffKV = kTileBytes;                           // stage: K tile, V tile
+constexpr int kOffSeg = kOffKV + kStages * 2 * kTileBytes;   // stage: 64 ids
+constexpr int kOffBar = kOffSeg + kStages * kTile * 4;       // q, full[], empty[]
+constexpr int kOffFlags = kOffBar + 8 * (1 + 2 * kStages);   // one byte a key tile
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v, const int* __restrict__ seg,
-                 uint16_t* __restrict__ out, float* __restrict__ lse, int H,
-                 int S, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* ks = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* vs = ks + kBlockN * kPitch;
-  int* segs = reinterpret_cast<int*>(vs + kBlockN * kPitch);
+long long g_encode_ns = 0;  // host time of the last launch's tensor-map encodes
+
+size_t smem_bytes(int S) { return 1024 + kOffFlags + (S + kTile - 1) / kTile + 16; }
+
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const int* __restrict__ seg,
+                 uint16_t* __restrict__ out, float* __restrict__ lse, int H, int S,
+                 float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gen = smem_raw + (base - raw);
+  int* seg_s = reinterpret_cast<int*>(gen + kOffSeg);
+  unsigned char* flags = gen + kOffFlags;
+  const uint32_t q_bar = base + kOffBar;
+  const uint32_t full_bar = q_bar + 8;
+  const uint32_t empty_bar = full_bar + 8 * kStages;
 
   // the last query tiles carry the most keys: launch them first
   const int m_block = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const int bh = b * H + h;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;   // row within the warp's 8-row half
-  const int t4 = lane & 3;   // column pair within a fragment
-
-  const size_t head = (static_cast<size_t>(b) * H + h) * S * kHeadDim;
-  const uint16_t* qh = q + head;
-  const uint16_t* kh = k + head;
-  const uint16_t* vh = v + head;
-  uint16_t* oh = out + head;
+  const int m0 = m_block * kTile;
   const int* segb = seg + static_cast<size_t>(b) * S;
-  float* lseh = lse == nullptr ? nullptr : lse + (static_cast<size_t>(b) * H + h) * S;
 
-  const int m0 = m_block * kBlockM;
-  const int row0 = m0 + warp * 16 + g;  // this thread's two rows
-  const int row1 = row0 + 8;
-  const bool in0 = row0 < S;
-  const bool in1 = row1 < S;
-  const int seg0 = in0 ? segb[row0] : 0;
-  const int seg1 = in1 ? segb[row1] : 0;
-
-  // Q as mma A fragments, one per 16-wide slice of the head dimension
-  uint32_t qf[kHeadDim / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    qf[kk][0] = in0 ? ld32(qh + static_cast<size_t>(row0) * kHeadDim + c) : 0u;
-    qf[kk][1] = in1 ? ld32(qh + static_cast<size_t>(row1) * kHeadDim + c) : 0u;
-    qf[kk][2] = in0 ? ld32(qh + static_cast<size_t>(row0) * kHeadDim + c + 8) : 0u;
-    qf[kk][3] = in1 ? ld32(qh + static_cast<size_t>(row1) * kHeadDim + c + 8) : 0u;
-  }
-
-  float acc[kHeadDim / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  float m_run[2] = {-INFINITY, -INFINITY};  // running max (log2 domain)
-  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
-
-  const int kv_end = min(S, m0 + kBlockM);  // causal limit of the tile
-  for (int n0 = 0; n0 < kv_end; n0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBlockN * (kHeadDim / 8); i += kThreads) {
-      const int r = i / (kHeadDim / 8);
-      const int c = (i % (kHeadDim / 8)) * 8;
-      const int key = n0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (key < S) {
-        kv = *reinterpret_cast<const uint4*>(kh + static_cast<size_t>(key) * kHeadDim + c);
-        vv = *reinterpret_cast<const uint4*>(vh + static_cast<size_t>(key) * kHeadDim + c);
-      }
-      *reinterpret_cast<uint4*>(ks + r * kPitch + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * kPitch + c) = vv;
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 2);   // the TMA request, and the ids staged
+      mbar_init(empty_bar + 8 * s, 4);  // one arrival a consumer warp
     }
-    if (tid < kBlockN) segs[tid] = (n0 + tid < S) ? segb[n0 + tid] : 0;
-    __syncthreads();
+    mbar_fence_init();
+    // Q does not wait for the flags: its load runs beside their computation
+    tma_prefetch_map(&qmap);
+    tma_prefetch_map(&kmap);
+    tma_prefetch_map(&vmap);
+    mbar_arrive_expect_tx(q_bar, kTileBytes);
+    tma_load_tile128(base + kOffQ, &qmap, q_bar, m0, bh, kTile);
+  }
+  key_tile_flags(flags, segb, m_block, S, tid, kThreads);
+  __syncthreads();
 
-    // scores for 16 rows x 64 keys: s[nt] is the 16x8 tile of keys nt*8..
-    float s[kBlockN / 8][4];
+  if (warpgroup_index() == 1) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<40>();
+    if (tid >= 160) return;
+    produce_kv_tiles<kStages>(flags, m_block, segb, S, bh, seg_s, base + kOffKV, full_bar,
+                              empty_bar, &kmap, &vmap, lane);
+  } else {
+    // ------------------------------------------------------------ consumer
+    reg_alloc<216>();
+    const int warp = tid >> 5;
+    const int g = lane >> 2;   // row within the warp's 8-row half
+    const int t4 = lane & 3;   // column pair within an 8-column block
+    const int row0 = m0 + warp * 16 + g;  // this thread's two rows
+    const int row1 = row0 + 8;
+    const bool in0 = row0 < S;
+    const bool in1 = row1 < S;
+    const int seg0 = in0 ? segb[row0] : 0;
+    const int seg1 = in1 ? segb[row1] : 0;
+
+    float o[64];
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const uint16_t* kp = ks + (nt * 8 + g) * kPitch + t4 * 2;
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
+    float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
+
+    mbar_wait(q_bar, 0);
+    int it = 0;
+    for (int n = 0; n <= m_block; ++n) {
+      const unsigned char flag = flags[n];
+      if (flag == kSkip) continue;
+      const int stage = it % kStages;
+      const uint32_t parity = (it / kStages) & 1;
+      ++it;
+      const uint32_t k_s = base + kOffKV + stage * 2 * kTileBytes;
+      const uint32_t v_s = k_s + kTileBytes;
+      mbar_wait(full_bar + 8 * stage, parity);
+
+      // scores for 64 rows x 64 keys
+      float s[32];
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        mma_16816(s[nt], qf[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
+        wgmma_m64n64k16_ss(s, desc_kmajor(base + kOffQ, kTile, kk),
+                           desc_kmajor(k_s, kTile, kk), kk > 0);
       }
-    }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(s);
 
-    // mask, scale into the log2 domain, row max over the 4 lanes of a row
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+      // mask, then the row max of the raw scores over the 4 lanes of a row
+      // (sm_scale > 0, so the max commutes with the scaling, which is folded
+      // into the exponent's one multiply-add)
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+      if (flag == kDense) {
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+        for (int i = 0; i < 32; i += 4) {
+          mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+        }
+      } else {
+        const int* ids = seg_s + stage * kTile;
+        const int n0 = n * kTile;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int jl = nt * 8 + t4 * 2 + e;
-        const int j = n0 + jl;
-        const bool key_ok = j < S;
-        const int sj = segs[jl];
-        const float x0 = (key_ok && j <= row0 && sj == seg0) ? s[nt][e] * scale_log2 : -INFINITY;
-        const float x1 = (key_ok && j <= row1 && sj == seg1) ? s[nt][2 + e] * scale_log2 : -INFINITY;
-        s[nt][e] = x0;
-        s[nt][2 + e] = x1;
-        mx0 = fmaxf(mx0, x0);
-        mx1 = fmaxf(mx1, x1);
+        for (int j = 0; j < 8; ++j) {
+          const int2 id = *reinterpret_cast<const int2*>(ids + j * 8 + t4 * 2);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = n0 + j * 8 + t4 * 2 + e;
+            const int sk = e == 0 ? id.x : id.y;
+            const float x0 = attends(row0, key, S, seg0, sk) ? s[4 * j + e] : -INFINITY;
+            const float x1 = attends(row1, key, S, seg1, sk) ? s[4 * j + 2 + e] : -INFINITY;
+            s[4 * j + e] = x0;
+            s[4 * j + 2 + e] = x1;
+            mx0 = fmaxf(mx0, x0);
+            mx1 = fmaxf(mx1, x1);
+          }
+        }
       }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
 
-    const float new0 = fmaxf(m_run[0], mx0);
-    const float new1 = fmaxf(m_run[1], mx1);
-    // a row with no visible key yet keeps max -inf: subtract 0 instead, so
-    // exp2(-inf - 0) = 0 rather than NaN
-    const float base0 = new0 == -INFINITY ? 0.f : new0;
-    const float base1 = new1 == -INFINITY ? 0.f : new1;
-    const float alpha0 = exp2f(m_run[0] - base0);
-    const float alpha1 = exp2f(m_run[1] - base1);
-    m_run[0] = new0;
-    m_run[1] = new1;
-    l_run[0] *= alpha0;
-    l_run[1] *= alpha1;
+      const float new0 = fmaxf(m_run[0], mx0);
+      const float new1 = fmaxf(m_run[1], mx1);
+      // a row with no visible key yet (its first visited tile may hold none)
+      // keeps max -inf: subtract 0 instead, so exp2(-inf - 0) = 0, not NaN
+      const float nb0 = new0 == -INFINITY ? 0.f : -new0 * scale_log2;
+      const float nb1 = new1 == -INFINITY ? 0.f : -new1 * scale_log2;
+      const float alpha0 = fast_exp2(fmaf(m_run[0], scale_log2, nb0));
+      const float alpha1 = fast_exp2(fmaf(m_run[1], scale_log2, nb1));
+      m_run[0] = new0;
+      m_run[1] = new1;
+      l_run[0] *= alpha0;
+      l_run[1] *= alpha1;
 #pragma unroll
-    for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-      acc[dt][0] *= alpha0;
-      acc[dt][1] *= alpha0;
-      acc[dt][2] *= alpha1;
-      acc[dt][3] *= alpha1;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - base0);
-      s[nt][1] = exp2f(s[nt][1] - base0);
-      s[nt][2] = exp2f(s[nt][2] - base1);
-      s[nt][3] = exp2f(s[nt][3] - base1);
-      l_run[0] += s[nt][0] + s[nt][1];
-      l_run[1] += s[nt][2] + s[nt][3];
-    }
-
-    // acc += P.V: the score accumulators of two adjacent key tiles are
-    // exactly the A fragment of one 16-key step
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const uint16_t* vp = vs + (kk * 16 + t4 * 2) * kPitch + g;
-#pragma unroll
-      for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-        const uint16_t* p = vp + dt * 8;
-        const uint32_t b0 = static_cast<uint32_t>(p[0]) |
-                            (static_cast<uint32_t>(p[kPitch]) << 16);
-        const uint32_t b1 = static_cast<uint32_t>(p[8 * kPitch]) |
-                            (static_cast<uint32_t>(p[9 * kPitch]) << 16);
-        mma_16816(acc[dt], pa, b0, b1);
+      for (int i = 0; i < 64; i += 4) {
+        o[i] *= alpha0;
+        o[i + 1] *= alpha0;
+        o[i + 2] *= alpha1;
+        o[i + 3] *= alpha1;
       }
-    }
-  }
-
-  float l0 = l_run[0], l1 = l_run[1];
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  if (lseh != nullptr && t4 == 0) {
-    // natural-log log-sum-exp of the scaled scores: m and l are in the log2
-    // domain of scores * sm_scale
-    constexpr float kLn2 = 0.6931471805599453f;
-    if (in0) lseh[row0] = (m_run[0] + log2f(l0)) * kLn2;
-    if (in1) lseh[row1] = (m_run[1] + log2f(l1)) * kLn2;
-  }
 #pragma unroll
-  for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (in0) {
-      *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(row0) * kHeadDim + c) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
+      for (int i = 0; i < 32; i += 4) {
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, nb0));
+        s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, nb0));
+        s[i + 2] = fast_exp2(fmaf(s[i + 2], scale_log2, nb1));
+        s[i + 3] = fast_exp2(fmaf(s[i + 3], scale_log2, nb1));
+        l_run[0] += s[i] + s[i + 1];
+        l_run[1] += s[i + 2] + s[i + 3];
+      }
+
+      // O += P.V: two adjacent 8-key blocks of P are the A fragment of one
+      // 16-key step, rounded to bf16 here
+      uint32_t pa[kTile / 16][4];
+      pack_fragments(s, pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        wgmma_m64n128k16_rs_tb(o, pa[kk], desc_mnmajor(v_s, kTile, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
     }
-    if (in1) {
-      *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(row1) * kHeadDim + c) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+
+    float l0 = l_run[0], l1 = l_run[1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+    const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    const size_t head = static_cast<size_t>(bh) * S;
+    if (lse != nullptr && t4 == 0) {
+      // natural-log log-sum-exp of the scaled scores: l is in the log2 domain
+      // of scores * sm_scale, relative to m
+      constexpr float kLn2 = 0.6931471805599453f;
+      if (in0) lse[head + row0] = (m_run[0] * scale_log2 + log2f(l0)) * kLn2;
+      if (in1) lse[head + row1] = (m_run[1] * scale_log2 + log2f(l1)) * kLn2;
     }
+    // through the Q tile's buffer, which no product reads any more
+    store_tile_bf16(o, inv0, inv1, gen + kOffQ, out + head * kHeadDim, m0, S, 0, tid);
   }
 }
 
 }  // namespace
 
 // Launches on `stream` (a cudaStream_t) and returns cudaGetLastError(): a
-// refused launch (bad shape, too much shared memory) is reported here, not at
-// the next synchronise. Returns cudaErrorInvalidValue for shapes the kernel
-// does not take. `lse` (fp32 [B, H, S], the per-row log-sum-exp the backward
-// needs) may be null: the serving path does not keep it.
+// refused launch (bad shape, a tensor map that fails to encode, too much shared
+// memory) is reported here, not at the next synchronise. Returns
+// cudaErrorInvalidValue for shapes the kernel does not take. `lse` (fp32
+// [B, H, S], the per-row log-sum-exp the backward needs) may be null: the
+// serving path does not keep it.
 extern "C" int ssr_flash_attention_fwd_bf16(const void* q, const void* k,
                                             const void* v, const void* seg,
                                             void* out, void* lse, int B, int H,
                                             int S, int head_dim, float sm_scale,
                                             void* stream) {
-  if (head_dim != kHeadDim || B <= 0 || H <= 0 || S <= 0 || H > 65535 ||
-      B > 65535) {
+  if (head_dim != kHeadDim || B <= 0 || H <= 0 || S <= 0 || S > kMaxSeq || H > 65535 ||
+      B > 65535 || !(sm_scale > 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
-  const float scale_log2 = sm_scale * 1.4426950408889634f;
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const int*>(seg),
-      static_cast<uint16_t*>(out), static_cast<float*>(lse), H, S, scale_log2);
+  // the opt-in above 48 KB is per device: set it on every call (it is cheap).
+  // First, because a runtime call binds the device's context to this thread,
+  // which cuTensorMapEncodeTiled below needs (autograd runs on its own threads).
+  const size_t smem = smem_bytes(S);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the maps hold the tensors' addresses: encoded for every launch
+  const auto t0 = std::chrono::steady_clock::now();
+  CUtensorMap qmap, kmap, vmap;
+  err = encode_heads_map(&qmap, q, B * H, S, kTile);
+  if (err == cudaSuccess) err = encode_heads_map(&kmap, k, B * H, S, kTile);
+  if (err == cudaSuccess) err = encode_heads_map(&vmap, v, B * H, S, kTile);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  g_encode_ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                    std::chrono::steady_clock::now() - t0).count();
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  flash_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, static_cast<const int*>(seg), static_cast<uint16_t*>(out),
+      static_cast<float*>(lse), H, S, sm_scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Host nanoseconds the last launch spent encoding its three tensor maps.
+extern "C" long long ssr_flash_attention_fwd_encode_ns() { return g_encode_ns; }

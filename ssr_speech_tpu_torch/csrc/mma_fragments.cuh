@@ -7,8 +7,8 @@
 //   B (16x8):             b0 = B[2t4..2t4+1][g],   b1 = B[2t4+8..2t4+9][g]
 //   C (16x8, fp32):       c0,c1 = C[g][2t4..],     c2,c3 = C[g+8][2t4..]
 // so the accumulators of two adjacent 8-column C tiles are exactly the A
-// fragment of one 16-deep step (`c_to_a`): a product's output feeds the next
-// product without leaving registers.
+// fragment of one 16-deep step: a product's output can feed the next product
+// without leaving registers.
 //
 // Shared-memory tiles are bf16 (stored as uint16_t) with a row pitch in
 // elements; pitches are even so every 32-bit load is aligned.
@@ -91,15 +91,6 @@ __device__ __forceinline__ void load_b_kn(uint32_t* b, const uint16_t* s, int pi
   const uint16_t* p = s + (k0 + t4 * 2) * pitch + n0 + g;
   b[0] = pack2(p[0], p[pitch]);
   b[1] = pack2(p[8 * pitch], p[9 * pitch]);
-}
-
-// The A fragment of the 16-deep step kk from C tiles 2kk and 2kk+1, rounded
-// to bf16.
-__device__ __forceinline__ void c_to_a(uint32_t* a, const float* c0, const float* c1) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 }  // namespace ssr

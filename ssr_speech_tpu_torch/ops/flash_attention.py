@@ -19,15 +19,20 @@ Kernels, hand-written for Hopper (sm_90a):
   atomics, bit-reproducible. :class:`FlashAttention` binds the pair as a
   ``torch.autograd.Function``.
 
-At the prefill shapes of the serving path (B = 2 CFG rows, H = 16, Dh = 128, S ~ 300-1300) the work is
-4*B*H*S^2*Dh/2 flops over a few MB of Q/K/V, far above the H100's ~295 flop per
-byte balance point: the kernel is bound by the tensor-core rate of the QK^T and
-PV products. The simple design leaves on the table what makes flash attention
-fast on Hopper: wgmma instead of mma.sync, TMA loads double-buffered against
-the products instead of synchronous 16-byte loads, skipping fully masked key
-tiles per warp, and a persistent schedule over (tile, head) pairs. The
-backward does about 2.5x the forward's tensor-core work and is bound the same
-way.
+Both are bound by the tensor cores: the work is 4*B*H*S^2*Dh/2 flops forward
+(2.5x that backward) over a few MB of Q/K/V, far above the H100's ~295 flop
+per byte balance point. Every product is a ``wgmma`` of one warpgroup over 64
+rows; K/V tiles (forward, dq) or Q/dO tiles (dk/dv) of 64 rows arrive by TMA
+into a ring of shared-memory stages guarded by mbarriers, started by a producer
+warp; and a (query tile, key tile) pair in which no pair can attend is never
+loaded (:func:`tile_visits`). The shared plumbing is
+``csrc/hopper_tma_wgmma.cuh``, the skip rule ``csrc/flash_attention_tiles.cuh``.
+
+Plain versions, for the CPU tests and for holding the kernels to on the card:
+:func:`reference_attend` is the dense one; :func:`tile_visits`,
+:func:`tiled_forward` and :func:`tiled_backward` repeat the kernels' tile
+walk (the skip rule, the online softmax, the log-sum-exp, D = rowsum(dO*O)
+and the five backward products) in PyTorch.
 
 On a CPU tensor the wrapper takes the plain version :func:`reference_attend`
 (the CPU tests), whose backward is autograd's; on a CUDA tensor it launches
@@ -50,6 +55,8 @@ bwd_launches = 0  # backward (one per dq + dk/dv pair)
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
 HEAD_DIM = 128
+TILE = 64  # rows of the kernels' query and key tiles
+MAX_SEQ = 1 << 20  # the kernels keep one flag byte a tile in shared memory
 
 
 def reset_launches() -> None:
@@ -73,6 +80,129 @@ def reference_attend(q, k, v, key_valid, sm_scale):
     return torch.matmul(probs, v)
 
 
+def _tile_ranges(seg, block: int):
+    """Per tile of ``block`` rows, the [min, max] of the segment ids of its
+    rows inside the sequence: two int64 [B, T]."""
+    b, s = seg.shape
+    t = -(-s // block)
+    pad = t * block - s
+    seg = seg.to(torch.int64)
+    big = torch.iinfo(torch.int64).max
+    lo = torch.nn.functional.pad(seg, (0, pad), value=big).view(b, t, block)
+    hi = torch.nn.functional.pad(seg, (0, pad), value=-big).view(b, t, block)
+    return lo.amin(-1), hi.amax(-1)
+
+
+def tile_visits(seg, block_q: int = TILE, block_k: int = TILE):
+    """The kernels' skip rule: bool [B, Tq, Tk], True where the (query tile,
+    key tile) pair is walked. A pair is skipped above the diagonal, and
+    below it when the two tiles' segment-id ranges [min, max] are disjoint
+    (conservative for any integer ids); a pair that holds a diagonal element
+    is always walked, so every row sees at least itself."""
+    b, s = seg.shape
+    qmn, qmx = _tile_ranges(seg, block_q)
+    kmn, kmx = _tile_ranges(seg, block_k)
+    dev = seg.device
+    q_first = torch.arange(qmn.shape[1], device=dev) * block_q
+    q_last = torch.clamp(q_first + block_q, max=s) - 1
+    k_first = torch.arange(kmn.shape[1], device=dev) * block_k
+    k_last = torch.clamp(k_first + block_k, max=s) - 1
+    above = k_first[None, :] > q_last[:, None]  # [Tq, Tk]
+    diagonal = ~above & (k_last[None, :] >= q_first[:, None])
+    disjoint = ((kmx[:, None, :] < qmn[:, :, None])
+                | (kmn[:, None, :] > qmx[:, :, None]))
+    return diagonal[None] | (~above[None] & ~disjoint)
+
+
+def _tile_mask(seg, q0, q1, k0, k1):
+    """The per-element mask of one tile: bool [B, 1, q1 - q0, k1 - k0]."""
+    qi = torch.arange(q0, q1, device=seg.device)
+    kj = torch.arange(k0, k1, device=seg.device)
+    ok = (kj[None, :] <= qi[:, None])[None] & (
+        seg[:, q0:q1, None] == seg[:, None, k0:k1])
+    return ok[:, None]
+
+
+def tiled_forward(q, k, v, seg, sm_scale, block_q: int = TILE,
+                  block_k: int = TILE):
+    """Plain version of the forward kernel's walk: only the tiles of
+    :func:`tile_visits`, an online softmax in fp32 in the log2 domain, the
+    unnormalised probabilities cast to q's dtype for the PV product.
+    Returns (out in q's dtype, natural-log LSE fp32 [B, H, S])."""
+    b, h, s, dh = q.shape
+    seg = seg.to(torch.int32)
+    visits = tile_visits(seg, block_q, block_k)
+    scale_log2 = sm_scale * math.log2(math.e)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    ninf = float("-inf")
+    for qt in range(visits.shape[1]):
+        q0, q1 = qt * block_q, min((qt + 1) * block_q, s)
+        m_run = torch.full((b, h, q1 - q0), ninf, device=q.device)
+        l_run = torch.zeros((b, h, q1 - q0), device=q.device)
+        acc = torch.zeros((b, h, q1 - q0, dh), device=q.device)
+        for kt in range(visits.shape[2]):
+            vis = visits[:, qt, kt]
+            if not bool(vis.any()):
+                continue
+            k0, k1 = kt * block_k, min((kt + 1) * block_k, s)
+            x = torch.matmul(q[:, :, q0:q1].float(),
+                             k[:, :, k0:k1].float().transpose(-1, -2))
+            x = (x * scale_log2).masked_fill(
+                ~_tile_mask(seg, q0, q1, k0, k1), ninf)
+            new = torch.maximum(m_run, x.amax(-1))
+            # a row with no visible key yet keeps max -inf: subtract 0 instead
+            base = torch.where(new == ninf, torch.zeros_like(new), new)
+            alpha = torch.exp2(m_run - base)
+            p = torch.exp2(x - base[..., None])
+            l_new = l_run * alpha + p.sum(-1)
+            acc_new = acc * alpha[..., None] + torch.matmul(
+                p.to(q.dtype), v[:, :, k0:k1]).float()
+            walk = vis[:, None, None]  # rows of a batch row that skips stay
+            m_run = torch.where(walk, new, m_run)
+            l_run = torch.where(walk, l_new, l_run)
+            acc = torch.where(walk[..., None], acc_new, acc)
+        out[:, :, q0:q1] = (acc / l_run[..., None]).to(q.dtype)
+        lse[:, :, q0:q1] = (m_run + torch.log2(l_run)) * math.log(2.0)
+    return out, lse
+
+
+def tiled_backward(q, k, v, seg, out, lse, dout, sm_scale,
+                   block_q: int = TILE, block_k: int = TILE):
+    """Plain version of the backward kernels' walk over the tiles of
+    :func:`tile_visits`: D = rowsum(dO * O), P = exp(S * scale - L) under
+    the mask, dS = P * (dO.V^T - D), and dQ += dS.K, dK += dS^T.Q,
+    dV += P^T.dO accumulated in fp32 with P and dS cast to q's dtype as
+    operands. Returns (dq, dk, dv) in q's dtype."""
+    b, h, s, dh = q.shape
+    seg = seg.to(torch.int32)
+    visits = tile_visits(seg, block_q, block_k)
+    dsum = (dout.float() * out.float()).sum(-1)  # [B, H, S]
+    dq, dk, dv = (torch.zeros((b, h, s, dh), device=q.device)
+                  for _ in range(3))
+    for qt in range(visits.shape[1]):
+        q0, q1 = qt * block_q, min((qt + 1) * block_q, s)
+        for kt in range(visits.shape[2]):
+            vis = visits[:, qt, kt]
+            if not bool(vis.any()):
+                continue
+            k0, k1 = kt * block_k, min((kt + 1) * block_k, s)
+            ok = _tile_mask(seg, q0, q1, k0, k1) & vis[:, None, None, None]
+            qs, ks, vs, dos = (q[:, :, q0:q1], k[:, :, k0:k1], v[:, :, k0:k1],
+                               dout[:, :, q0:q1])
+            x = torch.matmul(qs.float(), ks.float().transpose(-1, -2))
+            p = torch.exp(x * sm_scale - lse[:, :, q0:q1, None])
+            p = torch.where(ok, p, torch.zeros_like(p))
+            dp = torch.matmul(dos.float(), vs.float().transpose(-1, -2))
+            ds = p * (dp - dsum[:, :, q0:q1, None])
+            p_op, ds_op = p.to(q.dtype), ds.to(q.dtype)
+            dq[:, :, q0:q1] += torch.matmul(ds_op, ks).float()
+            dk[:, :, k0:k1] += torch.matmul(ds_op.transpose(-1, -2), qs).float()
+            dv[:, :, k0:k1] += torch.matmul(p_op.transpose(-1, -2), dos).float()
+    return ((dq * sm_scale).to(q.dtype), (dk * sm_scale).to(q.dtype),
+            dv.to(q.dtype))
+
+
 def load_kernel():
     """Build (first call only) and bind the forward kernel; returns the
     ``cuda_build.BuiltLibrary``."""
@@ -82,7 +212,16 @@ def load_kernel():
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        built.lib.ssr_flash_attention_fwd_encode_ns.argtypes = []
+        built.lib.ssr_flash_attention_fwd_encode_ns.restype = ctypes.c_longlong
     return built
+
+
+def last_encode_us() -> float:
+    """Host microseconds the last forward launch spent encoding its three
+    TMA tensor maps (they hold the tensors' addresses, so every launch
+    encodes them)."""
+    return load_kernel().lib.ssr_flash_attention_fwd_encode_ns() / 1e3
 
 
 def load_bwd_kernel():
@@ -106,6 +245,8 @@ def _check_cuda_args(q, k, v, seg):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype and device")
     b, _, s, _ = q.shape
+    if s > MAX_SEQ:
+        raise ValueError(f"flash kernel takes S <= {MAX_SEQ}, got {s}")
     if seg.shape != (b, s) or seg.device != q.device:
         raise ValueError(f"segment ids must be [{b}, {s}] on {q.device}")
     check_layout("flash", q=q, k=k, v=v, seg=seg)
@@ -115,6 +256,8 @@ def flash_forward(q, k, v, seg, sm_scale, *, with_lse: bool):
     """Launch the forward kernel on checked CUDA tensors; returns (out, lse),
     lse fp32 [B, H, S] or None."""
     global launches
+    if not sm_scale > 0:  # the kernel takes the row max before scaling
+        raise ValueError(f"flash kernel takes sm_scale > 0, got {sm_scale}")
     fn = load_kernel().lib.ssr_flash_attention_fwd_bf16
     b, h, s, dh = q.shape
     out = torch.empty_like(q)

@@ -44,23 +44,60 @@ def _qkv(shape, seed, device):
             .to(device=device, dtype=torch.bfloat16) for _ in range(3)]
 
 
+SKIP_PATTERNS = ["text_pad", "audio_pad", "banned", "many_ids", "alone"]
+
+
+def _segments(pattern, b, s, seed):
+    """Segment ids [b, s] (int32 numpy). Besides the two original layouts,
+    layouts that make the kernels skip tiles: a block of text padding, a block
+    of audio padding, the unconditional CFG row's banned [1, sx), runs of ids
+    beyond {0, 1} (negative and large too), and rows alone in their segment."""
+    rng = np.random.default_rng(seed)
+    sx = max(s // 3, 1)
+    if pattern == "prefill":
+        seg = np.ones((b, s), np.int32)
+        seg[:, max(sx - 7, 1):sx] = 0
+        seg[1:, 1:sx] = 0
+    elif pattern == "train":
+        seg = _train_segments(b, s, seed)
+    elif pattern == "random":
+        seg = rng.integers(0, 3, size=(b, s)).astype(np.int32)
+    elif pattern == "text_pad":
+        seg = np.ones((b, s), np.int32)
+        for r in range(b):
+            seg[r, rng.integers(1, sx + 1):sx] = 0
+    elif pattern == "audio_pad":
+        seg = np.ones((b, s), np.int32)
+        for r in range(b):
+            seg[r, sx + rng.integers(0, s - sx + 1):] = 0
+    elif pattern == "banned":
+        seg = np.ones((b, s), np.int32)
+        seg[:, 1:sx] = 0
+    elif pattern == "many_ids":
+        ids = np.array([-7, 0, 1, 2, 5, 1 << 20, -(1 << 30)], np.int32)
+        runs = rng.integers(1, max(s // 4, 2), size=(b, s))
+        seg = np.stack([np.repeat(rng.choice(ids, size=s), runs[r])[:s]
+                        for r in range(b)]).astype(np.int32)
+    elif pattern == "alone":
+        seg = np.ones((b, s), np.int32)
+        seg[:, 0] = 9  # alone, and in the first tile
+        seg[:, s // 2] = 7  # alone, its tile's other rows see other tiles
+        seg[:, s - 1] = 3  # alone, the last row
+    else:
+        raise ValueError(pattern)
+    return seg
+
+
 @pytest.mark.parametrize("b,h,s", [(1, 1, 1), (1, 2, 63), (2, 2, 64),
                                    (2, 3, 65), (1, 2, 130), (2, 16, 333),
-                                   (2, 16, 1000)])
-@pytest.mark.parametrize("pattern", ["prefill", "random"])
+                                   (2, 16, 1000), (2, 2, 127), (2, 2, 128),
+                                   (2, 2, 129), (2, 2, 191), (2, 4, 1152)])
+@pytest.mark.parametrize("pattern", ["prefill", "random"] + SKIP_PATTERNS)
 def test_flash_kernel_matches_plain(device, b, h, s, pattern):
     """Every row (not only valid ones) follows the segment semantics, so the
     kernel must agree with reference_attend on all of them."""
     q, k, v = _qkv((b, h, s, fa.HEAD_DIM), s + b, device)
-    rng = np.random.default_rng(s)
-    if pattern == "prefill":
-        seg = np.ones((b, s), np.int32)
-        sx = max(s // 3, 1)
-        seg[:, max(sx - 7, 1):sx] = 0
-        seg[1:, 1:sx] = 0
-    else:
-        seg = rng.integers(0, 3, size=(b, s)).astype(np.int32)
-    seg = torch.from_numpy(seg).to(device)
+    seg = torch.from_numpy(_segments(pattern, b, s, s)).to(device)
     fa.reset_launches()
     got = fa.flash_attend_xy(q, k, v, seg)
     want = fa.reference_attend(q, k, v, seg, 1.0 / math.sqrt(fa.HEAD_DIM))
@@ -91,6 +128,39 @@ def test_flash_kernel_refuses_what_it_cannot_take(device):
         fa.flash_backward(q, k, v, seg, out, lse, dout.transpose(2, 3), 0.1)
     with pytest.raises(ValueError):
         fa.flash_backward(q, k, v, seg, out, lse, dout.float(), 0.1)
+    with pytest.raises(ValueError):  # the row max is taken before scaling
+        fa.flash_attend_xy(q, k, v, seg, sm_scale=-0.1)
+    # longer than the kernels' tile-flag table: refused by the wrapper, and by
+    # the C entry points themselves (uninitialised memory is never read)
+    s = fa.MAX_SEQ + 64
+    long = torch.empty((1, 1, s, fa.HEAD_DIM), dtype=torch.bfloat16, device=device)
+    long_seg = torch.ones((1, s), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError):
+        fa.flash_attend_xy(long, long, long, long_seg)
+    with pytest.raises(RuntimeError):
+        fa.flash_forward(long, long, long, long_seg, 0.1, with_lse=False)
+    long_lse = torch.empty((1, 1, s), dtype=torch.float32, device=device)
+    with pytest.raises(RuntimeError):
+        fa.flash_backward(long, long, long, long_seg, long, long_lse, long, 0.1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(fa.flash_attend_xy(q, k, v, seg)).all()  # device fine
+
+
+def test_tile_visits_on_the_card_covers_the_dense_mask(device):
+    """tile_visits on CUDA tensors: every (query, key) pair the dense mask
+    lets through lies in a visited tile, and the diagonal is visited."""
+    for pattern in ["train", "random"] + SKIP_PATTERNS:
+        for s in (65, 191, 1152):
+            seg = torch.from_numpy(_segments(pattern, 3, s, s)).to(device)
+            vis = fa.tile_visits(seg)
+            t = vis.shape[1]
+            ok = (seg[:, None, :] == seg[:, :, None]) & torch.ones(
+                (s, s), dtype=torch.bool, device=device).tril()
+            pad = t * fa.TILE - s
+            ok = torch.nn.functional.pad(ok, (0, pad, 0, pad))
+            need = ok.view(3, t, fa.TILE, t, fa.TILE).any(4).any(2)
+            assert not (need & ~vis).any(), (pattern, s)
+            assert vis.diagonal(dim1=1, dim2=2).all(), (pattern, s)
 
 
 def _train_segments(b, s, seed):
@@ -123,17 +193,16 @@ def _attention_grads(q, k, v, seg, dout, kernel: bool):
 
 
 @pytest.mark.parametrize("b,h,s", [(1, 1, 1), (1, 2, 63), (2, 2, 64),
-                                   (2, 3, 65), (1, 2, 130), (2, 4, 1000)])
-@pytest.mark.parametrize("pattern", ["train", "random"])
+                                   (2, 3, 65), (1, 2, 130), (2, 4, 1000),
+                                   (2, 2, 127), (2, 2, 128), (2, 2, 129),
+                                   (2, 2, 191), (2, 4, 1152)])
+@pytest.mark.parametrize("pattern", ["train", "random"] + SKIP_PATTERNS)
 def test_flash_backward_matches_plain(device, b, h, s, pattern):
     """dq/dk/dv on every row (segment-0 rows are defined too), the
     log-sum-exp, and two backward runs bit for bit."""
     q, k, v = _qkv((b, h, s, fa.HEAD_DIM), s + 7 * b, device)
     dout = _qkv((b, h, s, fa.HEAD_DIM), s + 1, device)[0]
-    rng = np.random.default_rng(s)
-    seg = (_train_segments(b, s, s) if pattern == "train"
-           else rng.integers(0, 3, size=(b, s)).astype(np.int32))
-    seg = torch.from_numpy(seg).to(device)
+    seg = torch.from_numpy(_segments(pattern, b, s, s)).to(device)
     fa.reset_launches()
     got = _attention_grads(q, k, v, seg, dout, kernel=True)
     again = _attention_grads(q, k, v, seg, dout, kernel=True)
