@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    mask at every case, with the visited share of the causal tiles; the
    forward timed at the training batch's shape too; the fused CE head's forward, dhidden and dw2/db2 on
    the training batch (K = 4, N = B(Sy - 1), Hh = 1024, C = 2056, its
-   targets) and at N = 8000; the int8 weight-streaming matvecs at the
+   targets), at N = 8000 and at two small ragged shapes (C no multiple of 8,
+   N no multiple of 64), forward and backward twice bit for bit, the
+   forward's pre-pass (the target logit) within 1e-4 of the plain one; the int8 weight-streaming matvecs at the
    probe's full width (2 and 8 rows against [2048, 8192] int8: the
    fp32-dequant kernel, one layer and the 16-layer chain in both modes, the
    16-layer megakernel; the int8 mode bit for bit, every kernel twice bit
@@ -493,7 +495,39 @@ LSE_ATOL = 1e-2  # attention log-sum-exp (fp32, natural log): max abs error
 # of the 830M CE head at ~8 rows of 1000 frames
 TRAIN_ATTN_SHAPES = ((8, 16, 1280, 128), (8, 16, 1000, 128))
 TRAIN_CE_SHAPE = (4, 8000, 1024, 2056)
+# C no multiple of 8 (a row pitch of w2 the TMA unit would not take: the
+# kernels read the transposed copy) and N no multiple of the kernels' 64 rows
+RAGGED_CE_SHAPES = ((2, 203, 256, 131), (4, 65, 1024, 2051))
+TLOGIT_ATOL = 1e-4  # the forward's pre-pass: fp32 sums of exact bf16 products
 CW = (5.0, 1.0, 0.5, 0.1)
+
+
+def ptxas_summary(log: str) -> list:
+    """One line a kernel from ``nvcc -Xptxas -v``: its name, registers, spill
+    bytes and stack, and ptxas's C7512 note where it serialised the wgmmas
+    for want of registers; compile errors as they are."""
+    import re
+
+    out, name = [], "?"
+    serialised = {m.group(1) for m in re.finditer(
+        r"C7512.*for the function '(\w+)'", log)}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            # the mangled name: ..._cu_<8 hex digits><length><name>[ILi<n>E]
+            k = re.search(r"_cu_[0-9a-f]{8}(\d{1,2})(\w+)", name)
+            short = k.group(2)[:int(k.group(1))] if k else name[:60]
+            inst = re.search(r"_kernelILi(\d+)E", name)
+            short += f"<{inst.group(1)}>" if inst else ""
+            out.append(f"{short}: {line.split(':', 1)[1].strip()}; {spill}"
+                       + ("; C7512: wgmmas serialised" if name in serialised else ""))
+        elif "error" in line:
+            out.append(line.strip())
+    return out
 
 
 def build_kernels() -> None:
@@ -508,9 +542,8 @@ def build_kernels() -> None:
     print(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.2f} s")
     for b in built:
         print(f"[build] {b.path.name}: nvcc {b.build_seconds:.2f} s")
-        for line in b.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"[build] {line.strip()}")
+        for line in ptxas_summary(b.ptxas_log):
+            print(f"[build] {line}")
 
 
 def train_segments(torch, b: int, s: int, sx: int, gen, device):
@@ -686,9 +719,10 @@ def check_flash_backward(torch, device, path_case):
             "shape": list(path_case[0])}, fwd_train
 
 
-def check_one_ce(torch, device, shape, tgt, gen) -> dict:
+def check_one_ce(torch, device, shape, tgt, gen, timed: bool = True) -> dict:
     """K4-K6 at one [K, N, Hh, C]: errors against the plain version and its
-    autograd (checked), the backward twice bit for bit, and times."""
+    autograd (checked), the pre-pass's target logit against the plain one,
+    forward and backward twice bit for bit, and (``timed``) times."""
     from ssr_speech_tpu_torch.ops import fused_ce as fce
 
     k, n, hh, c = shape
@@ -699,9 +733,13 @@ def check_one_ce(torch, device, shape, tgt, gen) -> dict:
         tgt = torch.randint(0, c, (k, n), generator=gen, dtype=torch.int32).to(device)
     g = torch.randn((k, n), generator=gen).to(device)
 
-    nll, logz, hits = fce.ce_forward(hidden, w2, b2, tgt)
+    w2t = fce.transpose_w2(w2)  # made once a step on the training path
+    fwd_runs = [fce.ce_forward_with_target_logits(hidden, w2, b2, tgt)
+                for _ in range(2)]
+    nll, logz, hits, tlogit = fwd_runs[0]
     runs = [(fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g),
-             *fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g)) for _ in range(2)]
+             *fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g, w2t))
+            for _ in range(2)]
     leaves = [t.clone().requires_grad_() for t in (hidden, w2, b2)]
     p_nll, p_hits = fce.reference_ce_head(*leaves, tgt)
     want = torch.autograd.grad(p_nll, leaves, g, retain_graph=True)
@@ -709,12 +747,19 @@ def check_one_ce(torch, device, shape, tgt, gen) -> dict:
         logits = torch.matmul(hidden.float(), w2.float()) + b2.float()[:, None]
         p_logz = torch.logsumexp(logits, dim=-1)
         t_logit = torch.gather(logits, -1, tgt.long()[..., None])[..., 0]
-        near_tie = (t_logit - logits.topk(fce.TOP, dim=-1).values[..., -1]
-                    ).abs() <= 1e-3
+        if c >= fce.TOP:
+            near_tie = (t_logit - logits.topk(fce.TOP, dim=-1).values[..., -1]
+                        ).abs() <= 1e-3
+        else:  # every target is a hit: no tie to break
+            near_tie = torch.zeros_like(t_logit, dtype=torch.bool)
         del logits
     torch.cuda.synchronize()
+    for name, a, b in zip(("nll", "logz", "hits", "target logit"), *fwd_runs):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"fused CE {name} differs between two runs at {shape}")
     r = {"errs": {"nll": rel_err(nll, p_nll), "logz": rel_err(logz, p_logz)},
-         "abs": {"nll": (nll - p_nll).abs().max().item()}}
+         "abs": {"nll": (nll - p_nll).abs().max().item()},
+         "tlogit": (tlogit - t_logit).abs().max().item()}
     for name, i, w in (("dhidden", 0, want[0]), ("dw2", 1, want[1]), ("db2", 2, want[2])):
         if not torch.equal(runs[0][i], runs[1][i]):
             raise RuntimeError(f"fused CE {name} differs between two runs at {shape}")
@@ -722,51 +767,57 @@ def check_one_ce(torch, device, shape, tgt, gen) -> dict:
         r["abs"][name] = (runs[0][i].float() - w.float()).abs().max().item()
     bad = hits != p_hits
     n_bad, n_off = int(bad.sum()), int((bad & ~near_tie).sum())
-    r["fwd"] = cuda_time_ms(torch, lambda: fce.ce_forward(hidden, w2, b2, tgt), iters=5)
-    with torch.no_grad():
-        r["fwd_plain"] = cuda_time_ms(
-            torch, lambda: fce.reference_ce_head(hidden, w2, b2, tgt), iters=5)
-    r["dh"] = cuda_time_ms(torch, lambda: fce.ce_backward_dhidden(
-        hidden, w2, b2, tgt, logz, g), iters=5)
-    r["dw"] = cuda_time_ms(torch, lambda: fce.ce_backward_dw2(
-        hidden, w2, b2, tgt, logz, g), iters=5)
-    r["dh_plain"] = plain_backward_ms(torch, p_nll, leaves[:1], g)
-    r["dw_plain"] = plain_backward_ms(torch, p_nll, leaves[1:], g)
-    r["bwd_plain"] = plain_backward_ms(torch, p_nll, leaves, g)
-    one_pass = 2 * k * n * hh * c  # operations of one [N, Hh] x [Hh, C] product
-    ins = nbytes(hidden, w2, b2, tgt)
-    r["bounds"] = {  # the backward kernels recompute the logits: two products
-        "fwd": bound(ins + nbytes(nll, logz, hits), one_pass, "bf16"),
-        "dh": bound(ins + nbytes(logz, g, hidden), 2 * one_pass, "bf16"),
-        "dw": bound(ins + nbytes(logz, g) + 4 * (w2.numel() + b2.numel()),
-                    2 * one_pass, "bf16")}
-    print(f"[fused ce] {shape}: max err / max "
-          + ", ".join(f"{k} {e:.2e}" for k, e in r["errs"].items())
-          + f" (tol {REL}); hits differ on {n_bad} of {k * n} rows, {n_off} of "
-          f"them not near-ties; backward bit-identical over two runs; forward "
-          f"{r['fwd']:.3f} ms (plain {r['fwd_plain']:.3f}), dhidden "
-          f"{r['dh']:.3f} ms (plain {r['dh_plain']:.3f}), dw2/db2 {r['dw']:.3f} "
-          f"ms (plain {r['dw_plain']:.3f}); backward {r['dh'] + r['dw']:.3f} ms "
-          f"against {r['bwd_plain']:.3f} ms for the plain backward of all three "
-          f"gradients")
-    if max(r["errs"].values()) > REL or n_off:
+    line = (f"[fused ce] {shape}: max err / max "
+            + ", ".join(f"{k} {e:.2e}" for k, e in r["errs"].items())
+            + f" (tol {REL}); the pre-pass's target logit off by {r['tlogit']:.2e} "
+            f"(tol {TLOGIT_ATOL}); hits differ on {n_bad} of {k * n} rows, {n_off} of "
+            f"them not near-ties; forward and backward bit-identical over two runs")
+    if timed:
+        r["fwd"] = cuda_time_ms(torch, lambda: fce.ce_forward(hidden, w2, b2, tgt), iters=5)
+        with torch.no_grad():
+            r["fwd_plain"] = cuda_time_ms(
+                torch, lambda: fce.reference_ce_head(hidden, w2, b2, tgt), iters=5)
+        r["dh"] = cuda_time_ms(torch, lambda: fce.ce_backward_dhidden(
+            hidden, w2, b2, tgt, logz, g), iters=5)
+        r["dw"] = cuda_time_ms(torch, lambda: fce.ce_backward_dw2(
+            hidden, w2, b2, tgt, logz, g, w2t), iters=5)
+        r["dh_plain"] = plain_backward_ms(torch, p_nll, leaves[:1], g)
+        r["dw_plain"] = plain_backward_ms(torch, p_nll, leaves[1:], g)
+        r["bwd_plain"] = plain_backward_ms(torch, p_nll, leaves, g)
+        one_pass = 2 * k * n * hh * c  # operations of one [N, Hh] x [Hh, C] product
+        ins = nbytes(hidden, w2, b2, tgt)
+        r["bounds"] = {  # the backward kernels recompute the logits: two products
+            "fwd": bound(ins + nbytes(nll, logz, hits), one_pass, "bf16"),
+            "dh": bound(ins + nbytes(logz, g, hidden), 2 * one_pass, "bf16"),
+            "dw": bound(ins + nbytes(logz, g) + 4 * (w2.numel() + b2.numel()),
+                        2 * one_pass, "bf16")}
+        line += (f"; forward {r['fwd']:.3f} ms with the transpose of w2 and the "
+                 f"pre-pass (plain {r['fwd_plain']:.3f}), dhidden {r['dh']:.3f} ms "
+                 f"(plain {r['dh_plain']:.3f}), dw2/db2 {r['dw']:.3f} ms (plain "
+                 f"{r['dw_plain']:.3f}); backward {r['dh'] + r['dw']:.3f} ms against "
+                 f"{r['bwd_plain']:.3f} ms for the plain backward of all three "
+                 f"gradients")
+    print(line)
+    if max(r["errs"].values()) > REL or n_off or not r["tlogit"] <= TLOGIT_ATOL:
         raise RuntimeError(f"fused CE disagrees with the plain version at "
-                           f"{shape}: {r['errs']}, {n_off} hit mismatches away "
-                           f"from ties")
+                           f"{shape}: {r['errs']}, target logit off by "
+                           f"{r['tlogit']}, {n_off} hit mismatches away from ties")
     return r
 
 
 def check_fused_ce(torch, device, path_case) -> list:
-    """K4-K6 on the training path's batch (its N and targets) and at the
-    830M head with N = 8000: nll, logz, hits, dhidden, dw2 and db2 against
-    the plain version and its autograd, the backward twice bit for bit, each
-    timed. Hits may differ only where the target logit is within 1e-3 of the
+    """K4-K6 on the training path's batch (its N and targets), at the 830M
+    head with N = 8000 and at two small ragged shapes: nll, logz, hits,
+    dhidden, dw2 and db2 against the plain version and its autograd, forward
+    and backward twice bit for bit, the first two timed. Hits may differ only where the target logit is within 1e-3 of the
     10th largest (fp32 summation order decides those). The report's times
     are the training path's."""
     gen = torch.Generator().manual_seed(6)
     shape, tgt = path_case
     res = [check_one_ce(torch, device, shape, tgt, gen),
            check_one_ce(torch, device, TRAIN_CE_SHAPE, None, gen)]
+    res += [check_one_ce(torch, device, ragged, None, gen, timed=False)
+            for ragged in RAGGED_CE_SHAPES]
     worst = {key: max(r["errs"][key] for r in res) for key in res[0]["errs"]}
     worst_abs = {key: max(r["abs"][key] for r in res) for key in res[0]["abs"]}
     t = res[0]

@@ -124,6 +124,41 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows, int kk
   return make_desc(tile + kk * 2 * kSwizzleAtomBytes, rows * 128, kSwizzleAtomBytes);
 }
 
+// k step `kk` (16 rows) of one box of R rows x 64 columns used as an A operand
+// whose 64 columns are the M side and whose rows are the reduction dimension
+// (wgmma's trans-a bit): one swizzle atom wide, so no leading offset.
+__device__ __forceinline__ uint64_t desc_mnmajor_a64(uint32_t box, int kk) {
+  return make_desc(box + kk * 2 * kSwizzleAtomBytes, kSwizzleAtomBytes, kSwizzleAtomBytes);
+}
+
+// k step `kk` (16 bf16 = 32 bytes, kk < 4) of one box of R rows x 64 columns
+// whose columns are the reduction dimension; the rows are the M or N side, as
+// many of them as the instruction is wide.
+__device__ __forceinline__ uint64_t desc_kmajor_box(uint32_t box, int kk) {
+  return make_desc(box + kk * 32, 16, kSwizzleAtomBytes);
+}
+
+// What to add to a descriptor to move its start address `bytes` (a multiple of
+// 16) further, inside the 256 KB that the address field spans.
+__device__ __forceinline__ uint64_t desc_step(int bytes) {
+  return static_cast<uint64_t>(bytes >> 4);
+}
+
+// Byte offset of element (row, col) of a tile of 128-byte rows (64 bf16) that
+// starts on a 1024-byte boundary, as the TMA unit's 128-byte swizzle stores it
+// and a swizzled wgmma descriptor reads it: the 16-byte chunk index is xor-ed
+// with the row's index mod 8.
+__device__ __forceinline__ uint32_t swizzle128_offset(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// after ordinary stores to shared memory that a wgmma (or a TMA store) of
+// another thread will read: makes them visible to the asynchronous proxy;
+// follow it with the barrier that hands the tile over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // before the first wgmma, and after accumulator or A registers were written
 // by ordinary instructions
 __device__ __forceinline__ void wgmma_fence() {
@@ -152,6 +187,12 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 // separate register budgets (setmaxnreg below).
 __device__ __forceinline__ int warpgroup_index() {
   return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+}
+
+// A barrier among the 128 threads of warpgroup `group` (hardware barrier
+// group + 1; barrier 0 is __syncthreads').
+__device__ __forceinline__ void warpgroup_barrier(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
 }
 
 template <int Regs>
@@ -228,6 +269,81 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], both from shared memory, both with
+// the reduction dimension contiguous. scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 8] (+)= A[64 x 16] . B[16 x 8], as above: the first 8 rows of a B tile.
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], both from shared memory. TransA /
+// TransB == 0: the reduction dimension of that operand is the contiguous one
+// (`desc_kmajor`); 1: its M / N dimension is (`desc_mnmajor_a64` for A).
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
 // -------------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -250,15 +366,18 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// Tensor map over a contiguous bf16 [heads, S, 128] array: boxes of
-// `box_rows` rows x 64 columns of one head, 128-byte swizzle, zeros past S.
-// A map holds the array's address, so it is encoded for every launch.
-inline cudaError_t encode_heads_map(CUtensorMap* map, const void* base, int heads, int S,
-                                    int box_rows) {
+// Tensor map over a contiguous bf16 [planes, rows, cols] array (cols * 2 bytes a
+// multiple of 16): boxes of `box_rows` rows x 64 columns of one plane, 128-byte
+// swizzle; rows and columns outside the plane arrive as zeros. A map holds the
+// array's address, so it is encoded for every launch.
+inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int planes, int rows,
+                                   int cols, int box_rows) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {128, static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {128 * 2, static_cast<cuuint64_t>(S) * 128 * 2};
+  const cuuint64_t pitch = static_cast<cuuint64_t>(cols) * 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {pitch, static_cast<cuuint64_t>(rows) * pitch};
   const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
@@ -266,6 +385,12 @@ inline cudaError_t encode_heads_map(CUtensorMap* map, const void* base, int head
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The attention kernels' arrays: [heads, S, 128].
+inline cudaError_t encode_heads_map(CUtensorMap* map, const void* base, int heads, int S,
+                                    int box_rows) {
+  return encode_rows_map(map, base, heads, S, 128, box_rows);
 }
 
 }  // namespace sm90

@@ -1,31 +1,47 @@
 """Fused CE head: second head matmul + log-softmax + target NLL + top-k rank,
-forward and backward, without [N, C] fp32 logits in device memory (port of
+forward and backward, without [N, C] logits in device memory (port of
 ``ssr_speech_tpu/ops/fused_ce.py``).
 
 Kernels: ``csrc/fused_ce.cu``, hand-written for Hopper (sm_90a), three entry
-points that replace the three Pallas TPU kernels:
+points that replace the three Pallas TPU kernels. Each is one or two
+[N, Hh] x [Hh, C] products (2*K*N*Hh*C operations each, 0.22 TFLOP at the
+830M head with N = 13,230) over ~130 MB of inputs: bound by the tensor cores.
 
 - ``ssr_fused_ce_fwd_bf16`` <- ``_fwd_kernel``: nll, logz and the top-k hit
-  per row, in two passes over vocab tiles (online max/sum and the target
-  logit, then the rank count);
-- ``ssr_fused_ce_bwd_dhidden_bf16`` <- ``_bwd_dhidden_kernel``: the logits are
-  recomputed tile by tile from the saved logz and
-  dhidden = bf16((p - onehot) * g) . w2^T accumulates in registers;
+  per row. A pre-pass computes each row's target logit in fp32 (a warp a
+  row); then ONE pass over the vocabulary, ``wgmma`` on TMA-fed tiles
+  (``csrc/hopper_tma_wgmma.cuh``): a block owns 128 rows as two consumer
+  warpgroups beside a producer warp, walks vocab tiles of 128 columns, and
+  keeps the online max/sum, the target pick-up and the rank count on the
+  accumulator fragments in registers. The count leaves out the target's own
+  column, so it equals the plain version's wherever no other logit lies
+  within rounding of the target's.
 - ``ssr_fused_ce_bwd_dw2_bf16`` <- ``_bwd_dw2_kernel``: a block owns
-  (codebook, vocab tile) and loops over every row block, so dw2 and db2 (the
-  sum of the bf16-rounded dlogits) accumulate in fp32 with no atomics.
+  (codebook, 32 vocab columns) and every row of dw2 in registers (two
+  warpgroups of Hh/2 rows); row blocks of 64 stream through a TMA ring and
+  serve two ``wgmma`` products each (the logits, then hidden^T . dlogits with
+  the bf16-rounded dlogits); db2 is the column sum of the same dlogits. No
+  atomics and a fixed order: bit-reproducible.
+- ``ssr_fused_ce_bwd_dhidden_bf16`` <- ``_bwd_dhidden_kernel``: the simple
+  first version still (32-row blocks, 32-column vocab tiles staged with plain
+  loads, ``mma.sync`` m16n8k16): the logits are recomputed tile by tile from
+  the saved logz and dhidden = bf16((p - onehot) * g) . w2^T accumulates in
+  registers. It leaves wgmma, TMA and larger tiles on the table.
 
-The vocab tail is masked by bounds inside the kernels: the JAX padding rule
-(``_pad_inputs``: rows to a multiple of 128, columns with a -1e9 bias) has no
-counterpart, and columns past C never enter logz or the rank. At the 830M
-shapes each pass is 2*K*N*Hh*C ~ 0.34 TFLOP of tensor-core work (N ~ 2e4);
-the forward makes two passes and the backward two, so the kernels are bound
-by the mma.sync rate and by re-reading the staged w2/hidden tiles from L2.
+The forward and dw2/db2 kernels read the weights as ``w2t`` [K, C, Hh], one
+``transpose_w2`` a step (layout preparation, as ``_pad_inputs`` is in JAX):
+its rows are 2*Hh bytes, a pitch the TMA unit takes at any C, and row t is
+the contiguous read the pre-pass wants. The vocab tail is masked by bounds
+inside the kernels: the JAX padding rule (rows to a multiple of 128, columns
+with a -1e9 bias) has no counterpart, and columns past C never enter logz or
+the rank.
 
-:class:`FusedCEHead` binds them as a ``torch.autograd.Function``; ``hits``
-gets no gradient. On a CPU tensor :func:`fused_ce_head` takes the plain
-version :func:`reference_ce_head` and autograd's backward of it (the CPU
-tests); on a CUDA tensor it launches the kernels or raises.
+:func:`tiled_ce_forward` and :func:`tiled_ce_dw2` are the two wgmma kernels'
+arithmetic step for step in plain PyTorch (what the CPU tests can hold
+against the JAX package). :class:`FusedCEHead` binds the kernels as a
+``torch.autograd.Function``; ``hits`` gets no gradient. On a CPU tensor
+:func:`fused_ce_head` takes the plain version :func:`reference_ce_head` and
+autograd's backward of it; on a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -62,13 +78,85 @@ def reference_ce_head(hidden, w2, b2, targets, top: int = TOP):
     return logz - tgt, (rank < float(top)).float()
 
 
+def target_logits(hidden, w2t, b2, targets):
+    """The forward's pre-pass in plain PyTorch: hidden[k, n] . w2t[k, t] +
+    b2[k, t] in fp32 -> [K, N]; -inf where t is outside [0, C)."""
+    c, hh = w2t.shape[1:]
+    t = targets.long()
+    valid = (t >= 0) & (t < c)
+    t = t.clamp(0, c - 1)
+    rows = torch.gather(w2t, 1, t[..., None].expand(-1, -1, hh))
+    out = (hidden.float() * rows.float()).sum(-1) + torch.gather(b2.float(), 1, t)
+    return torch.where(valid, out, out.new_tensor(float("-inf")))
+
+
+def tiled_ce_forward(hidden, w2, b2, targets, top: int = TOP,
+                     block_v: int = 128):
+    """The forward kernel's arithmetic, step for step: the target logit
+    first, then one pass over vocab tiles of ``block_v`` columns with the
+    online max/sum, the target's logit picked up where its column passes, and
+    the rank counted over every other column. -> (nll, logz, hits) fp32."""
+    c = w2.shape[-1]
+    h, t = hidden.float(), targets.long()
+    tlog = target_logits(hidden, w2.transpose(1, 2), b2, targets)
+    neg = h.new_full(t.shape, float("-inf"))
+    m, tl = neg, neg
+    l = torch.zeros_like(neg)
+    cnt = torch.zeros_like(t)
+    for v0 in range(0, c, block_v):
+        v1 = min(v0 + block_v, c)
+        x = torch.matmul(h, w2[:, :, v0:v1].float()) + b2[:, None, v0:v1].float()
+        m_new = torch.maximum(m, x.max(dim=-1).values)
+        l = l * torch.exp(m - m_new) + torch.exp(x - m_new[..., None]).sum(-1)
+        m = m_new
+        is_t = torch.arange(v0, v1, device=t.device) == t[..., None]
+        tl = torch.maximum(tl, x.masked_fill(~is_t, float("-inf")).max(-1).values)
+        cnt = cnt + ((x > tlog[..., None]) & ~is_t).sum(-1)
+    logz = m + torch.log(l)
+    return logz - tl, logz, (cnt < top).float()
+
+
+def tiled_ce_dw2(hidden, w2, b2, targets, logz, g, block_n: int = 64,
+                 block_v: int = 32):
+    """The dw2/db2 kernel's arithmetic, step for step: for each tile of
+    ``block_v`` vocab columns, row blocks of ``block_n`` in order; the block's
+    logits, dlogits = (exp(logit - logz) - onehot) * g rounded to hidden's
+    dtype, then dw2 += hidden^T . dlogits and db2 += its column sums, both in
+    fp32. -> (dw2 [K, Hh, C], db2 [K, C]) fp32."""
+    k, n, hh = hidden.shape
+    c = w2.shape[-1]
+    t = targets.long()
+    dw2 = hidden.new_zeros((k, hh, c), dtype=torch.float32)
+    db2 = hidden.new_zeros((k, c), dtype=torch.float32)
+    for v0 in range(0, c, block_v):
+        v1 = min(v0 + block_v, c)
+        wt, bt = w2[:, :, v0:v1].float(), b2[:, None, v0:v1].float()
+        cols = torch.arange(v0, v1, device=t.device)
+        for r0 in range(0, n, block_n):
+            rows = slice(r0, min(r0 + block_n, n))
+            hb = hidden[:, rows].float()
+            x = torch.matmul(hb, wt) + bt
+            onehot = (cols == t[:, rows, None]).float()
+            d = (torch.exp(x - logz[:, rows, None]) - onehot) * g[:, rows, None]
+            d = d.to(hidden.dtype).float()
+            dw2[:, :, v0:v1] += torch.matmul(hb.transpose(1, 2), d)
+            db2[:, v0:v1] += d.sum(dim=1)
+    return dw2, db2
+
+
+def transpose_w2(w2):
+    """w2 [K, Hh, C] -> w2t [K, C, Hh] contiguous, the layout the forward and
+    dw2/db2 kernels read."""
+    return w2.transpose(1, 2).contiguous()
+
+
 def load_kernel():
     """Build (first call only) and bind the three entry points."""
     built = load(_KERNEL)
     lib = built.lib
     if lib.ssr_fused_ce_fwd_bf16.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ssr_fused_ce_fwd_bf16.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.ssr_fused_ce_fwd_bf16.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.ssr_fused_ce_bwd_dhidden_bf16.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
         lib.ssr_fused_ce_bwd_dw2_bf16.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
         for fn in (lib.ssr_fused_ce_fwd_bf16, lib.ssr_fused_ce_bwd_dhidden_bf16,
@@ -105,20 +193,40 @@ def _launch(fn, name: str, *args) -> None:
                            f"{err}")
 
 
-def ce_forward(hidden, w2, b2, targets, top: int = TOP):
-    """Forward kernel on checked CUDA tensors -> (nll, logz, hits) fp32."""
+def _checked_w2t(w2, w2t):
+    if w2t is None:
+        return transpose_w2(w2)
+    k, hh, c = w2.shape
+    if w2t.shape != (k, c, hh) or w2t.dtype != w2.dtype:
+        raise ValueError(f"fused CE: w2t {tuple(w2t.shape)} {w2t.dtype} is not "
+                         f"the transpose of w2 {tuple(w2.shape)} {w2.dtype}")
+    check_layout("fused CE", w2t=w2t)
+    return w2t
+
+
+def ce_forward_with_target_logits(hidden, w2, b2, targets, top: int = TOP,
+                                  w2t=None):
+    """Forward kernels (the pre-pass, then the pass) on checked CUDA tensors
+    -> (nll, logz, hits, tlogit) fp32 [K, N]; ``tlogit`` is the pre-pass's
+    target logit. ``w2t`` is ``transpose_w2(w2)`` if the caller has it."""
     global fwd_launches
     k, n, hh = hidden.shape
     c = w2.shape[-1]
-    nll, logz, hits = (torch.empty((k, n), dtype=torch.float32,
-                                   device=hidden.device) for _ in range(3))
+    w2t = _checked_w2t(w2, w2t)
+    tlogit, nll, logz, hits = (torch.empty((k, n), dtype=torch.float32,
+                                           device=hidden.device) for _ in range(4))
     with torch.cuda.device(hidden.device):
         _launch(load_kernel().lib.ssr_fused_ce_fwd_bf16, "forward",
-                hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                targets.data_ptr(), nll.data_ptr(), logz.data_ptr(),
-                hits.data_ptr(), k, n, hh, c, top)
+                hidden.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+                targets.data_ptr(), tlogit.data_ptr(), nll.data_ptr(),
+                logz.data_ptr(), hits.data_ptr(), k, n, hh, c, top)
     fwd_launches += 1
-    return nll, logz, hits
+    return nll, logz, hits, tlogit
+
+
+def ce_forward(hidden, w2, b2, targets, top: int = TOP, w2t=None):
+    """Forward kernel on checked CUDA tensors -> (nll, logz, hits) fp32."""
+    return ce_forward_with_target_logits(hidden, w2, b2, targets, top, w2t)[:3]
 
 
 def ce_backward_dhidden(hidden, w2, b2, targets, logz, g):
@@ -136,17 +244,19 @@ def ce_backward_dhidden(hidden, w2, b2, targets, logz, g):
     return dhid
 
 
-def ce_backward_dw2(hidden, w2, b2, targets, logz, g):
-    """(dw2 [K, Hh, C], db2 [K, C]) in fp32."""
+def ce_backward_dw2(hidden, w2, b2, targets, logz, g, w2t=None):
+    """(dw2 [K, Hh, C], db2 [K, C]) in fp32. ``w2t`` is ``transpose_w2(w2)``
+    if the caller has it."""
     global dw2_launches
     k, n, hh = hidden.shape
     c = w2.shape[-1]
     check_layout("fused CE", logz=logz, g=g)
+    w2t = _checked_w2t(w2, w2t)
     dw2 = torch.empty((k, hh, c), dtype=torch.float32, device=hidden.device)
     db2 = torch.empty((k, c), dtype=torch.float32, device=hidden.device)
     with torch.cuda.device(hidden.device):
         _launch(load_kernel().lib.ssr_fused_ce_bwd_dw2_bf16, "dw2",
-                hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                hidden.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
                 targets.data_ptr(), logz.data_ptr(), g.data_ptr(),
                 dw2.data_ptr(), db2.data_ptr(), k, n, hh, c)
     dw2_launches += 1
@@ -156,21 +266,23 @@ def ce_backward_dw2(hidden, w2, b2, targets, logz, g):
 class FusedCEHead(torch.autograd.Function):
     """Forward kernel; backward = the dhidden and dw2/db2 kernels. ``hits``
     is locally constant (zero cotangent); dw2/db2 come back in the weights'
-    dtype, as the JAX VJP casts them."""
+    dtype, as the JAX VJP casts them. The transposed weights are made once
+    and kept for the backward (K*C*Hh*2 bytes, 16.8 MB at the 830M head)."""
 
     @staticmethod
     def forward(ctx, hidden, w2, b2, targets, top):
-        nll, logz, hits = ce_forward(hidden, w2, b2, targets, top)
-        ctx.save_for_backward(hidden, w2, b2, targets, logz)
+        w2t = transpose_w2(w2)
+        nll, logz, hits = ce_forward(hidden, w2, b2, targets, top, w2t)
+        ctx.save_for_backward(hidden, w2, w2t, b2, targets, logz)
         ctx.mark_non_differentiable(hits)
         return nll, hits
 
     @staticmethod
     def backward(ctx, g_nll, _g_hits):
-        hidden, w2, b2, targets, logz = ctx.saved_tensors
+        hidden, w2, w2t, b2, targets, logz = ctx.saved_tensors
         g = g_nll.float().contiguous()
         dhid = ce_backward_dhidden(hidden, w2, b2, targets, logz, g)
-        dw2, db2 = ce_backward_dw2(hidden, w2, b2, targets, logz, g)
+        dw2, db2 = ce_backward_dw2(hidden, w2, b2, targets, logz, g, w2t)
         return dhid, dw2.to(w2.dtype), db2.to(b2.dtype), None, None
 
 

@@ -256,12 +256,35 @@ def near_ties(hidden, w2, b2, tgt, rows, top=fce.TOP, tol=1e-3):
     return ((t - kth).abs() <= tol)[rows]
 
 
-@pytest.mark.parametrize("k,n,hh,c", [(1, 1, 128, 1), (2, 63, 128, 130),
-                                      (4, 333, 256, 2056), (4, 1000, 1024, 2056)])
+# N at the edges of the kernels' row blocks (64 and 128), C at the edges of
+# their vocab tiles (32 and 128; 8 is the forward's narrow last tile; 127 is a
+# row pitch of w2 that is no multiple of 16 bytes), every instance Hh / 128 of
+# the dw2/db2 kernel
+CE_SHAPES = [(1, 1, 128, 1), (2, 63, 128, 130), (4, 333, 256, 2056),
+             (4, 1000, 1024, 2056), (2, 64, 128, 8), (2, 65, 512, 127),
+             (3, 129, 1024, 128), (2, 63, 512, 136), (2, 129, 128, 2056),
+             (1, 64, 384, 136), (1, 65, 640, 33), (1, 129, 768, 127),
+             (1, 63, 896, 8)]
+
+
+def _edge_targets(hidden, w2, b2, tgt):
+    """Row 0 aims at the last column (in the masked tail's neighbourhood), the
+    last row at the column that holds its maximum."""
+    tgt = tgt.clone()
+    c = w2.shape[-1]
+    tgt[:, 0] = c - 1
+    last = torch.matmul(hidden[:, -1].float()[:, None], w2.float())[:, 0] + b2.float()
+    tgt[:, -1] = last.argmax(-1).to(tgt.dtype)
+    return tgt
+
+
+@pytest.mark.parametrize("k,n,hh,c", CE_SHAPES)
 def test_fused_ce_matches_plain(device, k, n, hh, c):
     """nll, hits, dhidden, dw2 and db2 against the plain version and its
     autograd; the vocab tail (C not a multiple of 32) never enters logz."""
-    args = _ce_inputs(k, n, hh, c, n + c, device)
+    hidden, w2, b2, tgt, g = _ce_inputs(k, n, hh, c, n + c, device)
+    tgt = _edge_targets(hidden, w2, b2, tgt)
+    args = (hidden, w2, b2, tgt, g)
     fce.reset_launches()
     got = _ce_grads(*args, kernel=True)
     again = _ce_grads(*args, kernel=True)
@@ -270,13 +293,45 @@ def test_fused_ce_matches_plain(device, k, n, hh, c):
     want = _ce_grads(*args, kernel=False)
     # nll: fp32 logits from exact bf16 products, summed in another order
     torch.testing.assert_close(got[0], want[0], atol=1e-3, rtol=1e-4)
+    assert torch.equal(got[0], again[0])
     bad = got[1] != want[1]
     assert near_ties(args[0], args[1], args[2], args[3], bad).all()
+    assert (got[1][:, -1] == 1.0).all()  # the target holds the maximum: rank 0
     for name, gk, gp, g2 in zip(("dhidden", "dw2", "db2"), got[2:], want[2:],
                                 again[2:]):
         assert gk.dtype == gp.dtype == torch.bfloat16, name
         assert _rel(gk, gp) <= REL, (name, _rel(gk, gp))
         assert torch.equal(gk, g2), name
+
+
+@pytest.mark.parametrize("k,n,hh,c", [(2, 65, 128, 127), (4, 1000, 1024, 2056)])
+def test_fused_ce_forward_parts(device, k, n, hh, c):
+    """The forward's pre-pass (the target logit, within 1e-4 of the plain
+    one), logz, and the whole forward twice bit for bit; dw2 and db2 in fp32
+    as the kernel leaves them, with and without the caller's transposed w2."""
+    hidden, w2, b2, tgt, g = _ce_inputs(k, n, hh, c, 3 * n + c, device)
+    tgt = _edge_targets(hidden, w2, b2, tgt)
+    w2t = fce.transpose_w2(w2)
+    first = fce.ce_forward_with_target_logits(hidden, w2, b2, tgt)
+    second = fce.ce_forward_with_target_logits(hidden, w2, b2, tgt, w2t=w2t)
+    nll, logz, hits, tlogit = first
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    logits = torch.matmul(hidden.float(), w2.float()) + b2.float()[:, None]
+    want_t = torch.gather(logits, -1, tgt.long()[..., None])[..., 0]
+    torch.testing.assert_close(tlogit, want_t, atol=1e-4, rtol=0)
+    torch.testing.assert_close(tlogit, fce.target_logits(hidden, w2t, b2, tgt),
+                               atol=1e-4, rtol=0)
+    torch.testing.assert_close(logz, torch.logsumexp(logits, -1), atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(nll, logz - tlogit, atol=1e-4, rtol=0)
+    dw2, db2 = fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g)
+    dw2_t, db2_t = fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g, w2t=w2t)
+    assert dw2.dtype == db2.dtype == torch.float32
+    assert torch.equal(dw2, dw2_t) and torch.equal(db2, db2_t)
+    p_dw2, p_db2 = fce.tiled_ce_dw2(hidden, w2, b2, tgt, logz, g)
+    assert _rel(dw2, p_dw2) <= 1e-3 and _rel(db2, p_db2) <= 1e-3
+    with pytest.raises(ValueError):
+        fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g, w2t=w2)
 
 
 def test_fused_ce_refuses_what_it_cannot_take(device):
