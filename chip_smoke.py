@@ -499,18 +499,20 @@ TRAIN_CE_SHAPE = (4, 8000, 1024, 2056)
 # kernels read the transposed copy) and N no multiple of the kernels' 64 rows
 RAGGED_CE_SHAPES = ((2, 203, 256, 131), (4, 65, 1024, 2051))
 TLOGIT_ATOL = 1e-4  # the forward's pre-pass: fp32 sums of exact bf16 products
+DH_TILED_REL = 1e-2  # dhidden against tiled_ce_dhidden: a bf16 rounding step
 CW = (5.0, 1.0, 0.5, 0.1)
 
 
 def ptxas_summary(log: str) -> list:
     """One line a kernel from ``nvcc -Xptxas -v``: its name, registers, spill
-    bytes and stack, and ptxas's C7512 note where it serialised the wgmmas
-    for want of registers; compile errors as they are."""
+    bytes and stack, and ptxas's notes (C7510-C7515) where it serialised the
+    wgmmas; compile errors as they are."""
     import re
 
     out, name = [], "?"
-    serialised = {m.group(1) for m in re.finditer(
-        r"C7512.*for the function '(\w+)'", log)}
+    serialised = {}
+    for m in re.finditer(r"\((C75\d\d)\)[^'\n]*serialized[^'\n]*'(\w+)'", log):
+        serialised.setdefault(m.group(2), set()).add(m.group(1))
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -521,10 +523,12 @@ def ptxas_summary(log: str) -> list:
             # the mangled name: ..._cu_<8 hex digits><length><name>[ILi<n>E]
             k = re.search(r"_cu_[0-9a-f]{8}(\d{1,2})(\w+)", name)
             short = k.group(2)[:int(k.group(1))] if k else name[:60]
-            inst = re.search(r"_kernelILi(\d+)E", name)
-            short += f"<{inst.group(1)}>" if inst else ""
+            inst = re.search(r"_kernelILi(\d+)E(?:Li(\d+)E)?", name)
+            if inst:
+                short += f"<{','.join(x for x in inst.groups() if x)}>"
+            notes = ", ".join(sorted(serialised.get(name, ())))
             out.append(f"{short}: {line.split(':', 1)[1].strip()}; {spill}"
-                       + ("; C7512: wgmmas serialised" if name in serialised else ""))
+                       + (f"; {notes}: wgmmas serialised" if notes else ""))
         elif "error" in line:
             out.append(line.strip())
     return out
@@ -737,9 +741,9 @@ def check_one_ce(torch, device, shape, tgt, gen, timed: bool = True) -> dict:
     fwd_runs = [fce.ce_forward_with_target_logits(hidden, w2, b2, tgt)
                 for _ in range(2)]
     nll, logz, hits, tlogit = fwd_runs[0]
-    runs = [(fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g),
+    runs = [(fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g, t),
              *fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g, w2t))
-            for _ in range(2)]
+            for t in (None, w2t)]
     leaves = [t.clone().requires_grad_() for t in (hidden, w2, b2)]
     p_nll, p_hits = fce.reference_ce_head(*leaves, tgt)
     want = torch.autograd.grad(p_nll, leaves, g, retain_graph=True)
@@ -753,6 +757,7 @@ def check_one_ce(torch, device, shape, tgt, gen, timed: bool = True) -> dict:
         else:  # every target is a hit: no tie to break
             near_tie = torch.zeros_like(t_logit, dtype=torch.bool)
         del logits
+        tiled_dh = fce.tiled_ce_dhidden(hidden, w2, b2, tgt, logz, g)
     torch.cuda.synchronize()
     for name, a, b in zip(("nll", "logz", "hits", "target logit"), *fwd_runs):
         if not torch.equal(a, b):
@@ -765,20 +770,25 @@ def check_one_ce(torch, device, shape, tgt, gen, timed: bool = True) -> dict:
             raise RuntimeError(f"fused CE {name} differs between two runs at {shape}")
         r["errs"][name] = rel_err(runs[0][i], w)
         r["abs"][name] = (runs[0][i].float() - w.float()).abs().max().item()
+    # the dhidden kernel against its own arithmetic in plain PyTorch: only the
+    # fp32 summation order differs, so at most a bf16 rounding step apart
+    r["dh_tiled"] = rel_err(runs[0][0], tiled_dh)
     bad = hits != p_hits
     n_bad, n_off = int(bad.sum()), int((bad & ~near_tie).sum())
     line = (f"[fused ce] {shape}: max err / max "
             + ", ".join(f"{k} {e:.2e}" for k, e in r["errs"].items())
             + f" (tol {REL}); the pre-pass's target logit off by {r['tlogit']:.2e} "
             f"(tol {TLOGIT_ATOL}); hits differ on {n_bad} of {k * n} rows, {n_off} of "
-            f"them not near-ties; forward and backward bit-identical over two runs")
+            f"them not near-ties; dhidden {r['dh_tiled']:.2e} from tiled_ce_dhidden (tol "
+            f"{DH_TILED_REL}); forward and backward bit-identical over two runs "
+            f"(dhidden with and without the caller's w2t)")
     if timed:
         r["fwd"] = cuda_time_ms(torch, lambda: fce.ce_forward(hidden, w2, b2, tgt), iters=5)
         with torch.no_grad():
             r["fwd_plain"] = cuda_time_ms(
                 torch, lambda: fce.reference_ce_head(hidden, w2, b2, tgt), iters=5)
         r["dh"] = cuda_time_ms(torch, lambda: fce.ce_backward_dhidden(
-            hidden, w2, b2, tgt, logz, g), iters=5)
+            hidden, w2, b2, tgt, logz, g, w2t), iters=5)
         r["dw"] = cuda_time_ms(torch, lambda: fce.ce_backward_dw2(
             hidden, w2, b2, tgt, logz, g, w2t), iters=5)
         r["dh_plain"] = plain_backward_ms(torch, p_nll, leaves[:1], g)
@@ -798,10 +808,12 @@ def check_one_ce(torch, device, shape, tgt, gen, timed: bool = True) -> dict:
                  f"{r['bwd_plain']:.3f} ms for the plain backward of all three "
                  f"gradients")
     print(line)
-    if max(r["errs"].values()) > REL or n_off or not r["tlogit"] <= TLOGIT_ATOL:
+    if (max(r["errs"].values()) > REL or n_off or not r["tlogit"] <= TLOGIT_ATOL
+            or not r["dh_tiled"] <= DH_TILED_REL):
         raise RuntimeError(f"fused CE disagrees with the plain version at "
                            f"{shape}: {r['errs']}, target logit off by "
-                           f"{r['tlogit']}, {n_off} hit mismatches away from ties")
+                           f"{r['tlogit']}, {n_off} hit mismatches away from ties, "
+                           f"dhidden {r['dh_tiled']} from tiled_ce_dhidden")
     return r
 
 

@@ -6,8 +6,8 @@ For ``--shape K,N,Hh,C`` (default 4,13230,1024,2056: the 830M head on a
 training batch of 18 rows x 735 frames) it prints one line a kernel — the
 forward (``ops/fused_ce.py::ce_forward``: the transpose of w2, the target-logit
 pre-pass and the pass), dhidden (``ce_backward_dhidden``) and dw2/db2
-(``ce_backward_dw2``, handed the transposed weights as the training path hands
-them) — with:
+(``ce_backward_dw2``; both handed the transposed weights as the training path
+hands them) — with:
 
 - its largest error against the plain version (``reference_ce_head`` and its
   autograd), relative to the plain output's largest magnitude; for the forward
@@ -123,7 +123,7 @@ def measure(shape, args, device, gen) -> dict:
     w2t = fce.transpose_w2(w2)
     fce._check_cuda_args(hidden, w2, b2, tgt)
     nll, logz, hits, tlogit = fce.ce_forward_with_target_logits(hidden, w2, b2, tgt)
-    dhid = fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g)
+    dhid = fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g, w2t)
     dw2, db2 = fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g, w2t)
     torch.cuda.synchronize(device)
 
@@ -148,7 +148,7 @@ def measure(shape, args, device, gen) -> dict:
             return fce.reference_ce_head(hidden, w2, b2, tgt)
 
     runs = (("fwd", lambda: fce.ce_forward(hidden, w2, b2, tgt), plain_fwd),
-            ("dhidden", lambda: fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g),
+            ("dhidden", lambda: fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g, w2t),
              plain_bwd(leaves[:1])),
             ("dw2", lambda: fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g, w2t),
              plain_bwd(leaves[1:])))

@@ -13,9 +13,8 @@
 //   dhidden = dlogits . w2[k]^T,  dw2 = hidden^T . dlogits,  db2 = sum_n dlogits
 //
 // Inputs: hidden bf16 [K, N, Hh], b2 bf16 [K, C], targets int32 [K, N]; the
-// weights as w2 bf16 [K, Hh, C] (dhidden) or as their transpose w2t bf16
-// [K, C, Hh] (forward, dw2/db2), which the wrapper makes once a step: its rows
-// are 2 Hh bytes, a pitch the TMA unit takes at any C. Hh a multiple of 128 up
+// weights as the transpose of w2, w2t bf16 [K, C, Hh], which the wrapper makes
+// once a step: its rows are 2 Hh bytes, a pitch the TMA unit takes at any C. Hh a multiple of 128 up
 // to 1024, any N and C. The vocab tail is masked by bounds, so columns past C
 // never enter logz or the rank (the TPU kernel pads them with a -1e9 bias).
 //
@@ -77,14 +76,30 @@
 // form stops near a third of the peak; a 2-block cluster that splits Hh
 // ([512, 64] of dw2 a block) would lift that.
 //
-// dhidden (`ce_dhidden_kernel`) is the simple first version still: a block of 8
-// warps owns 32 rows and keeps their hidden rows in shared memory; vocab tiles
-// of 32 columns of w2 are staged beside them with plain loads, each warp
-// computes a 16x8 piece of the 32x32 logits tile with mma.sync m16n8k16
-// (mma_fragments.cuh), the tile's bf16 dlogits go through shared memory into a
-// second product against the same w2 tile, dhidden accumulating in registers
-// (each warp owns Hh/8 of the hidden columns). What it leaves on the table:
-// wgmma, TMA double-buffering of the w2 tiles, larger row blocks.
+// dhidden (`ce_dhidden_kernel`). Its accumulator, [64 rows x 1024] of dhidden,
+// is 512 fp32 a thread over one warpgroup: registers decide the split of Hh.
+// A warpgroup owns 64 rows x 256 columns (128 registers), so a 2-block cluster
+// of 8 warps each (no producer warp: 9 or 12 warps cap a thread at 168
+// registers, see dw2) owns (k, 64 rows), each warpgroup a quarter of Hh. The
+// logits need all of Hh: each warpgroup reduces its quarter (m64n32k16 on its
+// resident [64, 256] of hidden and a [32, 256] tile of w2t), and the four fp32
+// partials meet in each block's shared memory (the other block's arrive by
+// st.async, counted in bytes on the receiving block's barrier), summed in one
+// fixed order by all four, so their dlogits are bit-identical and nothing is
+// recomputed: the kernel does the two products of the bound. exp, the
+// one-hot, g and the bf16 rounding act on the accumulator in registers, whose
+// layout is that of the A fragments of the second product (the P.V hand-over
+// of the flash forward): dhidden += dlogits . tile reads the same w2t boxes
+// again as an MN-major B (m64n128k16, A from registers). Up to Hh = 512 one
+// block's two warpgroups cover Hh and the partials stay in its shared memory.
+// Each warpgroup keeps a ring of 4 w2t tiles (16 KB each at Hh = 1024) that
+// one of its threads refills, and puts the next tile's logits on the tensor
+// cores before it sums this tile's partials. What bounds it: the exchange
+// synchronises the cluster's four warpgroups once a tile, and the n = 32
+// logits product reads 3 KB of shared memory for 32 K multiply-adds, more
+// than shared memory feeds at the tensor cores' rate. Through L2 go
+// 1,656 blocks x 2.1 MB of w2t = 3.5 GB a call at the training shape; a
+// cluster that multicasts a w2t tile to two row blocks would halve that.
 //
 // Every mbarrier wait is bounded (hopper_tma_wgmma.cuh): a fault traps instead
 // of hanging the device. Built with nvcc into a shared library with a plain C
@@ -104,102 +119,7 @@ namespace {
 using namespace ssr;
 using namespace ssr::sm90;
 
-// dhidden's tiles
-constexpr int kRows = 32;      // rows per block
-constexpr int kVt = 32;        // vocab columns per tile
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWPitch = kVt + 8;
 constexpr int kMaxHh = 1024;
-
-__host__ __device__ constexpr int h_pitch(int hh) { return hh + 8; }
-
-__host__ __device__ constexpr size_t tiles_smem(int hh) {
-  // hidden rows, one w2 tile, the bf16 dlogits tile, row statistics
-  return (static_cast<size_t>(kRows) * h_pitch(hh) + static_cast<size_t>(hh) * kWPitch +
-          kRows * kWPitch) * sizeof(uint16_t) + 3 * kRows * sizeof(float);
-}
-
-// rows [r0, r0 + 32) of hidden[k] ([N, Hh]) into hs; zero past N
-__device__ __forceinline__ void load_hidden(uint16_t* hs, const uint16_t* hid, int r0,
-                                            int N, int Hh, int tid) {
-  const int per_row = Hh / 8;
-  for (int i = tid; i < kRows * per_row; i += kThreads) {
-    const int r = i / per_row;
-    const int c = (i % per_row) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < N) val = *reinterpret_cast<const uint4*>(hid + static_cast<size_t>(r0 + r) * Hh + c);
-    *reinterpret_cast<uint4*>(hs + r * h_pitch(Hh) + c) = val;
-  }
-}
-
-// columns [v0, v0 + 32) of w2[k] ([Hh, C]) into ws; zero past C
-__device__ __forceinline__ void load_w2_tile(uint16_t* ws, const uint16_t* w2, int v0,
-                                             int C, int Hh, int tid) {
-  if (C % 8 == 0 && v0 + kVt <= C) {  // 16-byte aligned rows, whole tile
-    for (int i = tid; i < Hh * (kVt / 8); i += kThreads) {
-      const int h = i / (kVt / 8);
-      const int c = (i % (kVt / 8)) * 8;
-      *reinterpret_cast<uint4*>(ws + h * kWPitch + c) =
-          *reinterpret_cast<const uint4*>(w2 + static_cast<size_t>(h) * C + v0 + c);
-    }
-  } else {
-    for (int i = tid; i < Hh * kVt; i += kThreads) {
-      const int h = i / kVt;
-      const int c = i % kVt;
-      ws[h * kWPitch + c] = (v0 + c < C) ? w2[static_cast<size_t>(h) * C + v0 + c] : 0;
-    }
-  }
-}
-
-// This warp's 16x8 piece of the 32x32 logits tile hs . ws (no bias): rows
-// (warp & 1) * 16, columns (warp >> 1) * 8.
-__device__ __forceinline__ void logits_piece(float* c, const uint16_t* hs,
-                                             const uint16_t* ws, int Hh, int warp,
-                                             int g, int t4) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-  const int m0 = (warp & 1) * 16;
-  const int n0 = (warp >> 1) * 8;
-  for (int k0 = 0; k0 < Hh; k0 += 16) {
-    uint32_t a[4], b[2];
-    load_a(a, hs, h_pitch(Hh), m0, k0, g, t4);
-    load_b_kn(b, ws, kWPitch, k0, n0, g, t4);
-    mma_16816(c, a, b[0], b[1]);
-  }
-}
-
-// rows' targets, logz and cotangents into shared memory (zero g past N)
-__device__ __forceinline__ void load_row_stats(int* ts, float* zs, float* gs,
-                                               const int* tgt, const float* logz,
-                                               const float* gin, int r0, int N, int tid) {
-  if (tid < kRows) {
-    const bool in = r0 + tid < N;
-    ts[tid] = in ? tgt[r0 + tid] : -1;
-    zs[tid] = in ? logz[r0 + tid] : 0.f;
-    gs[tid] = in ? gin[r0 + tid] : 0.f;
-  }
-}
-
-// The 32x32 bf16 dlogits tile of vocab columns [v0, v0 + 32) into ds.
-__device__ __forceinline__ void dlogits_tile(uint16_t* ds, const uint16_t* hs,
-                                             const uint16_t* ws, const uint16_t* b2,
-                                             const int* ts, const float* zs,
-                                             const float* gs, int v0, int C, int Hh,
-                                             int warp, int g, int t4) {
-  float c[4];
-  logits_piece(c, hs, ws, Hh, warp, g, t4);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = (warp & 1) * 16 + g + (e >= 2 ? 8 : 0);
-    const int cl = (warp >> 1) * 8 + t4 * 2 + (e & 1);
-    const int col = v0 + cl;
-    float d = 0.f;
-    if (col < C) {
-      const float x = c[e] + bf16_float(b2[col]);
-      d = (expf(x - zs[r]) - (col == ts[r] ? 1.f : 0.f)) * gs[r];
-    }
-    ds[r * kWPitch + cl] = bf16_bits(d);
-  }
-}
 
 // ------------------------------------------------------------------ forward
 
@@ -482,84 +402,364 @@ ce_fwd_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ 
 
 // ------------------------------------------------------------------ dhidden
 
-__global__ void __launch_bounds__(kThreads)
-ce_dhidden_kernel(const uint16_t* __restrict__ hidden, const uint16_t* __restrict__ w2,
-                  const uint16_t* __restrict__ b2, const int* __restrict__ targets,
-                  const float* __restrict__ logz, const float* __restrict__ gin,
-                  uint16_t* __restrict__ dhidden, int N, int Hh, int C) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* hs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* ws = hs + kRows * h_pitch(Hh);
-  uint16_t* ds = ws + Hh * kWPitch;
-  int* ts = reinterpret_cast<int*>(ds + kRows * kWPitch);
-  float* zs = reinterpret_cast<float*>(ts + kRows);
-  float* gs = zs + kRows;
+constexpr int kDhRows = 64;      // rows of a block, and of its cluster
+constexpr int kDhVt = 32;        // vocab rows of w2t a tile
+constexpr int kDhTail = 8;       // a last tile this narrow is one m64n8 product
+constexpr int kDhStages = 4;     // w2t tiles a warpgroup keeps in flight
+constexpr int kDhThreads = 256;  // two warpgroups, no producer warp
+constexpr int kDhMaxQ = 4;       // chunks of 64 columns of Hh a warpgroup owns, at most
+constexpr int kDhHBoxBytes = kDhRows * kChunk * 2;  // [64 rows x 64 columns] of hidden: 8 KB
+constexpr int kDhWBoxBytes = kDhVt * kChunk * 2;    // [32 vocab rows x 64 columns] of w2t: 4 KB
+constexpr int kDhSlotBytes = kDhRows * kDhVt * 4;   // a warpgroup's partial logits, fp32: 8 KB
+constexpr int kDhRecvBytes = 4 * kDhSlotBytes;      // the cluster's four partials of a tile
+constexpr int kDhRemoteBytes = 2 * kDhSlotBytes;    // those of them the other block sends
+// shared memory, from a 1024-byte boundary: each warpgroup's hidden boxes,
+// each warpgroup's ring of w2t stages, the partial logits of one tile [4
+// warpgroups of the cluster], then the barriers
+constexpr int kDhOffH = 0;
+constexpr int kDhOffRing = kDhOffH + 2 * kDhMaxQ * kDhHBoxBytes;
+constexpr int kDhOffRecv = kDhOffRing + 2 * kDhStages * kDhMaxQ * kDhWBoxBytes;
+constexpr int kDhOffBar = kDhOffRecv + kDhRecvBytes;
+// barriers: hidden[2], full[2][kDhStages], recv, done
+constexpr size_t kDhSmem = 1024 + kDhOffBar + 8 * (2 + 2 * kDhStages + 2);
+static_assert(kDhOffRing % 1024 == 0 && kDhOffRecv % 1024 == 0, "tiles on 1024-byte boundaries");
+static_assert(kDhSmem <= 232448, "one block's shared memory on sm_90");
 
-  const int k = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const size_t kn = static_cast<size_t>(k) * N;
-  const uint16_t* w2k = w2 + static_cast<size_t>(k) * Hh * C;
+// A warpgroup's dhidden accumulator, [64 rows x 64 kQ columns]: pairs of
+// chunks as m64n128 products, the last chunk of an odd kQ as an m64n64 one.
+template <int kQ>
+struct DhAcc {
+  float p[kQ / 2 > 0 ? kQ / 2 : 1][64];
+  float s[32];
+};
 
-  load_hidden(hs, hidden + kn * Hh, r0, N, Hh, tid);
-  load_row_stats(ts, zs, gs, targets + kn, logz + kn, gin + kn, r0, N, tid);
-
-  const int cols = Hh / 8;  // this warp's hidden columns [h0, h0 + cols)
-  const int h0 = warp * cols;
-  const int ntiles = cols / 8;  // <= 16
-  float acc[2][16][4];
+// The partial logits of one vocab tile over this warpgroup's chunks of Hh,
+// [64 rows x 32 columns] (x 8 for the narrow tail): hidden and the stage's
+// w2t boxes, both with Hh contiguous. Issued and committed, not waited for.
+template <int kQ, bool kNarrow>
+__device__ __forceinline__ void dh_logits(float (&lg)[16], uint32_t hs, uint32_t stage) {
+  // the first step's descriptors, the others a constant further; made anew
+  // for every tile: hoisted out of the tile loop, the 16 of hidden would hold
+  // 32 registers the accumulators need
+  uint64_t d_h = desc_kmajor_box(hs, 0);
+  uint64_t d_w = desc_kmajor_box(stage, 0);
+  asm volatile("" : "+l"(d_h), "+l"(d_w));
+  wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int q = 0; q < kQ; ++q) {
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  for (int v0 = 0; v0 < C; v0 += kVt) {
-    __syncthreads();
-    load_w2_tile(ws, w2k, v0, C, Hh, tid);
-    __syncthreads();
-    dlogits_tile(ds, hs, ws, b2 + static_cast<size_t>(k) * C, ts, zs, gs, v0, C, Hh, warp, g, t4);
-    __syncthreads();
-    // dhidden[32, h] += dlogits[32, 32] . w2_tile^T[32, h]
-#pragma unroll
-    for (int kk = 0; kk < kVt / 16; ++kk) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        uint32_t a[4];
-        load_a(a, ds, kWPitch, mt * 16, kk * 16, g, t4);
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt) {
-          if (nt < ntiles) {
-            uint32_t b[2];
-            load_b_nk(b, ws, kWPitch, kk * 16, h0 + nt * 8, g, t4);
-            mma_16816(acc[mt][nt], a, b[0], b[1]);
-          }
-        }
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      const uint64_t da = d_h + desc_step(q * kDhHBoxBytes + kk * 32);
+      const uint64_t db = d_w + desc_step(q * kDhWBoxBytes + kk * 32);
+      if constexpr (kNarrow) {
+        wgmma_m64n8k16_ss(lg, da, db, (q | kk) != 0);
+      } else {
+        wgmma_m64n32k16_ss<0, 0>(lg, da, db, (q | kk) != 0);
       }
     }
   }
+  wgmma_commit();
+}
 
-  uint16_t* out = dhidden + kn * Hh;
+// dhidden += dlogits . w2t tile over kSteps 16-deep steps of the tile's vocab
+// rows: the dlogits from registers, the same w2t boxes as the logits read,
+// now with the vocab rows as the reduction (trans-b). Issued and committed.
+template <int kQ, int kSteps>
+__device__ __forceinline__ void dh_product(DhAcc<kQ>& acc, const uint32_t (&a)[2][4],
+                                           uint32_t stage) {
+  uint64_t d_b = desc_mnmajor(stage, kDhVt, 0);
+  asm volatile("" : "+l"(d_b));
+  wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int ra = r0 + mt * 16 + g;
-    const int rb = ra + 8;
+  for (int kk = 0; kk < kSteps; ++kk) {
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      if (nt < ntiles) {
-        const int c = h0 + nt * 8 + t4 * 2;
-        if (ra < N) {
-          *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(ra) * Hh + c) =
-              pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
-        }
-        if (rb < N) {
-          *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(rb) * Hh + c) =
-              pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
-        }
+    for (int p = 0; p < kQ / 2; ++p) {
+      wgmma_m64n128k16_rs_tb(acc.p[p], a[kk],
+                             d_b + desc_step(2 * p * kDhWBoxBytes + kk * 2 * kSwizzleAtomBytes));
+    }
+    if constexpr (kQ % 2 == 1) {
+      wgmma_m64n64k16_rs_tb(acc.s, a[kk],
+                            d_b + desc_step((kQ - 1) * kDhWBoxBytes + kk * 2 * kSwizzleAtomBytes));
+    }
+  }
+  wgmma_commit();
+}
+
+// ce_dhidden_kernel<kQ, kCS>: a cluster of kCS blocks owns (k, 64 rows); its
+// 2 kCS warpgroups split Hh, warpgroup q = 2 rank + w owning chunks
+// [q kQ, q kQ + kQ) of 64 columns (chunks past Hh arrive as zeros and are not
+// stored). For each vocab tile of 32 rows of w2t (a ring of kDhStages tiles a
+// warpgroup, refilled by one thread of it):
+//   1. the partial logits over its chunks (m64n32k16, 4 kQ steps) into its
+//      slot of its own block (stores, then an arrival a warp) and of the
+//      other block (st.async, whose bytes that block's barrier counts: no
+//      fence on either side);
+//   2. the 2 kCS partials summed in the order q = 0, 1, ... by every
+//      warpgroup from its own shared memory, so that all of them hold
+//      bit-identical logits; the bias, exp, one-hot and g in registers;
+//      rounded to bf16 straight into A fragments;
+//   3. dhidden[64, its columns] += dlogits . tile, the same w2t boxes as B.
+// The next tile's logits run on the tensor cores while this tile's partials
+// are summed and its dlogits formed. A slot is written again only after every
+// warp of the cluster has arrived on each block's done barrier. No atomics:
+// bit-reproducible.
+template <int kQ, int kCS>
+__global__ void __launch_bounds__(kDhThreads, 1)
+ce_dhidden_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap wmap,
+                  const uint16_t* __restrict__ b2, const int* __restrict__ targets,
+                  const float* __restrict__ logz, const float* __restrict__ gin,
+                  uint16_t* __restrict__ dhidden, int N, int Hh, int C) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gen = smem_raw + (base - raw);
+  const uint32_t h_bar = base + kDhOffBar;
+  const uint32_t full_bar = h_bar + 16;
+  const uint32_t recv_bar = full_bar + 16 * kDhStages;
+  const uint32_t done_bar = recv_bar + 8;
+  constexpr int kStageBytes = kQ * kDhWBoxBytes;  // a warpgroup's w2t stage
+
+  const int k = blockIdx.y;
+  const uint32_t rank = kCS == 2 ? cluster_rank() : 0;
+  const int row0 = (blockIdx.x / kCS) * kDhRows;
+  const int tid = threadIdx.x;
+  const int w = warpgroup_index();
+  const int tig = tid & 127;
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int q_me = 2 * static_cast<int>(rank) + w;
+  const int col0 = q_me * kQ * kChunk;  // this warpgroup's columns of Hh
+  const int ntiles = (C + kDhVt - 1) / kDhVt;
+  const uint32_t hs = base + kDhOffH + w * kDhMaxQ * kDhHBoxBytes;
+  const uint32_t ring = base + kDhOffRing + w * kDhStages * kDhMaxQ * kDhWBoxBytes;
+  const uint32_t full_w = full_bar + 8 * kDhStages * w;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 + 2 * kDhStages; ++i) mbar_init(h_bar + 8 * i, 1);  // TMA requests
+    mbar_init(recv_bar, kCS == 2 ? 9 : 8);  // a warp of the block (+ the bytes' arming)
+    mbar_init(done_bar, 8 * kCS);           // a warp of the cluster
+    mbar_fence_init();
+    if constexpr (kCS == 2) mbar_arrive_expect_tx(recv_bar, kDhRemoteBytes);
+    tma_prefetch_map(&hmap);
+    tma_prefetch_map(&wmap);
+  }
+  __syncthreads();
+  if constexpr (kCS == 2) cluster_sync();
+
+  // tile t of w2t (its 32 vocab rows, this warpgroup's chunks) into stage t % kDhStages
+  auto load_tile = [&](int t) {
+    const uint32_t bar = full_w + 8 * (t % kDhStages);
+    const uint32_t dst = ring + (t % kDhStages) * kStageBytes;
+    mbar_arrive_expect_tx(bar, kStageBytes);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      tma_load_3d(dst + q * kDhWBoxBytes, &wmap, bar, col0 + q * kChunk, t * kDhVt, k);
+    }
+  };
+  if (tig == 0) {
+    mbar_arrive_expect_tx(h_bar + 8 * w, kQ * kDhHBoxBytes);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      tma_load_3d(hs + q * kDhHBoxBytes, &hmap, h_bar + 8 * w, col0 + q * kChunk, row0, k);
+    }
+    for (int t = 0; t < kDhStages && t < ntiles; ++t) load_tile(t);
+  }
+
+  // this thread's two rows; rows past N: g = 0, so dlogits = 0
+  const size_t kn = static_cast<size_t>(k) * N;
+  const int row_a = row0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  const bool in_a = row_a < N;
+  const bool in_b = row_b < N;
+  const int t_a = in_a ? targets[kn + row_a] : -1;
+  const int t_b = in_b ? targets[kn + row_b] : -1;
+  const float z_a = in_a ? logz[kn + row_a] * kLog2e : 0.f;
+  const float z_b = in_b ? logz[kn + row_b] * kLog2e : 0.f;
+  const float g_a = in_a ? gin[kn + row_a] : 0.f;
+  const float g_b = in_b ? gin[kn + row_b] : 0.f;
+  const uint16_t* b2k = b2 + static_cast<size_t>(k) * C;
+
+  // Partials of a tile: slot q, 4 float4 a thread (the thread's 16 logits in
+  // accumulator order, 2 KB apart). The recv and done barriers complete once
+  // a tile: tile t is their phase t.
+  auto recv_slot = [&](int q) -> uint32_t {
+    return base + kDhOffRecv + q * kDhSlotBytes + tig * 16;
+  };
+  // this warpgroup's partial of tile t into slot q_me of every block, once
+  // every warp of the cluster has read the slots' tile t - 1
+  auto publish = [&](const float (&lg)[16], int t) {
+    if (t > 0) mbar_wait(done_bar, (t - 1) & 1);
+    const uint32_t dst = recv_slot(q_me);
+    if constexpr (kCS == 2) {
+      const uint32_t rd = mapa_shared(dst, rank ^ 1u);
+      const uint32_t rb = mapa_shared(recv_bar, rank ^ 1u);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        st_async_f32x4(rd + ii * 2048, lg[4 * ii], lg[4 * ii + 1], lg[4 * ii + 2],
+                       lg[4 * ii + 3], rb);
       }
+    }
+    float4* own = reinterpret_cast<float4*>(gen + (dst - base));
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      own[ii * 128] = make_float4(lg[4 * ii], lg[4 * ii + 1], lg[4 * ii + 2], lg[4 * ii + 3]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(recv_bar);
+  };
+
+  float lg[16];
+  uint32_t a[2][4] = {};  // the dlogits of the tile in its second product, A fragments
+  DhAcc<kQ> acc;
+#pragma unroll
+  for (int p = 0; p < kQ / 2; ++p)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc.p[p][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc.s[i] = 0.f;
+
+  mbar_wait(h_bar + 8 * w, 0);
+  mbar_wait(full_w, 0);
+  if (C > kDhTail) {
+    dh_logits<kQ, false>(lg, hs, ring);
+  } else {
+    dh_logits<kQ, true>(lg, hs, ring);
+  }
+  wgmma_wait<0>();
+  fence_operands(lg);
+  publish(lg, 0);
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int v0 = i * kDhVt;
+    const bool more = i + 1 < ntiles;
+    // the bias of this thread's columns v0 + 8j + 2t4 + {0, 1} as bf16 pairs,
+    // asked for first: an L2 read whose latency the steps before its use cover
+    uint32_t bias[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = v0 + 8 * j + 2 * t4;
+      const uint32_t lo = col < C ? b2k[col] : 0u;
+      const uint32_t hi = col + 1 < C ? b2k[col + 1] : 0u;
+      bias[j] = lo | (hi << 16);
+    }
+    // 1. the next tile's logits go to the tensor cores behind tile i - 1's
+    //    second product (lg is free: tile i's partial is published)
+    if (more) {
+      const int t = i + 1;
+      mbar_wait(full_w + 8 * (t % kDhStages), (t / kDhStages) & 1);
+      const uint32_t st = ring + (t % kDhStages) * kStageBytes;
+      if (C - t * kDhVt > kDhTail) {
+        dh_logits<kQ, false>(lg, hs, st);
+      } else {
+        dh_logits<kQ, true>(lg, hs, st);
+      }
+    }
+    // 2. tile i - 1's second product is done: its stage takes tile i - 1 + kDhStages
+    if (i > 0) {
+      if (more) {
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_operands(a[0]);
+      fence_operands(a[1]);
+      warpgroup_barrier(w);
+      if (tig == 0 && i - 1 + kDhStages < ntiles) load_tile(i - 1 + kDhStages);
+    }
+    // 3. the logits of tile i, the partials summed in the fixed order q = 0,
+    //    1, ..., and at once dlogits = bf16((exp(logit - logz) - onehot) * g)
+    //    as the A fragments of the second product: 8-column block j holds
+    //    row a, columns 8j + 2t4 + {0, 1}, and row b, the same columns
+    mbar_wait(recv_bar, i & 1);
+    const float4* part = reinterpret_cast<const float4*>(gen + (recv_slot(0) - base));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float4 x = part[j * 128];
+#pragma unroll
+      for (int q = 1; q < 2 * kCS; ++q) {
+        const float4 v = part[q * (kDhSlotBytes / 16) + j * 128];
+        x.x += v.x, x.y += v.y, x.z += v.z, x.w += v.w;
+      }
+      const int col = v0 + 8 * j + 2 * t4;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      if (col < C) {
+        const float b = bf16_lo(bias[j]);
+        d[0] = (fast_exp2((x.x + b) * kLog2e - z_a) - (col == t_a ? 1.f : 0.f)) * g_a;
+        d[2] = (fast_exp2((x.z + b) * kLog2e - z_b) - (col == t_b ? 1.f : 0.f)) * g_b;
+      }
+      if (col + 1 < C) {
+        const float b = bf16_hi(bias[j]);
+        d[1] = (fast_exp2((x.y + b) * kLog2e - z_a) - (col + 1 == t_a ? 1.f : 0.f)) * g_a;
+        d[3] = (fast_exp2((x.w + b) * kLog2e - z_b) - (col + 1 == t_b ? 1.f : 0.f)) * g_b;
+      }
+      a[j >> 1][2 * (j & 1)] = pack_bf16(d[0], d[1]);
+      a[j >> 1][2 * (j & 1) + 1] = pack_bf16(d[2], d[3]);
+    }
+    // 4. every warp of the cluster is done with tile i's partials: the
+    //    arrival comes after the arithmetic that consumed the loads, so they
+    //    have completed before another block may overwrite the slots
+    __syncwarp();
+    if (lane == 0) {
+      if constexpr (kCS == 2) {
+        mbar_arrive_remote(done_bar, 0);
+        mbar_arrive_remote(done_bar, 1);
+      } else {
+        mbar_arrive(done_bar);
+      }
+    }
+    if constexpr (kCS == 2) {
+      // the barrier's next phase (tile i + 1) expects its bytes
+      if (tid == 0 && i + 1 < ntiles) mbar_arrive_expect_tx(recv_bar, kDhRemoteBytes);
+    }
+    // 5. dhidden += dlogits . w2t tile, behind the next tile's logits
+    const uint32_t st = ring + (i % kDhStages) * kStageBytes;
+    if (C - v0 > kDhTail) {
+      dh_product<kQ, 2>(acc, a, st);
+    } else {
+      dh_product<kQ, 1>(acc, a, st);
+    }
+    // 6. the next tile's partial out to the cluster
+    if (more) {
+      wgmma_wait<1>();
+      fence_operands(lg);
+      publish(lg, i + 1);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < kQ / 2; ++p) fence_operands(acc.p[p]);
+  fence_operands(acc.s);
+  // no block leaves while another may still arrive on its barriers: the last
+  // tile's done phase has every warp's arrival
+  if constexpr (kCS == 2) mbar_wait(done_bar, (ntiles - 1) & 1);
+
+  // rows a and b, columns 8j + 2t4 + {0, 1} of each chunk pair / last chunk
+  uint16_t* out = dhidden + kn * Hh;
+  auto store = [&](float v0, float v1, float v2, float v3, int c) {
+    if (c < Hh) {
+      if (in_a) {
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_a) * Hh + c) = pack_bf16(v0, v1);
+      }
+      if (in_b) {
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_b) * Hh + c) = pack_bf16(v2, v3);
+      }
+    }
+  };
+#pragma unroll
+  for (int p = 0; p < kQ / 2; ++p) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      store(acc.p[p][4 * j], acc.p[p][4 * j + 1], acc.p[p][4 * j + 2], acc.p[p][4 * j + 3],
+            col0 + 2 * p * kChunk + 8 * j + 2 * t4);
+    }
+  }
+  if constexpr (kQ % 2 == 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      store(acc.s[4 * j], acc.s[4 * j + 1], acc.s[4 * j + 2], acc.s[4 * j + 3],
+            col0 + (kQ - 1) * kChunk + 8 * j + 2 * t4);
     }
   }
 }
@@ -890,21 +1090,70 @@ extern "C" int ssr_fused_ce_fwd_bf16(const void* hidden, const void* w2t, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ssr_fused_ce_bwd_dhidden_bf16(const void* hidden, const void* w2,
+namespace {
+
+// One instance of the dhidden kernel for each (chunks a warpgroup, blocks a cluster).
+template <int kQ, int kCS>
+int launch_dhidden(const void* hidden, const void* w2t, const void* b2, const void* targets,
+                   const void* logz, const void* g, void* dhidden, int K, int N, int Hh, int C,
+                   void* stream) {
+  // first, because a runtime call binds the device's context to this thread,
+  // which cuTensorMapEncodeTiled needs (autograd runs on its own threads)
+  cudaError_t err = allow_smem(ce_dhidden_kernel<kQ, kCS>, kDhSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap hmap, wmap;
+  err = encode_rows_map(&hmap, hidden, K, N, Hh, kDhRows);
+  if (err == cudaSuccess) err = encode_rows_map(&wmap, w2t, K, C, Hh, kDhVt);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCS * ((N + kDhRows - 1) / kDhRows), K);
+  cfg.blockDim = dim3(kDhThreads);
+  cfg.dynamicSmemBytes = kDhSmem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCS > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, ce_dhidden_kernel<kQ, kCS>, hmap, wmap,
+                           static_cast<const uint16_t*>(b2), static_cast<const int*>(targets),
+                           static_cast<const float*>(logz), static_cast<const float*>(g),
+                           static_cast<uint16_t*>(dhidden), N, Hh, C);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// `w2t` is w2 transposed, bf16 [K, C, Hh]. Hh of up to 512 is split over the
+// two warpgroups of one block; above, over the four of a 2-block cluster
+// (chunks of 64 columns, the last warpgroup's padded with zeros at 640 and 896).
+extern "C" int ssr_fused_ce_bwd_dhidden_bf16(const void* hidden, const void* w2t,
                                              const void* b2, const void* targets,
                                              const void* logz, const void* g,
                                              void* dhidden, int K, int N, int Hh, int C,
                                              void* stream) {
   if (!valid_shape(K, N, Hh, C)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(ce_dhidden_kernel, tiles_smem(kMaxHh));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kRows - 1) / kRows, K);
-  ce_dhidden_kernel<<<grid, kThreads, tiles_smem(Hh), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(hidden), static_cast<const uint16_t*>(w2),
-      static_cast<const uint16_t*>(b2), static_cast<const int*>(targets),
-      static_cast<const float*>(logz), static_cast<const float*>(g),
-      static_cast<uint16_t*>(dhidden), N, Hh, C);
-  return static_cast<int>(cudaGetLastError());
+  const int nch = Hh / kChunk;
+#define SSR_DH_CASE(Q, CS) \
+  return launch_dhidden<Q, CS>(hidden, w2t, b2, targets, logz, g, dhidden, K, N, Hh, C, stream)
+  if (nch <= 2 * kDhMaxQ) {
+    switch (nch / 2) {
+      case 1: SSR_DH_CASE(1, 1);
+      case 2: SSR_DH_CASE(2, 1);
+      case 3: SSR_DH_CASE(3, 1);
+      case 4: SSR_DH_CASE(4, 1);
+    }
+  } else {
+    switch ((nch + 3) / 4) {
+      case 3: SSR_DH_CASE(3, 2);
+      case 4: SSR_DH_CASE(4, 2);
+    }
+  }
+#undef SSR_DH_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 namespace {

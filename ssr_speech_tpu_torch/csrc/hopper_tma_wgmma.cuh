@@ -74,6 +74,60 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// ----------------------------------------------------------------- cluster
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: after the barrier inits, before
+// any block arrives on another's barriers. The blocks of a cluster are
+// scheduled together, so only a fault (which ends the launch) can keep one away.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One arrival on the barrier at `bar` (a shared::cta address of this kernel)
+// in the block of rank `rank`. Its release is at CTA scope: one at cluster
+// scope costs about a microsecond a call (measured on the dhidden kernel of
+// fused_ce.cu, where it doubled the time), so a caller that hands shared
+// memory to another block arrives only after its own loads of it have been
+// consumed.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar), "r"(rank)
+      : "memory");
+}
+
+// The address in the shared memory of the block of rank `rank` that `addr` (a
+// shared::cta address of this kernel) has in this block.
+__device__ __forceinline__ uint32_t mapa_shared(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into another block's shared memory (`remote` from mapa_shared),
+// counted as complete_tx bytes on that block's barrier `remote_bar`: a thread
+// waiting there sees the bytes once the phase completes, with no fence.
+__device__ __forceinline__ void st_async_f32x4(uint32_t remote, float a, float b, float c,
+                                               float d, uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(remote),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar)
+      : "memory");
+}
+
 // --------------------------------------------------------------------- TMA
 
 // One box of a 3-D tensor map (coordinates innermost first) into shared
@@ -182,6 +236,14 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for A fragments that an issued wgmma may still be reading: keeps
+// their registers from being reused before the wait that follows the product
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // The index of this thread's warpgroup, through a shuffle so that the compiler
 // sees a warp-uniform value: the role branch on it is then one it can give
 // separate register budgets (setmaxnreg below).
@@ -269,6 +331,31 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64 x 64] += A[64 x 16] . B[16 x 64]: as wgmma_m64n128k16_rs_tb, one box wide.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], both from shared memory, both with
 // the reduction dimension contiguous. scale_d == 0 overwrites D.
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b,
@@ -308,8 +395,11 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
 }
 
 // D[64 x 8] (+)= A[64 x 16] . B[16 x 8], as above: the first 8 rows of a B tile.
-__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t a, uint64_t b,
+// D is the first 4 values of `d` (the first 8 columns of a wider accumulator).
+template <int N>
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[N], uint64_t a, uint64_t b,
                                                   int scale_d) {
+  static_assert(N >= 4, "an m64n8 accumulator is 4 values a thread");
   asm volatile(
       "{\n"
       ".reg .pred p;\n"

@@ -22,13 +22,16 @@ points that replace the three Pallas TPU kernels. Each is one or two
   serve two ``wgmma`` products each (the logits, then hidden^T . dlogits with
   the bf16-rounded dlogits); db2 is the column sum of the same dlogits. No
   atomics and a fixed order: bit-reproducible.
-- ``ssr_fused_ce_bwd_dhidden_bf16`` <- ``_bwd_dhidden_kernel``: the simple
-  first version still (32-row blocks, 32-column vocab tiles staged with plain
-  loads, ``mma.sync`` m16n8k16): the logits are recomputed tile by tile from
-  the saved logz and dhidden = bf16((p - onehot) * g) . w2^T accumulates in
-  registers. It leaves wgmma, TMA and larger tiles on the table.
+- ``ssr_fused_ce_bwd_dhidden_bf16`` <- ``_bwd_dhidden_kernel``: a 2-block
+  cluster owns (codebook, 64 rows) and its four warpgroups split Hh (one
+  block's two warpgroups up to Hh = 512); for each tile of 32 vocab columns
+  each reduces its part of the logits with ``wgmma``, the fp32 partials are
+  summed in one fixed order through (distributed) shared memory, the dlogits
+  are formed and rounded to bf16 in registers and feed the second product,
+  dhidden += dlogits . w2^T, as its A operand, against the same TMA-fed w2t
+  tile. No atomics: bit-reproducible.
 
-The forward and dw2/db2 kernels read the weights as ``w2t`` [K, C, Hh], one
+The three kernels read the weights as ``w2t`` [K, C, Hh], one
 ``transpose_w2`` a step (layout preparation, as ``_pad_inputs`` is in JAX):
 its rows are 2*Hh bytes, a pitch the TMA unit takes at any C, and row t is
 the contiguous read the pre-pass wants. The vocab tail is masked by bounds
@@ -36,8 +39,8 @@ inside the kernels: the JAX padding rule (rows to a multiple of 128, columns
 with a -1e9 bias) has no counterpart, and columns past C never enter logz or
 the rank.
 
-:func:`tiled_ce_forward` and :func:`tiled_ce_dw2` are the two wgmma kernels'
-arithmetic step for step in plain PyTorch (what the CPU tests can hold
+:func:`tiled_ce_forward`, :func:`tiled_ce_dhidden` and :func:`tiled_ce_dw2`
+are the kernels' arithmetic step for step in plain PyTorch (what the CPU tests can hold
 against the JAX package). :class:`FusedCEHead` binds the kernels as a
 ``torch.autograd.Function``; ``hits`` gets no gradient. On a CPU tensor
 :func:`fused_ce_head` takes the plain version :func:`reference_ce_head` and
@@ -144,9 +147,37 @@ def tiled_ce_dw2(hidden, w2, b2, targets, logz, g, block_n: int = 64,
     return dw2, db2
 
 
+def tiled_ce_dhidden(hidden, w2, b2, targets, logz, g, block_v: int = 32,
+                     hh_parts: int = 4):
+    """The dhidden kernel's arithmetic, step for step: for each tile of
+    ``block_v`` vocab columns, the logits as the sum of the partial products
+    over ``hh_parts`` column parts of Hh (parts of ceil(Hh / hh_parts), added
+    in part order), then the bias; dlogits = (exp(logit - logz) - onehot) * g
+    rounded to hidden's dtype; dhidden += dlogits . w2^T in fp32 over the
+    tiles in order, cast to hidden's dtype at the end. -> [K, N, Hh]."""
+    k, n, hh = hidden.shape
+    c = w2.shape[-1]
+    t = targets.long()
+    h = hidden.float()
+    width = -(-hh // hh_parts)
+    parts = [slice(p0, min(p0 + width, hh)) for p0 in range(0, hh, width)]
+    dh = torch.zeros((k, n, hh), dtype=torch.float32, device=hidden.device)
+    for v0 in range(0, c, block_v):
+        v1 = min(v0 + block_v, c)
+        wt = w2[:, :, v0:v1].float()
+        x = torch.matmul(h[..., parts[0]], wt[:, parts[0]])
+        for part in parts[1:]:
+            x = x + torch.matmul(h[..., part], wt[:, part])
+        x = x + b2[:, None, v0:v1].float()
+        onehot = (torch.arange(v0, v1, device=t.device) == t[..., None]).float()
+        d = (torch.exp(x - logz[..., None]) - onehot) * g[..., None]
+        dh += torch.matmul(d.to(hidden.dtype).float(), wt.transpose(1, 2))
+    return dh.to(hidden.dtype)
+
+
 def transpose_w2(w2):
-    """w2 [K, Hh, C] -> w2t [K, C, Hh] contiguous, the layout the forward and
-    dw2/db2 kernels read."""
+    """w2 [K, Hh, C] -> w2t [K, C, Hh] contiguous, the layout the three
+    kernels read."""
     return w2.transpose(1, 2).contiguous()
 
 
@@ -229,15 +260,17 @@ def ce_forward(hidden, w2, b2, targets, top: int = TOP, w2t=None):
     return ce_forward_with_target_logits(hidden, w2, b2, targets, top, w2t)[:3]
 
 
-def ce_backward_dhidden(hidden, w2, b2, targets, logz, g):
-    """dhidden [K, N, Hh] in hidden's dtype; g is the nll cotangent."""
+def ce_backward_dhidden(hidden, w2, b2, targets, logz, g, w2t=None):
+    """dhidden [K, N, Hh] in hidden's dtype; g is the nll cotangent. ``w2t``
+    is ``transpose_w2(w2)`` if the caller has it."""
     global dhidden_launches
     k, n, hh = hidden.shape
     check_layout("fused CE", logz=logz, g=g)
+    w2t = _checked_w2t(w2, w2t)
     dhid = torch.empty_like(hidden)
     with torch.cuda.device(hidden.device):
         _launch(load_kernel().lib.ssr_fused_ce_bwd_dhidden_bf16, "dhidden",
-                hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                hidden.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
                 targets.data_ptr(), logz.data_ptr(), g.data_ptr(),
                 dhid.data_ptr(), k, n, hh, w2.shape[-1])
     dhidden_launches += 1
@@ -281,7 +314,7 @@ class FusedCEHead(torch.autograd.Function):
     def backward(ctx, g_nll, _g_hits):
         hidden, w2, w2t, b2, targets, logz = ctx.saved_tensors
         g = g_nll.float().contiguous()
-        dhid = ce_backward_dhidden(hidden, w2, b2, targets, logz, g)
+        dhid = ce_backward_dhidden(hidden, w2, b2, targets, logz, g, w2t)
         dw2, db2 = ce_backward_dw2(hidden, w2, b2, targets, logz, g, w2t)
         return dhid, dw2.to(w2.dtype), db2.to(b2.dtype), None, None
 

@@ -138,6 +138,7 @@ def make_eval_step(cfg: SSRModelConfig, tcfg: TrainConfig, device) -> Callable:
 class Trainer:
     """Host-side training loop (the JAX ``Trainer`` on one device).
 
+    ``device`` is a required keyword: a caller names the card or the CPU.
     Parameters start from the port's ``init_ssr`` with a generator seeded
     ``tcfg.seed + 1`` on ``device`` (``load_bundle`` replaces them); the
     dropout generator is seeded ``tcfg.seed``. ``history`` keeps one record
@@ -149,7 +150,7 @@ class Trainer:
                  train_loader: Callable[[int], Iterator[Dict[str, np.ndarray]]],
                  valid_loader: Optional[Callable[[], Iterator]] = None,
                  phn2num: Optional[Dict[str, int]] = None,
-                 exp_dir: Optional[str] = None, device="cpu"):
+                 exp_dir: Optional[str] = None, *, device):
         self.cfg, self.tcfg = cfg, tcfg
         self.device = torch.device(device)
         self.train_loader, self.valid_loader = train_loader, valid_loader

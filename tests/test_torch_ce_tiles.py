@@ -1,18 +1,21 @@
 """The plain PyTorch versions of what the Hopper CE-head kernels do
 (``ssr_speech_tpu_torch/ops/fused_ce.py``): ``tiled_ce_forward`` (the target
 logit first, then one pass over vocab tiles with the online max/sum and the
-rank counted without the target's column) and ``tiled_ce_dw2`` (row blocks in
-order, dlogits rounded to the working type, dw2 and db2 accumulated in fp32).
+rank counted without the target's column), ``tiled_ce_dhidden`` (vocab tiles in
+order, the logits as partial products over parts of Hh added in part order,
+dlogits rounded to the working type, dhidden accumulated in fp32) and
+``tiled_ce_dw2`` (row blocks in order, dlogits rounded to the working type,
+dw2 and db2 accumulated in fp32).
 CPU, numpy-seeded inputs, small widths.
 
 - Against the JAX package (``ssr_speech_tpu.ops.fused_ce.fused_ce_head`` and
   its ``jax.vjp``, as ``tests/test_torch_train.py`` runs them) in fp32: nll and
   logz within 1e-5 (only the summation order differs), hits equal wherever the
-  target logit is not within 1e-4 of the 10th largest, dw2 and db2 within 1e-5
-  of their largest magnitude; over C in {1, 130, 2056}, N in {1, 63, 300} and
+  target logit is not within 1e-4 of the 10th largest, dhidden, dw2 and db2
+  within 1e-5 of their largest magnitude; over C in {1, 130, 2056}, N in {1, 63, 300} and
   block sizes that do and do not divide them.
 - Against ``reference_ce_head`` and its autograd in bf16: nll within 1e-4
-  (exact bf16 products, fp32 sums in another order), dw2/db2 within 2e-2 of
+  (exact bf16 products, fp32 sums in another order), dhidden/dw2/db2 within 2e-2 of
   the largest magnitude (the tiled version rounds dlogits to bf16, as the
   kernels do, where autograd keeps fp32).
 """
@@ -103,10 +106,23 @@ def test_tiled_dw2_matches_jax(n, c, block_n, block_v):
         assert np.abs(got.numpy() - want).max() <= 1e-5 * max(scale, 1.0), name
 
 
+@pytest.mark.parametrize("block_v,hh_parts", [(32, 4), (48, 5)])
+@pytest.mark.parametrize("n,c", SHAPES)
+def test_tiled_dhidden_matches_jax(n, c, block_v, hh_parts):
+    """(48, 5) divides neither C nor Hh = 24 (parts of 5, 5, 5, 5, 4)."""
+    hidden, w2, b2, tgt, g = _inputs(n, c)
+    _, _, logz, _, (dhidden, _, _), _ = _jax_side(n, c)
+    got = tfce.tiled_ce_dhidden(*_torch(hidden, w2, b2, tgt, logz.astype(np.float32), g),
+                                block_v=block_v, hh_parts=hh_parts)
+    assert got.dtype == torch.float32 and got.shape == dhidden.shape
+    scale = max(np.abs(dhidden).max(), 1e-6)
+    assert np.abs(got.numpy() - dhidden).max() <= 1e-5 * max(scale, 1.0)
+
+
 @pytest.mark.parametrize("n,c", [(63, 130), (300, 2056), (65, 136)])
 def test_tiled_versions_match_the_plain_version_in_bf16(n, c):
     """bf16 inputs, as on the card: the forward against ``reference_ce_head``,
-    dw2/db2 (with bf16-rounded dlogits) against its autograd."""
+    dhidden and dw2/db2 (with bf16-rounded dlogits) against its autograd."""
     hidden, w2, b2, tgt, g = _inputs(n, c, seed_offset=7)
     hidden, w2, b2 = (t.to(torch.bfloat16) for t in _torch(hidden, w2, b2))
     tgt, g = _torch(tgt, g)
@@ -120,7 +136,10 @@ def test_tiled_versions_match_the_plain_version_in_bf16(n, c):
     near = (t_logit - logits.topk(tfce.TOP, -1).values[..., -1]).abs() <= 1e-3
     assert not ((hits != p_hits) & ~near).any()
     dw2, db2 = tfce.tiled_ce_dw2(hidden, w2, b2, tgt, logz, g)
-    for name, got, w in (("dw2", dw2, want[1]), ("db2", db2, want[2])):
+    dhidden = tfce.tiled_ce_dhidden(hidden, w2, b2, tgt, logz, g)
+    assert dhidden.dtype == torch.bfloat16
+    for name, got, w in (("dhidden", dhidden, want[0]), ("dw2", dw2, want[1]),
+                         ("db2", db2, want[2])):
         rel = (got - w.float()).abs().max() / w.float().abs().max()
         assert rel <= 2e-2, (name, rel)
 

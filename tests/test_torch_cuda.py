@@ -334,6 +334,35 @@ def test_fused_ce_forward_parts(device, k, n, hh, c):
         fce.ce_backward_dw2(hidden, w2, b2, tgt, logz, g, w2t=w2)
 
 
+@pytest.mark.parametrize("k,n,hh,c", [(4, 13230, 1024, 2056), (4, 8000, 1024, 2056),
+                                      (2, 203, 256, 131), (4, 65, 1024, 2051)])
+def test_fused_ce_dhidden_kernel(device, k, n, hh, c):
+    """The dhidden kernel (Hh split over a 2-block cluster at Hh = 1024, one
+    block at 256) at the training batch's shape and at ragged ones: against
+    the plain autograd (REL) and against its own arithmetic in plain PyTorch
+    (``tiled_ce_dhidden``: the same partial sums and bf16 dlogits, so only
+    the fp32 summation order differs), twice bit for bit, with and without
+    the caller's transposed w2."""
+    hidden, w2, b2, tgt, g = _ce_inputs(k, n, hh, c, 5 * n + c, device)
+    tgt = _edge_targets(hidden, w2, b2, tgt)
+    w2t = fce.transpose_w2(w2)
+    _, logz, _ = fce.ce_forward(hidden, w2, b2, tgt, w2t=w2t)
+    fce.reset_launches()
+    got = fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g)
+    again = fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g, w2t=w2t)
+    torch.cuda.synchronize()
+    assert fce.dhidden_launches == 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    leaves = [t.clone().requires_grad_() for t in (hidden, w2, b2)]
+    nll, _ = fce.reference_ce_head(*leaves, tgt)
+    (want,) = torch.autograd.grad(nll, leaves[:1], g)
+    assert _rel(got, want) <= REL
+    tiled = fce.tiled_ce_dhidden(hidden, w2, b2, tgt, logz, g)
+    assert _rel(got, tiled) <= 1e-2
+    with pytest.raises(ValueError):
+        fce.ce_backward_dhidden(hidden, w2, b2, tgt, logz, g, w2t=w2)
+
+
 def test_fused_ce_refuses_what_it_cannot_take(device):
     hidden, w2, b2, tgt, _ = _ce_inputs(2, 64, 128, 256, 0, device)
     with pytest.raises(TypeError):

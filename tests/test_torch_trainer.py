@@ -227,6 +227,14 @@ def test_train_lm_cli_resume_and_bundles_interoperate(tmp_path):
         _jax_loss(jparams, cfg, tcfg, batch), rel=1e-5)
 
 
+def test_trainer_needs_a_device():
+    """The port's Trainer runs where its caller says: no default device."""
+    from ssr_speech_tpu_torch.training.trainer import Trainer
+
+    with pytest.raises(TypeError, match="device"):
+        Trainer(None, None, None)
+
+
 def test_train_lm_imports_no_jax(tmp_path):
     """The port's training CLI, run for two steps in a fresh interpreter,
     leaves ``jax`` and every ``ssr_speech_tpu.*`` module out of sys.modules."""
