@@ -24,12 +24,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    targets), at N = 8000 and at two small ragged shapes (C no multiple of 8,
    N no multiple of 64), forward and backward twice bit for bit, the
    forward's pre-pass (the target logit) within 1e-4 of the plain one; the int8 weight-streaming matvecs at the
-   probe's full width (2 and 8 rows against [2048, 8192] int8: the
-   fp32-dequant kernel, one layer and the 16-layer chain in both modes, the
-   16-layer megakernel; the int8 mode bit for bit, every kernel twice bit
-   for bit). Beside the attention kernels one PyTorch call that computes the
-   same function (``scaled_dot_product_attention`` and its autograd backward)
-   is timed as a yardstick; the port never calls it. Then hold a small LM's
+   probe's full width (2, 8 and 64 rows against [2048, 8192] int8: K7 and
+   K8, one layer and the 16-layer chain in both modes, each chain with and
+   without programmatic dependent launch and as a CUDA graph, all three bit
+   for bit; the 16-layer megakernel at 2 and 8 rows; the int8 mode bit for
+   bit, every kernel twice bit for bit). Beside the attention kernels one
+   PyTorch call that computes the same function
+   (``scaled_dot_product_attention`` and its autograd backward), and beside
+   K7 and K8's bf16 mode ``torch._weight_int8pack_mm``, are timed as
+   yardsticks; the port never calls them. Then hold a small LM's
    prefill and the codec, and a 4-layer training step (loss and gradients),
    against the port's fp32 CPU path, and train that LM a few steps: the loss
    must fall.
@@ -49,7 +52,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 6. The int8 probe: ``ssr_speech_tpu_torch.int8_probe.main`` at its full width
    (d_model 2048, FFN 8192, 16 layers, 2 and 8 rows): every chain must launch
    its kernel once per layer and call, the megakernel once per call, with
-   finite outputs.
+   finite outputs; each chain's CUDA graph is captured from 16 launches and
+   its replay equals the eager chain.
 7. Print the kernel report (JSON; each kernel's launches are those of steps
    4 to 6, counted from zero before each; ``bound_ms`` is the least time the
    card could take for the same work, from the inputs' bytes and operations
@@ -548,6 +552,11 @@ def build_kernels() -> None:
         print(f"[build] {b.path.name}: nvcc {b.build_seconds:.2f} s")
         for line in ptxas_summary(b.ptxas_log):
             print(f"[build] {line}")
+    from ssr_speech_tpu_torch.ops import int8_matmul as i8
+
+    print("[build] int8 stream_kernel occupancy, blocks an SM: " + ", ".join(
+        f"{mode} rows {rows} {i8.occupancy(mode, rows)}"
+        for mode in i8.MODES for rows in INT8_ROWS))
 
 
 def train_segments(torch, b: int, s: int, sx: int, gen, device):
@@ -1074,7 +1083,8 @@ def drive_training_path(torch, device, argv, card: str, checked) -> dict:
 # ------------------------------------------------------ int8 weight streaming
 
 INT8_SHAPE = (2048, 8192, 16)  # d_model, FFN width, layers of the 830M LM
-INT8_ROWS = (2, 8)  # the TPU probes' own row counts
+INT8_ROWS = (2, 8, 64)  # the TPU probes' own row counts, and a batch of 64
+MEGA_ROWS = (2, 8)  # the megakernel carries at most 8
 CHAIN_REL = 5e-2  # 16 layers: a bf16 rounding flip in h feeds every later layer
 INT8_SRC = "ssr_speech_tpu_torch/csrc/int8_matmul.cu"
 
@@ -1083,17 +1093,23 @@ def check_int8(torch, device) -> list:
     """K7-K9 at the probe's full width against their plain versions on the
     card. One layer at ``REL`` of the max (the int8 mode bit for bit), the
     16-layer chains and the megakernel at ``CHAIN_REL`` (int8 mode bit for
-    bit), every kernel twice bit for bit. Times are per wrapper call over 16
-    distinct matrices (268 MB, more than the L2 holds): a chain's 16
-    launches, the megakernel's one; ``int8_matvec`` is timed as that chain
-    and reported per launch. ``ms`` is the call as made (eager launches),
-    ``device_ms`` the same launches queued behind a blocker so that they run
-    back to back (``int8_probe.queued_ms``). The report's rows: 2 for the
-    launches-per-layer kernels, 8 for the megakernel (the TPU probes' own)."""
+    bit), every kernel twice bit for bit; each chain with programmatic
+    dependent launch, without it, and captured in a CUDA graph and replayed,
+    all three bit for bit. Times are per wrapper call over 16 distinct
+    matrices (268 MB, more than the L2 holds): a chain's 16 launches, the
+    megakernel's one; ``int8_matvec`` is timed as that chain and reported
+    per launch. ``ms`` is the call as made (eager launches), ``device_ms``
+    the same launches queued behind a blocker so that they run back to back
+    (``int8_probe.queued_ms``), ``graph_ms`` / ``graph_device_ms`` the graph's
+    replay as called and queued. The library call is
+    ``torch._weight_int8pack_mm`` on the transposed weight, whose scales are
+    bf16 (K7's are fp32): a yardstick of time, not of bits; for the chain,
+    16 chained calls. The report's rows: 2 for the launches-per-layer kernels,
+    8 for the megakernel (the TPU probes' own); ``by_rows`` has the rest."""
     import numpy as np
 
-    from ssr_speech_tpu_torch.int8_probe import (QUEUED_CALLS, matvec_chain,
-                                                 queued_ms)
+    from ssr_speech_tpu_torch.int8_probe import (QUEUED_CALLS, library_chain,
+                                                 matvec_chain, queued_ms)
     from ssr_speech_tpu_torch.ops import int8_matmul as i8
 
     d, f, n_layers = INT8_SHAPE
@@ -1104,6 +1120,7 @@ def check_int8(torch, device) -> list:
                           ).astype(np.float32)).to(device)
     w1 = torch.from_numpy(rng.normal(size=(d, f), scale=0.02).astype(np.float32))
     q1, s1 = i8.quantize_weight(w1.to(device))
+    lib_w, lib_s = wq.transpose(1, 2).contiguous(), s[:, 0].to(torch.bfloat16)
     res = {}
 
     def twice(fn, label):
@@ -1130,29 +1147,55 @@ def check_int8(torch, device) -> list:
             h = i8.reference_int8_matvec(h, w[layer], sc[layer, 0])[:, :d]
         return h
 
+    def timed_chain(label, run, eager):
+        """ms and queued ms of ``run`` as called and as a graph replay; the
+        chain without programmatic dependent launch and the replay must
+        equal ``eager``. Returns the times and the capture's launches."""
+        i8.PDL = False
+        try:
+            if not torch.equal(run(), eager):
+                raise RuntimeError(f"{label}: the chain without PDL differs")
+        finally:
+            i8.PDL = True
+        ms = cuda_time_ms(torch, run)
+        dev = queued_ms(run, ms, device)
+        graph = i8.Captured(run)
+        if not torch.equal(graph(), eager):
+            raise RuntimeError(f"{label}: the CUDA graph's replay differs")
+        if graph.programmatic_edges < n_layers - 1:
+            raise RuntimeError(f"{label}: the graph has {graph.programmatic_edges} "
+                               f"programmatic edges, want {n_layers - 1}")
+        gms = cuda_time_ms(torch, graph)
+        gdev = queued_ms(graph, gms, device)
+        return dict(ms=ms, device_ms=dev, graph_ms=gms, graph_device_ms=gdev,
+                    graph_edges=graph.edges, programmatic_edges=graph.programmatic_edges)
+
     for rows in INT8_ROWS:
         x = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)
                              ).to(device, torch.bfloat16)
+        out = torch.empty((rows, f), dtype=torch.bfloat16, device=device)
         i8.reset_launches()
         # K7: one layer on quantize_weight's output, then the chain
         one = hold(f"int8_matvec rows {rows}",
                    twice(lambda: i8.int8_matvec(x, q1, s1), "int8_matvec"),
                    i8.reference_int8_matvec(x, q1, s1), REL)
-        chain = hold(f"int8_matvec chain rows {rows}",
-                     twice(lambda: matvec_chain(x, wq, s, n_layers), "int8_matvec chain"),
+        run = lambda: matvec_chain(x, wq, s, n_layers)  # noqa: E731
+        eager = twice(run, "int8_matvec chain")
+        chain = hold(f"int8_matvec chain rows {rows}", eager,
                      plain_matvec_chain(x, wq, s), CHAIN_REL)
-        if i8.matvec_launches != 2 + 2 * n_layers:
-            raise RuntimeError("int8_matvec did not launch its kernel")
-        ms = cuda_time_ms(torch, lambda: matvec_chain(x, wq, s, n_layers))
-        dev = queued_ms(lambda: matvec_chain(x, wq, s, n_layers), ms, device) / n_layers
-        ms /= n_layers
+        t = timed_chain(f"int8_matvec chain rows {rows}", run, eager)
+        lib = lambda: library_chain(x, lib_w, lib_s, n_layers)  # noqa: E731
+        lib_ms = queued_ms(lib, cuda_time_ms(torch, lib, iters=5), device)
+        # 2 + 2 chains + no PDL + warm-up and 20 timed + queued + graph warm-up and capture
+        if i8.matvec_launches != 2 + (2 + 1 + 21 + QUEUED_CALLS + 2) * n_layers:
+            raise RuntimeError("int8_matvec did not launch its kernel once a layer")
         plain_ms = cuda_time_ms(torch, lambda: plain_matvec_chain(x, wq, s),
                                 iters=5) / n_layers
-        out = torch.empty((rows, f), dtype=torch.bfloat16, device=device)
         res[("int8_matvec", rows)] = dict(
-            abs=one[0], rel=max(one[1], chain[1]), ms=ms, device_ms=dev,
-            plain_ms=plain_ms,
-            **bound(nbytes(x, q1, s1, out), 2 * rows * d * f, "fp32"))
+            abs=one[0], rel=max(one[1], chain[1]), plain_ms=plain_ms,
+            library_ms=lib_ms / n_layers,
+            **{k: v / n_layers if k.endswith("ms") else v for k, v in t.items()},
+            **bound(nbytes(x, q1, s1, out), 2 * rows * d * f, "bf16"))
         # K8: one layer and the chain, both modes
         for mode in i8.MODES:
             tol = 0 if mode == "int8" else REL
@@ -1161,24 +1204,23 @@ def check_int8(torch, device) -> list:
                              f"int8 layer {mode}"),
                        i8.reference_int8_layer(x, wq[0], s[0, 0], mode), tol)
             tol = 0 if mode == "int8" else CHAIN_REL
-            chain = hold(f"int8 chain {mode} rows {rows}",
-                         twice(lambda: i8.int8_matvec_chain(x, wq, s, mode, n_layers),
-                               f"int8 chain {mode}"),
+            run = lambda: i8.int8_matvec_chain(x, wq, s, mode, n_layers)  # noqa: E731
+            eager = twice(run, f"int8 chain {mode}")
+            chain = hold(f"int8 chain {mode} rows {rows}", eager,
                          i8.reference_int8_chain(x, wq, s, mode, n_layers), tol)
-            ms = cuda_time_ms(torch, lambda: i8.int8_matvec_chain(
-                x, wq, s, mode, n_layers))
-            dev = queued_ms(lambda: i8.int8_matvec_chain(x, wq, s, mode, n_layers),
-                            ms, device)
+            t = timed_chain(f"int8 chain {mode} rows {rows}", run, eager)
             plain_ms = cuda_time_ms(torch, lambda: i8.reference_int8_chain(
                 x, wq, s, mode, n_layers), iters=5)
             res[(f"int8_chain_{mode}", rows)] = dict(
-                abs=one[0], rel=max(one[1], chain[1]), ms=ms, device_ms=dev,
-                plain_ms=plain_ms,
+                abs=one[0], rel=max(one[1], chain[1]), plain_ms=plain_ms,
+                library_ms=lib_ms if mode == "bf16" else None, **t,
                 **bound(n_layers * nbytes(x, wq[0], s[0], out),
                         2 * rows * d * f * n_layers, mode))
         if (i8.chain_bf16_launches, i8.chain_int8_launches) != (
-                (2 + (2 + 21 + QUEUED_CALLS) * n_layers,) * 2):
+                (2 + (2 + 1 + 21 + QUEUED_CALLS + 2) * n_layers,) * 2):
             raise RuntimeError("int8_matvec_chain did not launch once a layer")
+        if rows not in MEGA_ROWS:
+            continue
         # K9: one layer at the tight tolerance, then all 16 in one launch
         one = hold(f"int8_megakernel 1 layer rows {rows}",
                    twice(lambda: i8.int8_megakernel(x, wq[:1], s[:1]), "megakernel"),
@@ -1194,21 +1236,28 @@ def check_int8(torch, device) -> list:
                                 iters=5)
         res[("int8_megakernel", rows)] = dict(
             abs=one[0], rel=max(one[1], full[1]), ms=ms, device_ms=dev,
-            plain_ms=plain_ms,
+            plain_ms=plain_ms, library_ms=None,
             **bound(nbytes(x, wq, s, x), 2 * rows * d * f * n_layers, "bf16"))
-        for (name, r), v in res.items():
-            if r == rows:
-                print(f"[int8] rows {rows} {name}: max err / max {v['rel']:.2e} "
-                      f"(one layer max abs {v['abs']:.2e}), two runs "
-                      f"bit-identical; kernel {v['ms']:.4f} ms as called, "
-                      f"{v['device_ms']:.4f} ms queued, plain "
-                      f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
-                      f"{v['bound_by']}")
+    for (name, rows), v in res.items():
+        graph = (f"; as a CUDA graph {v['graph_ms']:.4f} ms, {v['graph_device_ms']:.4f} "
+                 f"queued ({v['programmatic_edges']} of {v['graph_edges']} edges "
+                 "programmatic), bit-identical to the eager chain and to it without "
+                 "PDL" if "graph_ms" in v else "")
+        lib = (f"; torch._weight_int8pack_mm (bf16 scales) {v['library_ms']:.4f} ms "
+               "queued" if v["library_ms"] is not None else "")
+        print(f"[int8] rows {rows} {name}: max err / max {v['rel']:.2e} "
+              f"(one layer max abs {v['abs']:.2e}), two runs "
+              f"bit-identical; kernel {v['ms']:.4f} ms as called, "
+              f"{v['device_ms']:.4f} ms queued, plain "
+              f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+              f"{v['bound_by']}{lib}{graph}")
     i8.reset_launches()
     replaces = {"int8_matvec": "tools/int8_matmul.py:55",
                 "int8_chain_bf16": "tools/int8_kernel_probe2.py:25",
                 "int8_chain_int8": "tools/int8_kernel_probe2.py:25",
                 "int8_megakernel": "tools/int8_kernel_probe3.py:36"}
+    keys = ("ms", "device_ms", "graph_ms", "graph_device_ms", "plain_ms",
+            "library_ms", "bound_ms")
     entries = []
     for name, where in replaces.items():
         rows = 8 if name == "int8_megakernel" else 2
@@ -1218,10 +1267,11 @@ def check_int8(torch, device) -> list:
             "launches": 0, "max_abs_err": v["abs"], "max_rel_err": v["rel"],
             "ms": v["ms"], "device_ms": v["device_ms"],
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-            "bound_by": v["bound_by"], "library_ms": None,
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+            **({"library_note": "torch._weight_int8pack_mm, bf16 scales, queued"}
+               if v["library_ms"] is not None else {}),
             "shape": [rows, d, f, n_layers],
-            "by_rows": {str(r): {k: val[k] for k in ("ms", "device_ms", "plain_ms",
-                                                     "bound_ms")}
+            "by_rows": {str(r): {k: val[k] for k in keys if k in val}
                         for (nm, r), val in res.items() if nm == name}})
     return entries
 
@@ -1246,21 +1296,33 @@ def drive_int8_probe(torch, card: str) -> dict:
         raise RuntimeError(f"the probe ran at {res['d_model']}, {res['ffn_dim']}, "
                            f"{res['layers']}; the kernel checks took {INT8_SHAPE}")
     want = dict.fromkeys(launches, 0)
+    graphs = 0
     for line in res["lines"]:
         if not line["finite"] or line["device"] != "cuda":
             raise RuntimeError(f"int8 probe: bad line {line}")
         if line["kernel"] is None:
             continue
         per_call = 1 if line["kernel"] == "int8_megakernel" else res["layers"]
+        if "captured_launches" in line:  # a graph: its replays pass no wrapper
+            if (line["launches"], line["captured_launches"]) != (0, 2 * per_call) \
+                    or not line["equal_to_eager"] \
+                    or line["programmatic_edges"] < per_call - 1:
+                raise RuntimeError(f"int8 probe: bad graph line {line}")
+            want[line["kernel"]] += 2 * per_call  # warm-up and capture
+            graphs += 1
+            continue
         if line["launches"] != per_call * line["calls"]:
             raise RuntimeError(f"int8 probe: {line['name']} launched "
                                f"{line['launches']} times in {line['calls']} "
                                f"calls, expected {per_call} a call")
         want[line["kernel"]] += per_call * (line["calls"] + 1)  # + the output's
+    if graphs != 12:  # 3 chains x 2 rows x 2 weight variants
+        raise RuntimeError(f"int8 probe: {graphs} graph lines, expected 12")
     if launches != want or not all(launches.values()):
         raise RuntimeError(f"int8 probe launches {launches}, expected {want}")
     print(f"[int8-probe] {len(res['lines'])} lines in "
-          f"{time.perf_counter() - t0:.1f} s, finite outputs; launches "
+          f"{time.perf_counter() - t0:.1f} s, finite outputs, {graphs} graph "
+          "replays equal to their eager chains; launches "
           f"{launches} [{card}]")
     return launches
 

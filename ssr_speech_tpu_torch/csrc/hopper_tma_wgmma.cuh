@@ -142,6 +142,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 2-D tensor map (coordinates innermost first); as tma_load_3d.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -153,6 +163,22 @@ __device__ __forceinline__ void tma_load_tile128(uint32_t dst, const CUtensorMap
                                                  uint32_t bar, int r0, int bh, int rows) {
   tma_load_3d(dst, map, bar, 0, r0, bh);
   tma_load_3d(dst + rows * 128, map, bar, kBoxCols, r0, bh);
+}
+
+// ------------------------------------------- programmatic dependent launch
+
+// Waits until the grids this one depends on (launched before it in the stream
+// with the programmatic serialisation attribute) have completed and their
+// memory is visible. Returns at once when there is no such grid.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Lets the next grid of the stream be scheduled once every block of this one
+// has executed it or exited; that grid still waits in pdl_wait for this one
+// to complete before it reads what this one writes.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -474,6 +500,30 @@ inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int plane
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map over a row-major int8 [rows, cols] matrix (cols a multiple of
+// 16): boxes of `box_rows` rows x `box_cols` columns (64 or 128 bytes a row),
+// with the swizzle as wide as a box row (64 -> 64-byte, 128 -> 128-byte): the
+// 16-byte chunk c of row r of a box that starts on a 1024-byte boundary lands
+// at chunk c ^ ((r >> 1) & 3) (64) or c ^ (r & 7) (128). Rows past the matrix
+// arrive as zeros and count towards the transaction bytes.
+inline cudaError_t encode_int8_map(CUtensorMap* map, const void* base, int rows, int cols,
+                                   int box_rows, int box_cols, CUtensorMapL2promotion promotion) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (box_cols != 64 && box_cols != 128) return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+         elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+         promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

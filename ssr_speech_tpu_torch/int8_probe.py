@@ -11,9 +11,16 @@ int8 weight bytes of the chain over the time):
 - ``bf16 matmul``: ``torch.matmul`` on the dequantised bf16 weights, the
   baseline (the TPU probe's ``chain_bf16``, which also runs outside any
   hand-written kernel);
-- ``int8_matvec``: 16 launches of the fp32-dequant kernel;
-- ``chain bf16`` / ``chain int8``: 16 launches of the tensor-core kernel in
-  each mode;
+- ``weight_int8pack_mm``: PyTorch's own int8-weight matmul
+  (``torch._weight_int8pack_mm`` on the transposed weight, scales rounded to
+  bf16), a yardstick the port never calls;
+- ``int8_matvec``: 16 launches of K7;
+- ``chain bf16`` / ``chain int8``: 16 launches of K8 in each mode;
+- ``int8_matvec chain graph``, ``chain bf16 graph``, ``chain int8 graph``:
+  the same 16 launches captured once in a CUDA graph and replayed (the
+  TPU probe dispatches its chain as one ``jax.jit`` executable); the replay
+  must equal the eager chain bit for bit. On the card only: ``--device cpu``
+  prints why they are skipped;
 - ``megakernel``: all 16 layers in one cooperative launch.
 
 The TPU probes chain ONE [2048, 8192] matrix 16 times. On an H100 that
@@ -40,6 +47,7 @@ rate. ``main`` returns the numbers as a dict.
 from __future__ import annotations
 
 import argparse
+import functools
 import subprocess
 import sys
 import time
@@ -139,6 +147,17 @@ def queued_ms(fn: Callable, eager_ms: float, device, calls: int = QUEUED_CALLS
     return start.elapsed_time(end) / calls
 
 
+def library_chain(x, w_t, s_bf, n_layers: int):
+    """The yardstick: ``torch._weight_int8pack_mm`` a layer, ``w_t`` the
+    int8 weight transposed ([N, K] shared or [L, N, K]), ``s_bf`` its scales
+    in bf16 ([N] or [L, N])."""
+    h, k = x, x.shape[1]
+    for layer in range(n_layers):
+        w, sc = (w_t[layer], s_bf[layer]) if w_t.dim() == 3 else (w_t, s_bf)
+        h = torch._weight_int8pack_mm(h, w, sc)[:, :k]
+    return h
+
+
 def _launch_counts() -> Dict[str, int]:
     return {"int8_matvec": i8.matvec_launches,
             "int8_chain_bf16": i8.chain_bf16_launches,
@@ -183,12 +202,28 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "same": {"matvec": (q1, s1, dequant(q1, s1[None, :])),
                  "chain": (wq[0], s[0], w_bf[0])},
         "distinct": {"matvec": (wq, s, w_bf), "chain": (wq, s, w_bf)}}
+    library = {  # variant -> (transposed int8 weights, bf16 scales)
+        "same": (wq[0].t().contiguous(), s[0, 0].to(torch.bfloat16)),
+        "distinct": (wq.transpose(1, 2).contiguous(),
+                     s[:, 0].to(torch.bfloat16))}
     mb = n_layers * d * f / 1e6  # int8 weight bytes a chain streams
     lines, outputs = [], {}
     print(f"[int8_probe] D {d}, F {f}, {n_layers} layers, {mb:.1f} MB of int8 "
           f"weights a chain, rows {ROWS}, {args.iters} timed calls [{card}]")
 
-    def measure(name, kernel, rows, variant, fn):
+    def measure(name, kernel, rows, variant, fn, eager=None):
+        """One line. ``eager``: the name of the eager chain whose launches
+        ``fn`` replays from a CUDA graph: the capture's launches are
+        counted apart, and the replay must equal that chain's output."""
+        rec = {}
+        if eager is not None:
+            before = _launch_counts()
+            graph = i8.Captured(fn)
+            after = _launch_counts()
+            rec = {"captured_launches": after[kernel] - before[kernel],
+                   "graph_edges": graph.edges,
+                   "programmatic_edges": graph.programmatic_edges}
+            fn = graph
         before = _launch_counts()
         ms = _time_ms(fn, args.iters, device)
         calls = args.iters + 1
@@ -196,12 +231,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
             device_ms = queued_ms(fn, ms, device)
             calls += QUEUED_CALLS
         after = _launch_counts()
-        out = fn()
-        rec = {"name": name, "kernel": kernel, "rows": rows, "weights": variant,
-               "ms": ms, "calls": calls,
-               "launches": after[kernel] - before[kernel] if kernel else 0,
-               "finite": bool(torch.isfinite(out.float()).all()),
-               "device": device.type}
+        out = fn().clone()
+        rec.update({"name": name, "kernel": kernel, "rows": rows,
+                    "weights": variant, "ms": ms, "calls": calls,
+                    "launches": after[kernel] - before[kernel] if kernel else 0,
+                    "finite": bool(torch.isfinite(out.float()).all()),
+                    "device": device.type})
+        if eager is not None:
+            rec["equal_to_eager"] = torch.equal(out, outputs[(eager, rows, variant)])
         if cuda:
             rec["device_ms"] = device_ms
             rec["int8_effective_gb_s"] = mb / device_ms
@@ -209,9 +246,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
         outputs[(name, rows, variant)] = out
         rate = (f"queued {device_ms:8.4f} ms = {mb / device_ms:6.0f} GB/s "
                 f"int8-effective" if cuda else "host clock, no device rate")
-        print(f"[int8_probe] rows {rows} {variant:8s} {name:12s}: {ms:8.4f} ms  "
-              f"{rate}")
+        graph = (f"; graph of {rec['captured_launches']} captured launches, "
+                 f"{rec['programmatic_edges']} of {rec['graph_edges']} edges "
+                 f"programmatic, equal to the eager chain: {rec['equal_to_eager']}"
+                 if eager is not None else "")
+        print(f"[int8_probe] rows {rows} {variant:8s} {name:24s}: {ms:8.4f} ms  "
+              f"{rate}{graph}")
 
+    if not cuda:
+        print("[int8_probe] the CUDA-graph lines are skipped: a graph needs the "
+              "card (the CPU runs the plain versions)")
     for rows in ROWS:
         x = wts["x"][rows]
         for variant, w in weights.items():
@@ -219,11 +263,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
             cq, cs, cbf = w["chain"]
             measure("bf16 matmul", None, rows, variant,
                     lambda: matmul_chain(x, cbf, n_layers))
-            measure("int8_matvec", "int8_matvec", rows, variant,
-                    lambda: matvec_chain(x, mq, ms_, n_layers))
+            measure("weight_int8pack_mm", None, rows, variant,
+                    lambda: library_chain(x, *library[variant], n_layers))
+            chains = {"int8_matvec": ("int8_matvec", lambda: matvec_chain(
+                x, mq, ms_, n_layers))}
             for mode in i8.MODES:
-                measure(f"chain {mode}", f"int8_chain_{mode}", rows, variant,
-                        lambda: i8.int8_matvec_chain(x, cq, cs, mode, n_layers))
+                chains[f"chain {mode}"] = (f"int8_chain_{mode}", functools.partial(
+                    i8.int8_matvec_chain, x, cq, cs, mode, n_layers))
+            for name, (kernel, fn) in chains.items():
+                measure(name, kernel, rows, variant, fn)
+            for name, (kernel, fn) in chains.items():
+                if cuda:
+                    measure(f"{name} graph", kernel, rows, variant, fn, eager=name)
         measure("megakernel", "int8_megakernel", rows, "distinct",
                 lambda: i8.int8_megakernel(x, wq, s))
     if cuda:
@@ -231,7 +282,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             best = {r["name"]: r[key] for r in lines
                     if r["rows"] == ROWS[-1] and r["weights"] == "distinct"}
             print(f"[int8_probe] distinct weights, rows {ROWS[-1]}, {label}: "
-                  "bf16 matmul chain / kernel time: " + ", ".join(
+                  "bf16 matmul chain / time: " + ", ".join(
                       f"{k} {best['bf16 matmul'] / v:.2f}x"
                       for k, v in best.items() if k != "bf16 matmul")
                   + f" [{card}]")

@@ -6,8 +6,9 @@ with one fp32 scale per output column (port of the TPU probe kernels under
 Kernels: ``csrc/int8_matmul.cu``, hand-written for Hopper (sm_90a), one entry
 point per TPU kernel (and per mode of the second):
 
-- :func:`int8_matvec` <- ``int8_matmul``: the weight dequantised to fp32 in
-  registers, an fp32 dot, times scale;
+- :func:`int8_matvec` <- ``int8_matmul``: y = (x . w) * scale with an fp32
+  sum. Every product of a bf16 x and an int8 w is exact in fp32, so it runs
+  the same tensor-core body as the chain's bf16 mode;
 - :func:`int8_matvec_chain` <- the probe's chain of 16 ``pallas_call``s, one
   launch per layer, ``h <- y[:, :K]``. Mode ``bf16``: the weight converted to
   bf16 (exact), bf16 x bf16 products on the tensor cores with fp32
@@ -17,18 +18,24 @@ point per TPU kernel (and per mode of the second):
   this mode equals its plain version bit for bit;
 - :func:`int8_megakernel` <- ``mega``: all layers in ONE cooperative launch
   with a grid-wide barrier between layers; h stays fp32 and is rounded to
-  bf16 for each product.
+  bf16 for each product (at most 8 rows, as the TPU probe).
 
-All are bound by the weight's bytes (K*N a layer against 2*B*K*N operations
-with B <= 8); the source says what the design does about it. None is wired
-into ``inference.decode``: the JAX decode has no int8 option either; their
-entry point is ``python3 -m ssr_speech_tpu_torch.int8_probe``.
+The first two take any number of rows; the weight arrives by TMA and the
+launches use programmatic dependent launch (``PDL``), so that in a chain a
+layer streams its weights while the one before drains. :class:`Captured` puts
+a chain into one CUDA graph, as the TPU probe dispatches its chain as one
+``jax.jit`` executable. All are bound by the weight's bytes up to about 64
+rows (K*N a layer against 2*B*K*N operations); the source says what the
+design does about it. None is wired into ``inference.decode``: the JAX
+decode has no int8 option either; their entry point is ``python3 -m
+ssr_speech_tpu_torch.int8_probe``.
 
-Beside each wrapper stands its plain PyTorch version (``reference_*``). On a
-CPU tensor a wrapper takes the plain version (the CPU tests); on a CUDA tensor
-it launches the kernel or raises. The probes' random weights multiply |h| by
-about 25 a layer in the bf16 modes, so outputs are compared by max error over
-max magnitude, never absolutely.
+Beside each wrapper stands its plain PyTorch version (``reference_*``), and
+beside the streaming kernel its own walk (:func:`tiled_int8_layer`). On a
+CPU tensor a wrapper takes the plain version (the CPU tests); on a CUDA
+tensor it launches the kernel or raises. The probes' random weights multiply
+|h| by about 25 a layer in the bf16 modes, so outputs are compared by max
+error over max magnitude, never absolutely.
 """
 
 from __future__ import annotations
@@ -41,14 +48,19 @@ import torch
 from .cuda_build import check_layout, load
 
 _KERNEL = "int8_matmul"
-MAX_ROWS = 8  # activation rows a launch carries
-TILE_N = 64  # output columns per block: N must be a multiple
+MEGA_ROWS = 8  # activation rows the megakernel carries (its h is [2, 8, K])
+TILE_N = 64  # N must be a multiple (the megakernel's columns a block)
+STRIP_N = 128  # output columns of a cluster of the streaming kernel
 K_MULTIPLE = 32  # K must be a multiple (the int8 mode's k-step)
 ACT_SCALE = 32.0  # the int8 mode's activation quantisation step is 1/32
 MODES = ("bf16", "int8")
+# K7 and K8 launch with programmatic dependent launch, so that a layer's
+# blocks stream their weights while the previous layer drains; the tests
+# switch it off to hold a chain against the same chain without it
+PDL = True
 
 # kernel launches since the last reset (plain integers; read by chip_smoke.py)
-matvec_launches = 0  # int8_matvec (fp32 dequant)
+matvec_launches = 0  # int8_matvec
 chain_bf16_launches = 0  # int8_matvec_chain, mode "bf16", one per layer
 chain_int8_launches = 0  # int8_matvec_chain, mode "int8", one per layer
 mega_launches = 0  # int8_megakernel, one per call
@@ -96,6 +108,68 @@ def reference_int8_layer(x, w_q, scale, mode: str):
     return (y * scale).to(torch.bfloat16)
 
 
+K_STEP = {"bf16": 16, "int8": 32}  # k-rows of one of the kernel's products
+CLUSTER = 2  # blocks that split K for one strip of columns
+STAGE_ROWS = 256  # k-rows of one TMA stage; stage t goes to block t % CLUSTER
+
+
+def kernel_k_parts(rows: int) -> int:
+    """Warps along K in a block of the streaming kernel: 8 (16 warps) for up
+    to 8 rows, 4 (8 warps) above, where the accumulators need the
+    registers."""
+    return 8 if rows <= 8 else 4
+
+
+def tiled_int8_layer(x, w_q, scale, mode: str, k_parts: Optional[int] = None,
+                     blocks: int = CLUSTER, stage_rows: int = STAGE_ROWS,
+                     dtype=torch.bfloat16):
+    """One layer as the streaming kernel walks it. K is cut into stages of
+    ``stage_rows`` rows, stage t going to block t % ``blocks`` of a cluster;
+    in a block, k-step i of a stage (16 rows in mode bf16, 32 in int8) goes
+    to part i % ``k_parts`` (by default the kernel's for these rows). Each part sums its k-steps in order in fp32
+    (int32 in mode int8); a block adds its parts as the kernel's tree does
+    (part i += part i + h, for h = k_parts / 2 down to 1), the cluster adds
+    its blocks in rank order, then the scale; the result in ``dtype``
+    (float32: before the last rounding). Inside one product the kernel sums
+    in the tensor cores' order, which this does not repeat: mode int8 agrees
+    bit for bit, mode bf16 to fp32 rounding."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
+    if k_parts is None:
+        k_parts = kernel_k_parts(x.shape[0])
+    if k_parts < 1 or k_parts & (k_parts - 1):
+        raise ValueError(f"k_parts {k_parts}: a power of two")
+    k, step = x.shape[1], K_STEP[mode]
+    if k % step or stage_rows % step:
+        raise ValueError(f"K = {k} and stage_rows = {stage_rows}: multiples of "
+                         f"{step} in mode {mode}")
+    if mode == "bf16":
+        xs = x.to(torch.bfloat16).double()
+    else:
+        xs = torch.clamp(torch.round(x.float() * ACT_SCALE), -127, 127).double()
+    ws, acc_type = w_q.double(), torch.float32 if mode == "bf16" else torch.int32
+    per_stage = stage_rows // step
+    zero = torch.zeros((x.shape[0], w_q.shape[1]), dtype=acc_type, device=x.device)
+    parts = [[zero] * k_parts for _ in range(blocks)]
+    for s0 in range(0, k, step):  # products exact in fp64 (integers below 2^53 in int8)
+        i = s0 // step
+        rank, part = (i // per_stage) % blocks, (i % per_stage) % k_parts
+        prod = (xs[:, s0:s0 + step] @ ws[s0:s0 + step]).to(acc_type)
+        parts[rank][part] = parts[rank][part] + prod
+    total = None
+    for rank in range(blocks):
+        p, h = list(parts[rank]), k_parts // 2
+        while h >= 1:
+            for j in range(h):
+                p[j] = p[j] + p[j + h]
+            h //= 2
+        total = p[0] if total is None else total + p[0]
+    y = total.float()
+    if mode == "int8":
+        y = y * (1.0 / ACT_SCALE)
+    return (y * scale.float().reshape(1, -1)).to(dtype)
+
+
 def _layer_weights(w_q, scale, layer: int):
     """Layer ``layer`` of stacked ([L, K, N], [L, 1, N] or [L, N]) weights, or
     the one shared matrix ([K, N], [N] or [1, N])."""
@@ -127,7 +201,7 @@ def reference_int8_mega(x, w_q, scale):
 
 
 def load_kernel():
-    """Build (first call only) and bind the four entry points."""
+    """Build (first call only) and bind the entry points."""
     built = load(_KERNEL)
     lib = built.lib
     if lib.ssr_int8_matvec_f32.argtypes is None:
@@ -139,6 +213,14 @@ def load_kernel():
         lib.ssr_int8_mega_bf16.argtypes = ([ptr] * 5 + [i32] * 5
                                            + [ctypes.POINTER(i32), ptr])
         lib.ssr_int8_mega_bf16.restype = i32
+        lib.ssr_int8_set_pdl.argtypes = [i32]
+        lib.ssr_int8_set_pdl.restype = i32
+        if hasattr(lib, "ssr_int8_stream_occupancy"):  # not in the first form
+            lib.ssr_int8_stream_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
+            lib.ssr_int8_stream_occupancy.restype = i32
+            lib.ssr_graph_programmatic_edges.argtypes = [ptr, ctypes.POINTER(i32),
+                                                         ctypes.POINTER(i32)]
+            lib.ssr_graph_programmatic_edges.restype = i32
     return built
 
 
@@ -158,8 +240,8 @@ def _check_layer_args(name: str, x, w_q, scale) -> None:
             or scale.dtype != torch.float32:
         raise TypeError(f"{name}: bfloat16 x, int8 w_q, float32 scale; got "
                         f"{x.dtype}, {w_q.dtype}, {scale.dtype}")
-    if not 1 <= b <= MAX_ROWS:
-        raise ValueError(f"{name}: 1 to {MAX_ROWS} rows, got {b}")
+    if b < 1:
+        raise ValueError(f"{name}: at least 1 row, got {b}")
     if n % TILE_N or k % K_MULTIPLE:
         raise ValueError(f"{name}: N a multiple of {TILE_N} and K of "
                          f"{K_MULTIPLE}, got K = {k}, N = {n}")
@@ -174,12 +256,49 @@ def _check_layer_args(name: str, x, w_q, scale) -> None:
         raise ValueError(f"{name}: tensors on different devices")
 
 
+_pdl_state = {}  # library path -> the PDL setting it was last given
+
+
+def _sync_pdl(built) -> None:
+    """Hand ``PDL`` to the library when it changed (a launch with it on that
+    the card refuses fails; nothing falls back to a launch without it)."""
+    if _pdl_state.get(built.path, True) != PDL:
+        err = built.lib.ssr_int8_set_pdl(int(PDL))
+        if err != 0:
+            raise RuntimeError(f"int8 kernels: PDL {PDL} refused: CUDA error {err}")
+        _pdl_state[built.path] = PDL
+
+
+def _check_mega_args(name: str, x, w_q, scale) -> None:
+    """The megakernel's refusals: shapes, types, at most ``MEGA_ROWS`` rows,
+    N >= K and the tiles' multiples, then the layout a launch needs."""
+    if x.dim() != 2 or w_q.dim() != 3 or scale.dim() != 3:
+        raise ValueError(f"{name}: x [B, K], w_q [L, K, N], scale [L, 1, N]; "
+                         f"got {tuple(x.shape)}, {tuple(w_q.shape)}, "
+                         f"{tuple(scale.shape)}")
+    (b, k), (n_layers, kk, n) = x.shape, w_q.shape
+    if k != kk or tuple(scale.shape) != (n_layers, 1, n) or n < k:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w_q {tuple(w_q.shape)} "
+                         f"and scale {tuple(scale.shape)} do not fit (N >= K)")
+    if x.dtype != torch.bfloat16 or w_q.dtype != torch.int8 \
+            or scale.dtype != torch.float32:
+        raise TypeError(f"{name}: bfloat16 x, int8 w_q, float32 scale; got "
+                        f"{x.dtype}, {w_q.dtype}, {scale.dtype}")
+    if not 1 <= b <= MEGA_ROWS or n % TILE_N or k % K_MULTIPLE:
+        raise ValueError(f"{name}: 1 to {MEGA_ROWS} rows, N a multiple of "
+                         f"{TILE_N}, K of {K_MULTIPLE}; got B = {b}, K = {k}, "
+                         f"N = {n}")
+    check_layout(name, x=x, w_q=w_q, scale=scale)
+
+
 def _launch_layer(entry: str, name: str, x, w_q, scale) -> torch.Tensor:
     _check_layer_args(name, x, w_q, scale)
     (b, k), n = x.shape, w_q.shape[1]
     out = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
+    built = load_kernel()
+    _sync_pdl(built)
     with torch.cuda.device(x.device):
-        err = getattr(load_kernel().lib, entry)(
+        err = getattr(built.lib, entry)(
             x.data_ptr(), x.stride(0), w_q.data_ptr(), scale.data_ptr(),
             out.data_ptr(), b, k, n, torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -192,8 +311,8 @@ def _not_cpu_or_cuda(name: str, x) -> ValueError:
 
 
 def int8_matvec(x, w_q, scale) -> torch.Tensor:
-    """x bf16 [B, K] (B <= 8), w_q int8 [K, N], scale fp32 [N] -> bf16 [B, N]:
-    y[b, n] = (sum_k x[b, k] * float(w_q[k, n])) * scale[n]."""
+    """x bf16 [B, K] (any B >= 1), w_q int8 [K, N], scale fp32 [N] -> bf16
+    [B, N]: y[b, n] = (sum_k x[b, k] * float(w_q[k, n])) * scale[n]."""
     global matvec_launches
     if x.device.type == "cpu":
         return reference_int8_matvec(x, w_q, scale)
@@ -251,24 +370,9 @@ def int8_megakernel(x, w_q, scale, grid_blocks: Optional[int] = None):
     if x.device.type != "cuda":
         raise _not_cpu_or_cuda("int8_megakernel", x)
     name = "int8_megakernel"
-    if x.dim() != 2 or w_q.dim() != 3 or scale.dim() != 3:
-        raise ValueError(f"{name}: x [B, K], w_q [L, K, N], scale [L, 1, N]; "
-                         f"got {tuple(x.shape)}, {tuple(w_q.shape)}, "
-                         f"{tuple(scale.shape)}")
-    (b, k), (n_layers, kk, n) = x.shape, w_q.shape
-    if k != kk or tuple(scale.shape) != (n_layers, 1, n) or n < k:
-        raise ValueError(f"{name}: x {tuple(x.shape)}, w_q {tuple(w_q.shape)} "
-                         f"and scale {tuple(scale.shape)} do not fit (N >= K)")
-    if x.dtype != torch.bfloat16 or w_q.dtype != torch.int8 \
-            or scale.dtype != torch.float32:
-        raise TypeError(f"{name}: bfloat16 x, int8 w_q, float32 scale; got "
-                        f"{x.dtype}, {w_q.dtype}, {scale.dtype}")
-    if not 1 <= b <= MAX_ROWS or n % TILE_N or k % K_MULTIPLE:
-        raise ValueError(f"{name}: 1 to {MAX_ROWS} rows, N a multiple of "
-                         f"{TILE_N}, K of {K_MULTIPLE}; got B = {b}, K = {k}, "
-                         f"N = {n}")
-    check_layout(name, x=x, w_q=w_q, scale=scale)
-    h = torch.empty((2, MAX_ROWS, k), dtype=torch.float32, device=x.device)
+    _check_mega_args(name, x, w_q, scale)
+    (b, k), (n_layers, _, n) = x.shape, w_q.shape
+    h = torch.empty((2, MEGA_ROWS, k), dtype=torch.float32, device=x.device)
     out = torch.empty((b, k), dtype=torch.bfloat16, device=x.device)
     grid = ctypes.c_int(0)
     with torch.cuda.device(x.device):
@@ -282,3 +386,44 @@ def int8_megakernel(x, w_q, scale, grid_blocks: Optional[int] = None):
                            f"resident at once)")
     mega_launches += 1
     return out
+
+
+def occupancy(mode: str, rows: int) -> int:
+    """Blocks of the streaming kernel one SM holds at once for ``rows`` rows
+    in ``mode`` (``int8_matvec`` is mode bf16); needs the card."""
+    blocks = ctypes.c_int(0)
+    err = load_kernel().lib.ssr_int8_stream_occupancy(int(mode == "int8"), rows,
+                                                      ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return blocks.value
+
+
+class Captured:
+    """``fn`` (a chain: ``lambda: int8_matvec_chain(x, w_q, scale, mode)``)
+    warmed up and captured once into a CUDA graph, raising where the capture
+    fails; calling it replays the graph and returns the output tensor of the
+    capture (the same storage each time). ``edges`` and
+    ``programmatic_edges`` count the graph's dependencies, and those that
+    captured launches with programmatic dependent launch became."""
+
+    def __init__(self, fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up (and build) off the capture
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(self.graph):
+            self.out = fn()
+        edges, prog = ctypes.c_int(0), ctypes.c_int(0)
+        err = load_kernel().lib.ssr_graph_programmatic_edges(
+            self.graph.raw_cuda_graph(), ctypes.byref(edges), ctypes.byref(prog))
+        if err != 0:
+            raise RuntimeError(f"reading the graph's edges failed: CUDA error {err}")
+        self.edges, self.programmatic_edges = edges.value, prog.value
+        self.graph.instantiate()
+
+    def __call__(self):
+        self.graph.replay()
+        return self.out

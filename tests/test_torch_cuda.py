@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port against their plain PyTorch versions,
 on the card: the flash-attention forward and backward, the fused CE head's
-forward, dhidden and dw2/db2, and the int8 weight-streaming matvecs (the
-fp32-dequant kernel, the chain in both modes, the megakernel). Skipped where
+forward, dhidden and dw2/db2, and the int8 weight-streaming matvecs (K7
+``int8_matvec`` and the chain K8 in both modes, with programmatic dependent
+launch, without it and as a CUDA graph; the megakernel). Skipped where
 torch.cuda.is_available() is false.
 
 Run on a GPU machine (which needs neither JAX nor tests/conftest.py):
@@ -388,7 +389,8 @@ SMALL = dict(d_model=256, nhead=2, num_layers=2, n_codebooks=4,
 # ------------------------------------------------ int8 weight streaming
 
 I8_SHAPES = [(1, 32, 64), (2, 128, 512), (3, 96, 192), (8, 128, 512),
-             (5, 1024, 2048), (2, 2048, 8192), (8, 2048, 8192)]
+             (5, 1024, 2048), (2, 2048, 8192), (8, 2048, 8192),
+             (9, 128, 512), (17, 256, 1024), (64, 2048, 8192), (200, 256, 512)]
 CHAIN_REL = 5e-2  # 16 layers: a bf16 rounding flip in h feeds every later layer
 
 
@@ -435,6 +437,49 @@ def test_int8_layer_matches_plain_in_both_modes(device, b, k, n):
         else:
             assert _rel(got, want) <= REL
     assert (i8.chain_bf16_launches, i8.chain_int8_launches) == (2, 2)
+
+
+@pytest.mark.parametrize("b,k,n", [(3, 288, 320), (17, 2048, 1024)])
+def test_int8_layer_walks_as_its_tiled_plain_version(device, b, k, n):
+    """The kernel's own walk in plain PyTorch (``tiled_int8_layer``): the
+    int8 mode bit for bit; the bf16 mode within one bf16 rounding."""
+    x, wq, s = _i8_inputs(b, k, n, 5 * b, device)
+    s = s.reshape(-1)
+    for mode in i8.MODES:
+        got = i8.int8_matvec_layer(x, wq, s, mode)
+        want = i8.tiled_int8_layer(x, wq, s, mode)
+        torch.cuda.synchronize()
+        if mode == "int8":
+            assert torch.equal(got, want)
+        else:
+            assert _rel(got, want) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("b", [2, 8, 64])
+def test_int8_chain_with_and_without_pdl_and_as_a_graph(device, b):
+    """Programmatic dependent launch changes when a layer starts, never what
+    it computes: the chain with it, without it, and captured in a CUDA graph
+    and replayed agree bit for bit in both modes; the graph holds the
+    programmatic edges of the 15 launches that follow another."""
+    layers = 16
+    x, wq, s = _i8_inputs(b, 2048, 8192, b + 1, device, layers)
+    assert i8.occupancy("bf16", b) >= (2 if b <= 32 else 1)
+    for mode in i8.MODES:
+        run = lambda: i8.int8_matvec_chain(x, wq, s, mode, layers)  # noqa: E731
+        with_pdl = run()
+        i8.PDL = False
+        try:
+            without = run()
+        finally:
+            i8.PDL = True
+        graph = i8.Captured(run)
+        replay, again = graph().clone(), graph().clone()
+        torch.cuda.synchronize()
+        assert torch.equal(with_pdl, without)
+        assert torch.equal(with_pdl, replay) and torch.equal(replay, again)
+        assert graph.programmatic_edges >= layers - 1
+        if mode == "int8":
+            assert torch.equal(with_pdl, i8.reference_int8_chain(x, wq, s, mode, layers))
 
 
 def test_int8_mode_rounds_half_to_even_on_the_card(device):
@@ -520,7 +565,8 @@ def test_int8_kernels_refuse_what_they_cannot_take(device):
     with pytest.raises(ValueError):
         i8.int8_matvec(x, wq.t().contiguous().t(), s1)  # not contiguous
     with pytest.raises(ValueError):
-        i8.int8_matvec(x.repeat(5, 1), wq, s1)  # 10 rows
+        i8.int8_megakernel(x.repeat(5, 1), wq[None], s[None])  # 10 rows
+    assert i8.int8_matvec(x.repeat(5, 1), wq, s1).shape == (10, 512)
     with pytest.raises(ValueError):
         i8.int8_matvec(x, wq.cpu(), s1)
     with pytest.raises(ValueError):

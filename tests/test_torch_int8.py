@@ -114,7 +114,7 @@ def test_quantize_weight_bit_for_bit(seed, scale):
     assert s_t[3] == np.float32(1e-12) and q_t[5, 7] == 127
 
 
-@pytest.mark.parametrize("rows", [2, 8])
+@pytest.mark.parametrize("rows", [2, 8, 1, 3, 9, 17, 64])
 def test_matvec_plain_version_matches_the_pallas_kernel(rows):
     rng = np.random.default_rng(rows)
     w = rng.normal(size=(D, F), scale=0.02).astype(np.float32)
@@ -151,6 +151,78 @@ def test_chain_plain_version_matches_the_pallas_chain(probe2, mode, tol):
     assert got.shape == (2, D) and got.dtype == torch.bfloat16
     assert np.isfinite(want).all() and np.isfinite(_np(got)).all()
     assert _rel(_np(got), want) <= tol
+
+
+@pytest.fixture(scope="module")
+def probe2_kern():
+    """``kern`` of each mode, the Pallas kernel body of probe 2 (one
+    layer), taken from the ``pallas_call`` of its chain."""
+    kerns = {}
+    ns = _probe_functions("int8_kernel_probe2.py", ["make"], D=D, F=F)
+    wq, s, x = _probe_inputs(2, seed=0)
+    for mode in ti8.MODES:
+        def record(kernel, mode=mode, **kwargs):
+            kerns[mode] = kernel
+            return functools.partial(pl.pallas_call, interpret=True)(kernel, **kwargs)
+
+        ns["pl"].pallas_call = record
+        ns["make"](BN, mode)(jnp.asarray(x, jnp.bfloat16), jnp.asarray(wq),
+                             jnp.asarray(s))
+    return kerns
+
+
+def _one_pallas_layer(kern, x, wq, s, out_dtype):
+    """One layer through ``kern`` in interpret mode, for any rows."""
+    rows = x.shape[0]
+    return np.asarray(pl.pallas_call(
+        kern, out_shape=jax.ShapeDtypeStruct((rows, F), out_dtype),
+        grid=(F // BN,),
+        in_specs=[pl.BlockSpec((rows, D), lambda i: (0, 0)),
+                  pl.BlockSpec((D, BN), lambda i: (0, i)),
+                  pl.BlockSpec((1, BN), lambda i: (0, i))],
+        out_specs=pl.BlockSpec((rows, BN), lambda i: (0, i)),
+        interpret=True)(jnp.asarray(x, jnp.bfloat16), jnp.asarray(wq),
+                        jnp.asarray(s)), np.float32)
+
+
+@pytest.mark.parametrize("k_parts,stage_rows", [(None, 256), (2, 32)])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_tiled_layer_is_the_pallas_layer(probe2_kern, mode, k_parts, stage_rows):
+    """The streaming kernel's walk (stages dealt to the two blocks of a
+    cluster, k-steps to ``k_parts`` warps, fp32 or int32 partials added in
+    the kernel's order) against the probe's ``kern``: the int8 mode bit for
+    bit, the bf16 mode in fp32 within 1e-6 of the largest magnitude (the
+    order of the fp32 sum). The kernel's own walk for 5 rows (8 k-parts),
+    and one whose short stages give both blocks and every part a share of
+    D = 128."""
+    wq, s, x = _probe_inputs(5, seed=11)
+    x[0, :4] = [1 / 64, 3 / 64, -5 / 64, 300.0]  # halves and a clip
+    args = (_bf16(x), torch.from_numpy(wq), torch.from_numpy(s[0]))
+    walk = dict(k_parts=k_parts, stage_rows=stage_rows)
+    got32 = ti8.tiled_int8_layer(*args, mode, **walk, dtype=torch.float32)
+    got = ti8.tiled_int8_layer(*args, mode, **walk)
+    want32 = _one_pallas_layer(probe2_kern[mode], x, wq, s, jnp.float32)
+    want = _one_pallas_layer(probe2_kern[mode], x, wq, s, jnp.bfloat16)
+    plain = ti8.reference_int8_layer(*args, mode)
+    assert got.shape == (5, F) and got.dtype == torch.bfloat16
+    if mode == "int8":
+        np.testing.assert_array_equal(got32.numpy(), want32)
+        np.testing.assert_array_equal(_np(got), want)
+        assert torch.equal(got, plain)
+    else:
+        assert np.abs(got32.numpy() - want32).max() <= 1e-6 * np.abs(want32).max()
+        assert _rel(_np(got), want) <= ULP and _rel(_np(got), _np(plain)) <= ULP
+
+
+def test_tiled_layer_refuses_what_the_kernel_cannot_walk():
+    wq, s, x = _probe_inputs(2)
+    args = (_bf16(x), torch.from_numpy(wq), torch.from_numpy(s[0]))
+    with pytest.raises(ValueError, match="power of two"):
+        ti8.tiled_int8_layer(*args, "bf16", k_parts=3)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        ti8.tiled_int8_layer(args[0][:, :112], args[1][:112], args[2], "int8")
+    with pytest.raises(ValueError, match="mode"):
+        ti8.tiled_int8_layer(*args, "fp8")
 
 
 def test_int8_mode_quantises_half_to_even_and_clips():
@@ -236,17 +308,35 @@ def test_wrappers_refuse_bad_arguments():
                      ((xt.float(), wt, st), TypeError),         # x dtype
                      ((xt, wt.int(), st), TypeError),           # w dtype
                      ((xt, wt, st.double()), TypeError),        # scale dtype
-                     ((xt.repeat(5, 1), wt, st), ValueError),   # 10 rows
                      ((xt, wt[:, :100], st[:100]), ValueError),  # N % 64
                      ((xt[:, ::2], wt[:64], st), ValueError),   # x pitch
                      ((xt, wt, st), ValueError)):               # on the CPU
         with pytest.raises(exc):
             ti8._check_layer_args("int8_matvec", *bad)
+    # more than 8 rows: the layer kernels take them, the megakernel not
+    with pytest.raises(ValueError, match="rows"):
+        ti8._check_mega_args("int8_megakernel", xt.repeat(5, 1), wt[None],
+                             st[None, None])
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ti8.int8_matvec(xt.to(meta), wt.to(meta), st.to(meta))
     with pytest.raises(ValueError, match="unsupported device"):
         ti8.int8_megakernel(xt.to(meta), wt.to(meta)[None], st.to(meta)[None, None])
+
+
+def test_layer_wrappers_take_any_number_of_rows():
+    """10 rows (more than the megakernel's 8), on the CPU: the plain
+    versions; the checks a CUDA launch makes pass up to the device."""
+    wq, s, x = _probe_inputs(2)
+    xt = _bf16(x).repeat(5, 1)
+    wt, st = torch.from_numpy(wq), torch.from_numpy(s[0])
+    got = ti8.int8_matvec(xt, wt, st)
+    assert got.shape == (10, F)
+    assert torch.equal(got, ti8.reference_int8_matvec(xt, wt, st))
+    assert torch.equal(ti8.int8_matvec_layer(xt, wt, st, "int8"),
+                       ti8.reference_int8_layer(xt, wt, st, "int8"))
+    with pytest.raises(ValueError, match="is on cpu"):  # the last check
+        ti8._check_layer_args("int8_matvec", xt, wt, st)
 
 
 def test_launch_counts_stay_zero_on_the_cpu():
@@ -278,10 +368,15 @@ def test_probe_runs_on_the_cpu_at_a_small_size(tmp_path, capsys):
             "--layers", str(L), "--iters", "1"]
     res = int8_probe.main(argv)
     names = {(r["name"], r["rows"], r["weights"]) for r in res["lines"]}
-    assert len(res["lines"]) == len(names) == 18
+    # 2 rows x 2 weight variants x (bf16 matmul, weight_int8pack_mm,
+    # int8_matvec, chain bf16, chain int8) + 2 megakernel lines; no graph line
+    assert len(res["lines"]) == len(names) == 22
     assert all(r["finite"] and r["launches"] == 0 and r["device"] == "cpu"
                and "int8_effective_gb_s" not in r for r in res["lines"])
-    assert "GB/s" not in capsys.readouterr().out  # no device rate from a CPU
+    out = capsys.readouterr().out
+    assert "GB/s" not in out  # no device rate from a CPU
+    assert "CUDA-graph lines are skipped" in out
+    assert not any("graph" in name for name, _, _ in names)
     o = res["outputs"]
     assert torch.equal(o[("chain bf16", 8, "distinct")],
                        o[("megakernel", 8, "distinct")])
