@@ -27,12 +27,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    probe's full width (2, 8 and 64 rows against [2048, 8192] int8: K7 and
    K8, one layer and the 16-layer chain in both modes, each chain with and
    without programmatic dependent launch and as a CUDA graph, all three bit
-   for bit; the 16-layer megakernel at 2 and 8 rows; the int8 mode bit for
-   bit, every kernel twice bit for bit). Beside the attention kernels one
+   for bit; the 16-layer megakernel at 2 and 8 rows, with every column of
+   its last layer's fp32 sums (``return_acc``) against the plain last layer,
+   and its weight stream alone timed beside it; the int8 mode bit for bit,
+   every kernel twice bit for bit). Beside the attention kernels one
    PyTorch call that computes the same function
    (``scaled_dot_product_attention`` and its autograd backward), and beside
-   K7 and K8's bf16 mode ``torch._weight_int8pack_mm``, are timed as
-   yardsticks; the port never calls them. Then hold a small LM's
+   K7, K8's bf16 mode and the megakernel ``torch._weight_int8pack_mm`` (16
+   chained calls for a chain), are timed as yardsticks; the port never
+   calls them. Then hold a small LM's
    prefill and the codec, and a 4-layer training step (loss and gradients),
    against the port's fp32 CPU path, and train that LM a few steps: the loss
    must fall.
@@ -527,7 +530,7 @@ def ptxas_summary(log: str) -> list:
             # the mangled name: ..._cu_<8 hex digits><length><name>[ILi<n>E]
             k = re.search(r"_cu_[0-9a-f]{8}(\d{1,2})(\w+)", name)
             short = k.group(2)[:int(k.group(1))] if k else name[:60]
-            inst = re.search(r"_kernelILi(\d+)E(?:Li(\d+)E)?", name)
+            inst = re.search(r"_kernelIL[ib](\d+)E(?:L[ib](\d+)E)?", name)
             if inst:
                 short += f"<{','.join(x for x in inst.groups() if x)}>"
             notes = ", ".join(sorted(serialised.get(name, ())))
@@ -556,7 +559,8 @@ def build_kernels() -> None:
 
     print("[build] int8 stream_kernel occupancy, blocks an SM: " + ", ".join(
         f"{mode} rows {rows} {i8.occupancy(mode, rows)}"
-        for mode in i8.MODES for rows in INT8_ROWS))
+        for mode in i8.MODES for rows in INT8_ROWS)
+        + f"; megakernel: {i8.mega_resident()} blocks resident at once")
 
 
 def train_segments(torch, b: int, s: int, sx: int, gen, device):
@@ -1104,8 +1108,13 @@ def check_int8(torch, device) -> list:
     replay as called and queued. The library call is
     ``torch._weight_int8pack_mm`` on the transposed weight, whose scales are
     bf16 (K7's are fp32): a yardstick of time, not of bits; for the chain,
-    16 chained calls. The report's rows: 2 for the launches-per-layer kernels,
-    8 for the megakernel (the TPU probes' own); ``by_rows`` has the rest."""
+    16 chained calls, the megakernel's yardstick too. The megakernel's
+    ``return_acc`` sums of the last layer are held on every column against
+    the plain last layer from the kernel's own h before it (``REL`` of the
+    column's largest), and its weight stream alone (``int8_mega_stream``)
+    is timed queued for the per-layer line. The report's rows: 2 for the
+    launches-per-layer kernels, 8 for the megakernel (the TPU probes' own);
+    ``by_rows`` has the rest."""
     import numpy as np
 
     from ssr_speech_tpu_torch.int8_probe import (QUEUED_CALLS, library_chain,
@@ -1225,19 +1234,43 @@ def check_int8(torch, device) -> list:
         one = hold(f"int8_megakernel 1 layer rows {rows}",
                    twice(lambda: i8.int8_megakernel(x, wq[:1], s[:1]), "megakernel"),
                    i8.reference_int8_mega(x, wq[:1], s[:1]), REL)
-        full = hold(f"int8_megakernel rows {rows}",
-                    twice(lambda: i8.int8_megakernel(x, wq, s), "megakernel"),
+        eager = twice(lambda: i8.int8_megakernel(x, wq, s), "megakernel")
+        full = hold(f"int8_megakernel rows {rows}", eager,
                     i8.reference_int8_mega(x, wq, s), CHAIN_REL)
-        if i8.mega_launches != 4:
+        # every column of the last layer, against the plain last layer taken
+        # from the kernel's own h before it (a skipped column fails here)
+        out_acc, acc = i8.int8_megakernel(x, wq, s, return_acc=True)
+        h_before = i8.int8_megakernel(x, wq[:-1], s[:-1])
+        want = (h_before.float() @ wq[-1].float()) * s[-1].float()
+        col_rel = ((acc - want).abs().amax(dim=0)
+                   / want.abs().amax(dim=0).clamp_min(1e-30)).max().item()
+        if not torch.equal(out_acc, eager) or col_rel > REL:
+            raise RuntimeError(f"int8_megakernel rows {rows}: return_acc differs "
+                               f"from the plain last layer (max over columns of "
+                               f"err / column max {col_rel:.3e}, tol {REL})")
+        if i8.mega_launches != 6:
             raise RuntimeError("int8_megakernel did not launch once a call")
         ms = cuda_time_ms(torch, lambda: i8.int8_megakernel(x, wq, s))
         dev = queued_ms(lambda: i8.int8_megakernel(x, wq, s), ms, device)
         plain_ms = cuda_time_ms(torch, lambda: i8.reference_int8_mega(x, wq, s),
                                 iters=5)
+        stream = lambda: i8.int8_mega_stream(wq)  # noqa: E731
+        stream_dev = queued_ms(stream, cuda_time_ms(torch, stream), device)
         res[("int8_megakernel", rows)] = dict(
             abs=one[0], rel=max(one[1], full[1]), ms=ms, device_ms=dev,
-            plain_ms=plain_ms, library_ms=None,
+            plain_ms=plain_ms, library_ms=lib_ms,
+            stream_device_ms=stream_dev,
             **bound(nbytes(x, wq, s, x), 2 * rows * d * f * n_layers, "bf16"))
+        v = res[("int8_megakernel", rows)]
+        per = 1e3 / n_layers  # ms a call -> us a layer
+        print(f"[int8] megakernel per-layer rows {rows}: {dev * per:.2f} us a layer "
+              f"queued, the weight stream alone {stream_dev * per:.2f} us "
+              f"({wq.numel() / stream_dev / 1e6:.0f} GB/s), bound "
+              f"{v['bound_ms'] * per:.2f} us: the kernel at "
+              f"{v['bound_ms'] / dev:.1%} of the bound, the stream alone at "
+              f"{v['bound_ms'] / stream_dev:.1%}; last layer's sums on all {f} "
+              f"columns within {col_rel:.2e} of each column's max; grid "
+              f"{min(2 * f // 128, i8.mega_resident())} blocks")
     for (name, rows), v in res.items():
         graph = (f"; as a CUDA graph {v['graph_ms']:.4f} ms, {v['graph_device_ms']:.4f} "
                  f"queued ({v['programmatic_edges']} of {v['graph_edges']} edges "
@@ -1257,7 +1290,7 @@ def check_int8(torch, device) -> list:
                 "int8_chain_int8": "tools/int8_kernel_probe2.py:25",
                 "int8_megakernel": "tools/int8_kernel_probe3.py:36"}
     keys = ("ms", "device_ms", "graph_ms", "graph_device_ms", "plain_ms",
-            "library_ms", "bound_ms")
+            "library_ms", "bound_ms", "stream_device_ms")
     entries = []
     for name, where in replaces.items():
         rows = 8 if name == "int8_megakernel" else 2

@@ -527,6 +527,27 @@ inline cudaError_t encode_int8_map(CUtensorMap* map, const void* base, int rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Tensor map over `planes` row-major int8 [rows, cols] matrices stored one after
+// the other (cols a multiple of 16): boxes of `box_rows` rows x 128 columns of one
+// plane, 128-byte swizzle, as encode_int8_map; coordinates (column, row, plane).
+// Rows past a plane's last arrive as zeros, not as the next plane's first.
+inline cudaError_t encode_int8_planes_map(CUtensorMap* map, const void* base, int planes,
+                                          int rows, int cols, int box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols),
+                                 static_cast<cuuint64_t>(rows) * static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[3] = {128, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides, box,
+         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // The attention kernels' arrays: [heads, S, 128].
 inline cudaError_t encode_heads_map(CUtensorMap* map, const void* base, int heads, int S,
                                     int box_rows) {

@@ -12,9 +12,9 @@
 //       quantised in the kernel, xq = clip(rint(32 x), +-127), int8 x int8
 //       products accumulated exactly in int32, times (1/32) * scale;
 //   ssr_int8_mega_bf16     <- tools/int8_kernel_probe3.py `kern` (mega): L
-//       chained layers in ONE launch; h stays fp32 between layers, is
-//       rounded to bf16 for each product, and the first K columns of each
-//       layer's output feed the next layer.
+//       chained layers in ONE launch; the first K columns of each layer's
+//       output, rounded to bf16 (where the TPU kernel rounds its fp32 h for
+//       each product: the same values), feed the next layer.
 //
 // x is bf16 [B, K] (row pitch ldx elements), w int8 [K, N] with N contiguous,
 // scale fp32 [N], out bf16 [B, N]. The first three take any B >= 1; the
@@ -74,19 +74,30 @@
 //   st.async into a buffer of rank 0's (counted on rank 0's barrier), and
 //   rank 0 adds them after its own, scales, and stores 16 bytes (8 columns)
 //   a row.
-// - The megakernel (first form, PR 3) is a persistent cooperative grid of 16
-//   warps a block (one block per 64-column tile, at most what is
-//   co-resident): layers are separated by grid.sync(), h is double-buffered
-//   in global memory as fp32 [2, 8, K] (32 KB a buffer: it lives in L2) and
-//   read back with ld.global.cg, which bypasses the non-coherent L1. Every
-//   column of every layer is computed and every byte of w is read, as on the
-//   TPU; only the first K columns are fed back. Its 16 warps' partials meet
-//   in shared memory and are added in warp order.
+// - The megakernel (`mega_kernel`) is bound by the bytes
+//   of all L layers (16 x 16.8 MB at the probe's widths, more than the L2
+//   holds). Its first form separated layers with grid.sync() and read its
+//   weights with per-thread loads, so the stream stopped at every layer; a
+//   launch-per-layer chain loses the same time to ramps and drains. Here
+//   one persistent grid (every block resident, checked before the launch)
+//   streams every layer's weights without a break: stream_kernel's cluster
+//   layout and products, the strips a cluster owns repeated for every
+//   layer, and a producer warp a block that issues every tile by TMA into a
+//   6-stage ring and waits only for free slots. Only the first K columns of
+//   a layer feed the next, so only their strips publish: rank 0 stores its
+//   columns of h as bf16 into the layer's own slot (no slot is reused, so no
+//   reader races a writer) and adds to the layer's flag with release
+//   semantics; the next layer's products start once one thread has acquired
+//   the flag at its full count (bounded by %globaltimer, so a fault traps
+//   instead of hanging). The other strips' work runs in the shadow of the
+//   next flag. Every column of every layer is computed and every byte of w
+//   is read, as on the TPU; the last layer's fp32 sums of all columns land in
+//   a [B, N] scratch (the TPU kernel's acc_scr) that the tests read. Sums in
+//   stream_kernel's fixed order, independent of the grid's size.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (ssr_speech_tpu_torch/ops/cuda_build.py).
 
-#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,21 +117,13 @@
 #define SSR_END()
 #endif
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 using ssr::bf16_bits;
 using ssr::bf16_float;
-using ssr::mma_16816;
-using ssr::pack_bf16;
 using namespace ssr::sm90;
 
-constexpr int kTileN = 64;    // output columns per block
-constexpr int kWarps = 16;    // the megakernel: K is split over the warps of a block
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 8;      // batch rows the megakernel carries
-constexpr int kRed = kWarps * kRows * kTileN;  // its partial sums, 4 bytes each
+constexpr int kTileN = 64;  // N must be a multiple (the 16-byte stores of 8 columns a lane)
 
 constexpr int kStripN = 128;                       // output columns of a cluster's strip
 constexpr int kCluster = 2;                        // blocks of a cluster: they split K
@@ -139,18 +142,6 @@ constexpr int kMaxGroups = 8;                      // 8-row groups a block carri
 // align the ring to 1024 bytes
 constexpr size_t stream_smem(int G) {
   return kStages * kStageBytes + 8 * (2 * kStages + 2) + G * 4096 + 1024;
-}
-
-// int8 byte j of a word whose bytes were flipped to offset binary
-// (word ^ 0x80808080), as a float: 0x4B0000uu is 2^23 + uu, and uu = v + 128.
-__device__ __forceinline__ float byte_to_float(uint32_t flipped, int j) {
-  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 + j)) -
-         8388736.0f;
-}
-
-// Two floats that are exact in bf16 -> packed bf16x2 (lo in the low half).
-__device__ __forceinline__ uint32_t pack_exact_bf16(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 // Byte j of `lo` and byte j of `hi` (int8) as a bf16x2, lo in the low half,
@@ -506,113 +497,342 @@ stream_kernel(const __grid_constant__ CUtensorMap wmap, const uint16_t* x, int l
 
 // ------------------------------------------------------------- megakernel
 //
-// One warp's share of a 64-column tile: rows k0 + 4q + {0..3} of every 16-row
-// step it owns. acc[j] is the C fragment of mma j, whose 16 A rows are the
-// columns n0 + 8g + j (rows 0-7) and n0 + 8g + j + 4 (rows 8-15):
-//   acc[j][0], [1] = y[2q], y[2q+1] at column 8g + j
-//   acc[j][2], [3] = y[2q], y[2q+1] at column 8g + j + 4
-// The activations are fp32 rows written by other blocks (read through L2 and
-// rounded to bf16 here).
-__device__ __forceinline__ void warp_tile_bf16(const int8_t* __restrict__ w,
-                                               const float* x, int ldx, int B,
-                                               int K, int N, int n0, int warp,
-                                               int lane, float (*acc)[4]) {
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int8_t* wp = w + n0 + g * 8;
-#pragma unroll 2
-  for (int k0 = warp * 16; k0 < K; k0 += kWarps * 16) {
-    const int k = k0 + 4 * q;
-    uint2 r[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      r[i] = __ldg(reinterpret_cast<const uint2*>(wp + static_cast<size_t>(k + i) * N));
-    uint32_t b0 = 0, b1 = 0;
-    if (g < B) {
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(
-          x + static_cast<size_t>(g) * ldx + k));
-      b0 = pack_bf16(v.x, v.y);
-      b1 = pack_bf16(v.z, v.w);
+// K9: L layers in one persistent launch. A cluster of two blocks owns
+// 128-column strips s = cluster, cluster + clusters, ... of every layer (the
+// feedback strips, s * 128 < K, come first in a layer), the two splitting K
+// by alternate stages as stream_kernel does; its 16 consumer warps compute as
+// stream_kernel's one row group. A 17th warp issues every (layer, strip,
+// stage) tile of the block by TMA, in the order the consumers take them, into
+// a ring of kMegaStages: it waits only for free slots, never for h, so the
+// next layer's weights arrive while this layer's dependency resolves.
+// Layer l + 1 needs only h_{l+1} = y_l[:, :K]: rank 0 of a feedback strip
+// stores its columns of it as bf16 into slot l of `hs` ([L - 1, 8, K]; the
+// last layer into `out`), then adds 1 to flags[l] with release semantics;
+// the consumers of layer l + 1 start once flags[l] counts every feedback
+// strip (one thread acquires, bounded by %globaltimer). Every column's fp32
+// sum of the last layer lands in `last` [B, N] (the TPU kernel's acc_scr).
+// A feedback strip's four stages a block lie on the dependency chain; the
+// other layout, every block one feedback stage a layer summed through L2 by
+// the block that completes the strip, was twice as slow on the card (its sum
+// took 7.5 us a layer, PERF.md). 17 warps leave a thread 96 registers; this
+// body fits them without spilling, the two layouts in one did not.
+constexpr int kMegaStages = 6;  // the ring (32 KB a stage): 1.5 layers of a block's K = 2048
+constexpr int kMegaParts = kWideParts;               // 8 k-parts x 2 column halves
+constexpr int kMegaConsumers = 2 * kMegaParts * 32;  // 16 warps
+constexpr int kMegaThreads = kMegaConsumers + 32;    // and the producer warp
+constexpr int kMegaVals = 16;                        // accumulators a thread: 8 rows
+constexpr int kHRows = 8;                            // rows of an h slot
+constexpr uint32_t kMegaSendBytes = 2 * kMegaVals * 32 * 4;  // rank 1's two warps' sums
+constexpr int kMegaXStages = 4;  // stages of h a block stages in shared memory at once
+// h of kMegaXStages stages, [stage][8 rows][256 columns] bf16, rows padded by
+// 16 bytes so that the 8 rows a warp's lanes read meet no bank conflict
+constexpr int kHPitch = kStageRows * 2 + 16;
+constexpr int kHStageBytes = kMegaXStages * kHRows * kHPitch;
+// the tree's buffer, which the staged h shares (they are never live at once)
+constexpr int kMegaRedBytes =
+    (kMegaParts / 2) * 2 * kMegaVals * 32 * 4 > kHStageBytes ? (kMegaParts / 2) * 2 * kMegaVals * 32 * 4
+                                                              : kHStageBytes;
+constexpr unsigned long long kFlagTimeoutNs = 2000000000ull;
+// the ring, the tree's buffer, two receive buffers, the barriers, the slack
+// to align the ring to 1024 bytes
+constexpr size_t mega_smem() {
+  return kMegaStages * kStageBytes + kMegaRedBytes + 2 * kMegaSendBytes +
+         8 * (2 * kMegaStages + 4) + 1024;
+}
+
+#ifndef SSR_INT8_TIMES  // tools/torch_int8_cycles.py: thread 0's phases a layer
+#define SSR_MEGA_MARK(layer, slot)
+#define SSR_MEGA_ISSUE(layer)
+#endif
+
+// a barrier among `threads` threads (whole warps) on hardware barrier `id`
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// returns once *flag >= target (acquire at GPU scope); traps after 2 s, so a
+// lost publication fails the launch instead of hanging the device
+__device__ __forceinline__ void wait_flag(const int* flag, int target) {
+  const unsigned long long t0 = global_ns();
+  for (;;) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(flag) : "memory");
+    if (v >= target) return;
+    if (global_ns() - t0 > kFlagTimeoutNs) __trap();
+  }
+}
+
+// *flag += 1, releasing at GPU scope every write that happens before it
+__device__ __forceinline__ void publish(int* flag) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(flag) : "memory");
+}
+
+template <bool kStreamOnly>
+__global__ void __launch_bounds__(kMegaThreads, 1)
+mega_kernel(const __grid_constant__ CUtensorMap wmap, const uint16_t* x, uint16_t* hs,
+            uint16_t* out, float* last, const float* __restrict__ scale, int* flags, int B,
+            int L, int K, int N) {
+  constexpr int kStep = 16;                        // k-rows of one mma
+  constexpr int kMine = kStageRows / kStep / kMegaParts;  // k-steps of a stage a warp takes
+  extern __shared__ uint8_t smem_raw[];
+  SSR_BEGIN();
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t ring = (base + 1023u) & ~1023u;
+  const uint8_t* ring_ptr = smem_raw + (ring - base);
+  const uint32_t red = ring + kMegaStages * kStageBytes;
+  const uint32_t recv = red + kMegaRedBytes;              // [2][kMegaSendBytes]
+  const uint32_t full = recv + 2 * kMegaSendBytes;        // [kMegaStages]
+  const uint32_t empty = full + 8 * kMegaStages;          // [kMegaStages]
+  const uint32_t recv_full = empty + 8 * kMegaStages;     // [2], rank 0's
+  const uint32_t recv_empty = recv_full + 16;             // [2], rank 1's
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t rank = cluster_rank();
+  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
+  const int strips = (N + kStripN - 1) / kStripN;
+  const int feedback = (K + kStripN - 1) / kStripN;  // strips with columns < K
+  const int T = (K + kStageRows - 1) / kStageRows;
+  const int Tr = (T - static_cast<int>(rank) + kCluster - 1) / kCluster;  // this block's
+  auto stage_k = [&](int u) {  // the first k-row of this block's stage u of a strip
+    return (kCluster * u + static_cast<int>(rank)) * kStageRows;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMegaStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kMegaConsumers / 32);
     }
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(recv_full + 8 * j, 1);
+      mbar_init(recv_empty + 8 * j, 1);
+    }
+    mbar_fence_init();
+    if (rank == 0)
+      for (int j = 0; j < 2; ++j) mbar_arrive_expect_tx(recv_full + 8 * j, kMegaSendBytes);
+  }
+  __syncthreads();
+  cluster_sync();  // the barriers of both blocks are ready
+
+  if (warp == kMegaConsumers / 32) {
+    // the producer: every tile of the block in the consumers' order
+    if (lane == 0) {
+      tma_prefetch_map(&wmap);
+      int t = 0;
+      for (int l = 0; l < L; ++l)
+        for (int s = cluster; s < strips; s += clusters)
+          for (int u = 0; u < Tr; ++u, ++t) {
+            const int slot = t % kMegaStages;
+            if (t >= kMegaStages) mbar_wait(empty + 8 * slot, ((t / kMegaStages) - 1) & 1);
+            if (s == cluster && u == 0) SSR_MEGA_ISSUE(l);
+            mbar_arrive_expect_tx(full + 8 * slot, kStageBytes);
+            tma_load_3d(ring + slot * kStageBytes, &wmap, full + 8 * slot, s * kStripN,
+                        stage_k(u), l);
+          }
+    }
+    __syncwarp();
+  } else if (cluster < strips) {
+    const int g = lane >> 2, q = lane & 3;
+    const int half = warp & 1, part = warp >> 1;
+    // this lane's byte offsets in a k-step of a stage, as stream_kernel's
+    uint32_t roff[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      r[i].x ^= 0x80808080u;
-      r[i].y ^= 0x80808080u;
+      const int row = 2 * q + (i & 1) + 8 * (i >> 1);
+      roff[i] = row * kStripN + ((((half * 4 + (g >> 1)) ^ row) & 7) << 4) + (g & 1) * 8;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t a[4];
-      a[0] = pack_exact_bf16(byte_to_float(r[0].x, j), byte_to_float(r[1].x, j));
-      a[1] = pack_exact_bf16(byte_to_float(r[0].y, j), byte_to_float(r[1].y, j));
-      a[2] = pack_exact_bf16(byte_to_float(r[2].x, j), byte_to_float(r[3].x, j));
-      a[3] = pack_exact_bf16(byte_to_float(r[2].y, j), byte_to_float(r[3].y, j));
-      mma_16816(acc[j], a, b0, b1);
-    }
-  }
-}
-
-// The C fragments of a warp -> red[warp][row][column] (4-byte cells).
-template <typename T>
-__device__ __forceinline__ void store_partials(T* red, int warp, int lane,
-                                               T (*acc)[4]) {
-  const int g = lane >> 2, q = lane & 3;
-  T* p = red + warp * kRows * kTileN;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    p[(2 * q) * kTileN + 8 * g + j] = acc[j][0];
-    p[(2 * q + 1) * kTileN + 8 * g + j] = acc[j][1];
-    p[(2 * q) * kTileN + 8 * g + j + 4] = acc[j][2];
-    p[(2 * q + 1) * kTileN + 8 * g + j + 4] = acc[j][3];
-  }
-}
-
-// h: fp32 [2][kRows][K] scratch. Layer l reads buffer l % 2 and writes the
-// first K columns of its output into the other; the last layer also writes
-// `out` (bf16 [B, K]).
-__global__ void __launch_bounds__(kThreads)
-mega_bf16_kernel(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ scale, float* h,
-                 uint16_t* __restrict__ out, int B, int L, int K, int N) {
-  __shared__ float red[kRed];
-  cg::grid_group grid = cg::this_grid();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tiles = N / kTileN;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < kRows * K;
-       i += gridDim.x * kThreads) {
-    const int r = i / K, k = i % K;
-    h[i] = r < B ? bf16_float(x[static_cast<size_t>(r) * K + k]) : 0.f;
-  }
-  grid.sync();
-  for (int l = 0; l < L; ++l) {
-    const float* src = h + (l & 1) * kRows * K;
-    float* dst = h + ((l + 1) & 1) * kRows * K;
-    const int8_t* wl = w + static_cast<size_t>(l) * K * N;
-    const float* sl = scale + static_cast<size_t>(l) * N;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int n0 = t * kTileN;
-      float acc[4][4];
-      warp_tile_bf16(wl, src, K, B, K, N, n0, warp, lane, acc);
-      store_partials<float>(red, warp, lane, acc);
-      __syncthreads();
-      for (int o = threadIdx.x; o < kRows * kTileN; o += kThreads) {
-        const int b = o / kTileN, c = o % kTileN;
-        float sum = 0.f;
-#pragma unroll
-        for (int wi = 0; wi < kWarps; ++wi)
-          sum += red[(wi * kRows + b) * kTileN + c];
-        const float y = sum * sl[n0 + c];
-        if (n0 + c < K) {  // the columns the next layer reads
-          dst[b * K + n0 + c] = y;
-          if (l == L - 1 && b < B)
-            out[static_cast<size_t>(b) * K + n0 + c] = bf16_bits(y);
-        }
+    float* red_ptr = reinterpret_cast<float*>(smem_raw + (red - base));
+    uint8_t* xs_ptr = smem_raw + (red - base);  // the staged h, in the tree's buffer
+    const float* recv_ptr = reinterpret_cast<const float*>(smem_raw + (recv - base));
+    const bool xok = g < B;  // batch row g of the products
+    int t = 0, item = 0;     // tiles and (layer, strip) items taken so far
+    for (int l = 0; l < L; ++l) {
+      SSR_MEGA_MARK(l, 0);
+      if (!kStreamOnly && l > 0) {  // h_l is in place once every feedback strip is
+        if (threadIdx.x == 0) wait_flag(flags + l - 1, feedback);
+        named_sync(1, kMegaConsumers);
       }
-      __syncthreads();  // red is reused by the next tile
+      SSR_MEGA_MARK(l, 1);
+      const uint16_t* src = l == 0 ? x : hs + static_cast<size_t>(l - 1) * kHRows * K;
+      uint16_t* dst = l == L - 1 ? out : hs + static_cast<size_t>(l) * kHRows * K;
+      for (int s = cluster; s < strips; s += clusters, ++item) {
+        const int n0 = s * kStripN;
+        const int c0 = n0 + 64 * warp + 8 * g;  // the columns this lane stores (rank 0, warps 0-1)
+        const bool stores = !kStreamOnly && rank == 0 && warp < 2 && c0 < N;
+        float sc[8];
+        if (stores) {  // needs nothing computed: read before the products
+          const float4 sa = __ldg(reinterpret_cast<const float4*>(scale + static_cast<size_t>(l) * N + c0));
+          const float4 sb = __ldg(reinterpret_cast<const float4*>(scale + static_cast<size_t>(l) * N + c0 + 4));
+          sc[0] = sa.x; sc[1] = sa.y; sc[2] = sa.z; sc[3] = sa.w;
+          sc[4] = sb.x; sc[5] = sb.y; sc[6] = sb.z; sc[7] = sb.w;
+        }
+        float acc[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+        for (int u0 = 0; u0 < Tr; u0 += kMegaXStages) {
+          // h's columns of up to kMegaXStages stages: the block copies them
+          // from L2 into shared memory, 16 bytes a thread and load (one trip,
+          // whole sectors, each byte once a block), then a warp takes its
+          // words: row g, k0 + 2q + {0, 1}, k0 + 8 + 2q + {0, 1}
+          uint32_t xw[kMegaXStages][kMine][2];
+          if (!kStreamOnly) {
+            constexpr int kChunks = kStageRows * 2 / 16;  // 16-byte chunks of a row's stage
+            constexpr int kPer = kMegaXStages * kHRows * kChunks / kMegaConsumers;
+            static_assert(kPer * kMegaConsumers == kMegaXStages * kHRows * kChunks, "whole chunks");
+            uint4 hv[kPer];
+            bool hok[kPer];
+#pragma unroll
+            for (int i = 0; i < kPer; ++i) {  // every load before any store
+              const int v = threadIdx.x + i * kMegaConsumers;
+              const int du = v / (kHRows * kChunks), row = (v / kChunks) % kHRows;
+              const int k = stage_k(u0 + du) + (v % kChunks) * 8;
+              hok[i] = row < B && u0 + du < Tr && k < K;
+              if (hok[i]) hv[i] = __ldcg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(row) * K + k));
+            }
+#pragma unroll
+            for (int i = 0; i < kPer; ++i) {
+              const int v = threadIdx.x + i * kMegaConsumers;
+              if (hok[i])
+                *reinterpret_cast<uint4*>(xs_ptr + (v / kChunks) * kHPitch + (v % kChunks) * 16) = hv[i];
+            }
+            named_sync(1, kMegaConsumers);
+#pragma unroll
+            for (int du = 0; du < kMegaXStages; ++du)
+#pragma unroll
+              for (int m = 0; m < kMine; ++m) {
+                const int kl = (part + m * kMegaParts) * kStep + 2 * q;  // in the stage
+                const uint8_t* p = xs_ptr + (du * kHRows + g) * kHPitch + kl * 2;
+                xw[du][m][0] = xok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+                xw[du][m][1] = xok ? *reinterpret_cast<const uint32_t*>(p + 16) : 0u;
+              }
+            named_sync(1, kMegaConsumers);  // every warp has its words: the buffer is free
+          }
+#pragma unroll
+          for (int du = 0; du < kMegaXStages; ++du) {
+            if (u0 + du >= Tr) break;
+            const int slot = t % kMegaStages;
+            mbar_wait(full + 8 * slot, (t / kMegaStages) & 1);
+            if (!kStreamOnly) {
+              const uint8_t* stage = ring_ptr + slot * kStageBytes;
+              const int kbase = stage_k(u0 + du);
+#pragma unroll
+              for (int m = 0; m < kMine; ++m) {
+                const int step = part + m * kMegaParts;
+                if (kbase + step * kStep < K) {  // warp-uniform; K is a multiple of kStep
+                  const uint8_t* sp = stage + step * kStep * kStripN;
+                  uint2 r[4];
+#pragma unroll
+                  for (int i = 0; i < 4; ++i) r[i] = *reinterpret_cast<const uint2*>(sp + roff[i]);
+#pragma unroll
+                  for (int j = 0; j < 4; ++j) {
+                    uint32_t a[4];
+                    a[0] = pair_bf16(r[0].x, r[1].x, j);
+                    a[1] = pair_bf16(r[0].y, r[1].y, j);
+                    a[2] = pair_bf16(r[2].x, r[3].x, j);
+                    a[3] = pair_bf16(r[2].y, r[3].y, j);
+                    mma_bf16(acc[j], a, xw[du][m][0], xw[du][m][1]);
+                  }
+                }
+              }
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + 8 * slot);  // this warp is done with it
+            ++t;
+            if (u0 + du == 0) SSR_MEGA_MARK(l, 2);
+          }
+        }
+        if (kStreamOnly) continue;
+        SSR_MEGA_MARK(l, 3);
+        // the k-parts' partials, 8 -> 4 -> 2 -> 1 in one fixed order (part i
+        // += part i + h), through the tree's own buffer
+#pragma unroll
+        for (int h2 = kMegaParts / 2; h2 >= 1; h2 /= 2) {
+          if (part >= h2 && part < 2 * h2) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                red_ptr[(((part - h2) * 2 + half) * kMegaVals + j * 4 + c) * 32 + lane] = acc[j][c];
+          }
+          named_sync(1, kMegaConsumers);
+          if (part < h2) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                acc[j][c] += red_ptr[((part * 2 + half) * kMegaVals + j * 4 + c) * 32 + lane];
+          }
+          named_sync(1, kMegaConsumers);
+        }
+        SSR_MEGA_MARK(l, 4);
+        if (warp >= 2) continue;
+        // the cluster's sum: rank 1's warps 0-1 push theirs into receive
+        // buffer item % 2 of rank 0 (counted on its barrier), once rank 0
+        // has taken what was there two items before; rank 0 adds them after
+        // its own, scales, stores, and publishes a feedback strip
+        const int rb = item & 1;
+        const uint32_t phase = (item >> 1) & 1;
+        if (rank == 1) {
+          if (item >= 2) mbar_wait(recv_empty + 8 * rb, phase ^ 1);
+          const uint32_t dst_buf = mapa_shared(recv + rb * kMegaSendBytes, 0);
+          const uint32_t bar = mapa_shared(recv_full + 8 * rb, 0);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            st_async_f32x4(dst_buf + ((warp * 4 + j) * 32 + lane) * 16, acc[j][0], acc[j][1],
+                           acc[j][2], acc[j][3], bar);
+          continue;
+        }
+        mbar_wait(recv_full + 8 * rb, phase);
+        const float* got = recv_ptr + rb * (kMegaSendBytes / 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[j][c] += got[((warp * 4 + j) * 32 + lane) * 4 + c];
+        named_sync(2, 64);  // both warps have read the buffer
+        if (threadIdx.x == 0) {
+          mbar_arrive_expect_tx(recv_full + 8 * rb, kMegaSendBytes);  // for item + 2
+          mbar_arrive_remote(recv_empty + 8 * rb, 1);
+        }
+        SSR_MEGA_MARK(l, 5);
+        if (stores) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = 2 * q + h;
+            if (row >= B) continue;
+            float y[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) y[c] = (c < 4 ? acc[c][h] : acc[c - 4][2 + h]) * sc[c];
+            if (c0 < K) {  // K is a multiple of 16: all 8 columns feed back or none
+              uint32_t packed[4];
+#pragma unroll
+              for (int pp = 0; pp < 4; ++pp)
+                packed[pp] = static_cast<uint32_t>(bf16_bits(y[2 * pp])) |
+                             static_cast<uint32_t>(bf16_bits(y[2 * pp + 1])) << 16;
+              *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row) * K + c0) =
+                  make_uint4(packed[0], packed[1], packed[2], packed[3]);
+            }
+            if (l == L - 1) {
+              float4* lp = reinterpret_cast<float4*>(last + static_cast<size_t>(row) * N + c0);
+              lp[0] = make_float4(y[0], y[1], y[2], y[3]);
+              lp[1] = make_float4(y[4], y[5], y[6], y[7]);
+            }
+          }
+        }
+        if (n0 < K) {  // a feedback strip: h's columns of it are stored
+          named_sync(2, 64);
+          if (threadIdx.x == 0) publish(flags + l);
+        }
+        SSR_MEGA_MARK(l, 6);
+      }
     }
-    grid.sync();
   }
+  __syncwarp();
+  cluster_sync();  // neither block leaves while the other may still signal it
+  SSR_END();
 }
 
 int check_shapes(int B, int K, int N, int kstep, int max_rows) {
@@ -677,6 +897,54 @@ int occupancy(int* blocks) {
   return e != cudaSuccess ? e
                           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, s_threads(G),
                                                                           stream_smem(G));
+}
+
+template <bool kStreamOnly>
+int launch_mega(const void* x, const void* w, const void* scale, void* hs, void* flags,
+                void* last, void* out, int B, int L, int K, int N, int grid_request,
+                int* grid_used, cudaStream_t stream) {
+  if (grid_used) *grid_used = 0;
+  if (int e = check_shapes(B, K, N, 16, kHRows)) return e;
+  if (L < 1 || N < K || grid_request < 0 || grid_request % kCluster) return cudaErrorInvalidValue;
+  auto kernel = mega_kernel<kStreamOnly>;
+  // also the runtime call that makes the context current before the encode
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(mega_smem()));
+  if (e != cudaSuccess) return e;
+  CUtensorMap map;
+  e = encode_int8_planes_map(&map, w, L, K, N, kStageRows);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  const int strips = (N + kStripN - 1) / kStripN;
+  cfg.gridDim = dim3(kCluster * strips);
+  cfg.blockDim = dim3(kMegaThreads);
+  cfg.dynamicSmemBytes = mega_smem();
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // every block spins on flags that other blocks raise: the whole grid must
+  // be resident at once, so it is at most what the device holds
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  const int resident = kCluster * clusters;
+  const int grid = grid_request > 0 ? grid_request : (kCluster * strips < resident ? kCluster * strips : resident);
+  if (grid_used) *grid_used = grid;
+  if (grid < kCluster || grid > resident) return cudaErrorCooperativeLaunchTooLarge;
+  cfg.gridDim = dim3(grid);
+  cfg.numAttrs = 2;
+  e = cudaLaunchKernelEx(&cfg, kernel, map, static_cast<const uint16_t*>(x),
+                         static_cast<uint16_t*>(hs), static_cast<uint16_t*>(out),
+                         static_cast<float*>(last), static_cast<const float*>(scale),
+                         static_cast<int*>(flags), B, L, K, N);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
@@ -754,37 +1022,47 @@ extern "C" int ssr_graph_programmatic_edges(void* graph, int* edges, int* progra
   return e;
 }
 
-// grid_request <= 0: one block per tile, at most what the device holds at
-// once. A request above that is refused (cudaErrorCooperativeLaunchTooLarge):
-// grid.sync() needs every block resident. *grid_used reports the grid.
-extern "C" int ssr_int8_mega_bf16(const void* x, const void* w, const void* scale,
-                                  void* h, void* out, int B, int L, int K, int N,
-                                  int grid_request, int* grid_used, void* stream) {
-  if (int e = check_shapes(B, K, N, 16, kRows)) return e;
-  if (L < 1 || N < K) return cudaErrorInvalidValue;
-  int device = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_bf16_kernel,
-                                                      kThreads, 0);
+// K9: x bf16 [B, K] (B <= 8), w int8 [L, K, N], scale fp32 [L, 1, N]; hs bf16
+// [max(L - 1, 1), 8, K] scratch (h of layers 1 .. L - 1), flags int32 [L]
+// ZEROED before the launch, last fp32 [B, N] (the last layer's sums), out bf16
+// [B, K]. grid_request 0: two blocks a strip, at most what the device holds at
+// once; otherwise an even grid, refused (cudaErrorCooperativeLaunchTooLarge)
+// above that. *grid_used reports the grid.
+extern "C" int ssr_int8_mega_bf16(const void* x, const void* w, const void* scale, void* hs,
+                                  void* flags, void* last, void* out, int B, int L, int K,
+                                  int N, int grid_request, int* grid_used, void* stream) {
+  return launch_mega<false>(x, w, scale, hs, flags, last, out, B, L, K, N, grid_request,
+                            grid_used, static_cast<cudaStream_t>(stream));
+}
+
+// The megakernel's weight stream alone: the same grid, ring and tiles, every
+// stage waited for and released with no products, no h and no flags (a
+// measurement of the rate the stream reaches; it writes nothing).
+extern "C" int ssr_int8_mega_stream(const void* w, int L, int K, int N, int grid_request,
+                                    int* grid_used, void* stream) {
+  return launch_mega<true>(nullptr, w, nullptr, nullptr, nullptr, nullptr, nullptr, kHRows, L,
+                           K, N, grid_request, grid_used, static_cast<cudaStream_t>(stream));
+}
+
+// The largest grid of the megakernel the device holds at once, into *blocks.
+extern "C" int ssr_int8_mega_resident(int* blocks) {
+  auto kernel = mega_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(mega_smem()));
   if (e != cudaSuccess) return e;
-  if (!coop) return cudaErrorNotSupported;
-  const int resident = per_sm * sms;
-  const int tiles = N / kTileN;
-  const int grid = grid_request > 0 ? grid_request : (tiles < resident ? tiles : resident);
-  if (grid_used) *grid_used = grid;
-  if (grid < 1 || grid > resident) return cudaErrorCooperativeLaunchTooLarge;
-  const uint16_t* xp = static_cast<const uint16_t*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  const float* sp = static_cast<const float*>(scale);
-  float* hp = static_cast<float*>(h);
-  uint16_t* op = static_cast<uint16_t*>(out);
-  void* args[] = {&xp, &wp, &sp, &hp, &op, &B, &L, &K, &N};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(mega_bf16_kernel),
-                                     dim3(grid), dim3(kThreads), args, 0,
-                                     static_cast<cudaStream_t>(stream));
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kMegaThreads);
+  cfg.dynamicSmemBytes = mega_smem();
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  *blocks = kCluster * clusters;
+  return e;
 }

@@ -21,7 +21,7 @@ int8 weight bytes of the chain over the time):
   TPU probe dispatches its chain as one ``jax.jit`` executable); the replay
   must equal the eager chain bit for bit. On the card only: ``--device cpu``
   prints why they are skipped;
-- ``megakernel``: all 16 layers in one cooperative launch.
+- ``megakernel``: all 16 layers in one persistent launch.
 
 The TPU probes chain ONE [2048, 8192] matrix 16 times. On an H100 that
 matrix (16.8 MB) stays in the 50 MB L2, so each chain is timed twice: over

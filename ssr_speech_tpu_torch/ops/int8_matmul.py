@@ -16,9 +16,12 @@ point per TPU kernel (and per mode of the second):
   ``xq = clip(round(32 x), +-127)`` (half to even), int8 x int8 products
   accumulated in int32, times ``(1/32) * scale``; the int32 sums are exact, so
   this mode equals its plain version bit for bit;
-- :func:`int8_megakernel` <- ``mega``: all layers in ONE cooperative launch
-  with a grid-wide barrier between layers; h stays fp32 and is rounded to
-  bf16 for each product (at most 8 rows, as the TPU probe).
+- :func:`int8_megakernel` <- ``mega``: all layers in ONE persistent launch
+  (at most 8 rows, as the TPU probe). The weights of every layer stream by
+  TMA through one ring without a break; layer l + 1 waits only for the
+  columns of layer l that feed it (a flag a layer, no grid-wide barrier). h
+  is rounded to bf16 once a layer, where the TPU kernel rounds its fp32 h
+  for each product: the same values.
 
 The first two take any number of rows; the weight arrives by TMA and the
 launches use programmatic dependent launch (``PDL``), so that in a chain a
@@ -31,7 +34,8 @@ decode has no int8 option either; their entry point is ``python3 -m
 ssr_speech_tpu_torch.int8_probe``.
 
 Beside each wrapper stands its plain PyTorch version (``reference_*``), and
-beside the streaming kernel its own walk (:func:`tiled_int8_layer`). On a
+beside the streaming kernel and the megakernel their own walks
+(:func:`tiled_int8_layer`, :func:`tiled_int8_mega`). On a
 CPU tensor a wrapper takes the plain version (the CPU tests); on a CUDA
 tensor it launches the kernel or raises. The probes' random weights multiply
 |h| by about 25 a layer in the bf16 modes, so outputs are compared by max
@@ -48,8 +52,8 @@ import torch
 from .cuda_build import check_layout, load
 
 _KERNEL = "int8_matmul"
-MEGA_ROWS = 8  # activation rows the megakernel carries (its h is [2, 8, K])
-TILE_N = 64  # N must be a multiple (the megakernel's columns a block)
+MEGA_ROWS = 8  # activation rows the megakernel carries (its h slots are [8, K])
+TILE_N = 64  # N must be a multiple (a lane stores 8 columns, a warp 64)
 STRIP_N = 128  # output columns of a cluster of the streaming kernel
 K_MULTIPLE = 32  # K must be a multiple (the int8 mode's k-step)
 ACT_SCALE = 32.0  # the int8 mode's activation quantisation step is 1/32
@@ -187,40 +191,66 @@ def reference_int8_chain(x, w_q, scale, mode: str, n_layers: int = 16):
     return h.contiguous()
 
 
-def reference_int8_mega(x, w_q, scale):
+def reference_int8_mega(x, w_q, scale, return_acc: bool = False):
     """The megakernel's math: h fp32 between layers, rounded to bf16 for each
-    product, acc = dot * scale in fp32, h <- acc[:, :K]; bf16 of the last."""
+    product, acc = dot * scale in fp32, h <- acc[:, :K]; bf16 of the last.
+    ``return_acc``: also the last layer's acc, fp32 [B, N]."""
     h, k = x.float(), x.shape[1]
     for layer in range(w_q.shape[0]):
         y = torch.matmul(h.to(torch.bfloat16).float(), w_q[layer].float())
-        h = (y * scale[layer].float().reshape(1, -1))[:, :k]
-    return h.to(torch.bfloat16).contiguous()
+        y = y * scale[layer].float().reshape(1, -1)
+        h = y[:, :k]
+    out = h.to(torch.bfloat16).contiguous()
+    return (out, y) if return_acc else out
+
+
+MEGA_PARTS = 8  # the megakernel's k-parts: 16 consumer warps, 2 column halves
+def tiled_int8_mega(x, w_q, scale, k_parts: int = MEGA_PARTS,
+                    stage_rows: int = STAGE_ROWS, return_acc: bool = False):
+    """The megakernel as it walks: each layer in mode bf16 as
+    :func:`tiled_int8_layer` sums it (k-steps dealt to ``k_parts``, a tree of
+    them a block, every 128-column strip summed by a 2-block cluster
+    (``CLUSTER``) splitting K by alternate stages), and its first K columns,
+    rounded to bf16, are the next layer's h slot. Returns bf16 [B, K], and
+    with ``return_acc`` the last layer's fp32 [B, N] too."""
+    h, k = x.to(torch.bfloat16), x.shape[1]
+    for layer in range(w_q.shape[0]):
+        y = tiled_int8_layer(h, w_q[layer], scale[layer].reshape(-1), "bf16",
+                             k_parts=k_parts, blocks=CLUSTER, stage_rows=stage_rows,
+                             dtype=torch.float32)
+        h = y[:, :k].to(torch.bfloat16)
+    out = h.contiguous()
+    return (out, y) if return_acc else out
 
 
 # ------------------------------------------------------------------ kernels
 
 
+_PTR, _I32, _OUT = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_LAYER = [_PTR, _I32, _PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR]
+ENTRY_POINTS = {  # name: argtypes; every one returns a CUDA error code
+    "ssr_int8_matvec_f32": _LAYER, "ssr_int8_matvec_bf16": _LAYER,
+    "ssr_int8_matvec_int8": _LAYER,
+    "ssr_int8_mega_bf16": [_PTR] * 7 + [_I32] * 5 + [_OUT, _PTR],
+    "ssr_int8_mega_stream": [_PTR] + [_I32] * 4 + [_OUT, _PTR],
+    "ssr_int8_mega_resident": [_OUT],
+    "ssr_int8_set_pdl": [_I32],
+    "ssr_int8_stream_occupancy": [_I32, _I32, _OUT],
+    "ssr_graph_programmatic_edges": [_PTR, _OUT, _OUT]}
+
+
+def bind(lib, names) -> None:
+    """Set the argument and result types of the named entry points."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = ENTRY_POINTS[name], _I32
+
+
 def load_kernel():
     """Build (first call only) and bind the entry points."""
     built = load(_KERNEL)
-    lib = built.lib
-    if lib.ssr_int8_matvec_f32.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.ssr_int8_matvec_f32, lib.ssr_int8_matvec_bf16,
-                   lib.ssr_int8_matvec_int8):
-            fn.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, ptr]
-            fn.restype = i32
-        lib.ssr_int8_mega_bf16.argtypes = ([ptr] * 5 + [i32] * 5
-                                           + [ctypes.POINTER(i32), ptr])
-        lib.ssr_int8_mega_bf16.restype = i32
-        lib.ssr_int8_set_pdl.argtypes = [i32]
-        lib.ssr_int8_set_pdl.restype = i32
-        if hasattr(lib, "ssr_int8_stream_occupancy"):  # not in the first form
-            lib.ssr_int8_stream_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
-            lib.ssr_int8_stream_occupancy.restype = i32
-            lib.ssr_graph_programmatic_edges.argtypes = [ptr, ctypes.POINTER(i32),
-                                                         ctypes.POINTER(i32)]
-            lib.ssr_graph_programmatic_edges.restype = i32
+    if built.lib.ssr_int8_matvec_f32.argtypes is None:
+        bind(built.lib, ENTRY_POINTS)
     return built
 
 
@@ -358,34 +388,82 @@ def int8_matvec_chain(x, w_q, scale, mode: str, n_layers: int = 16):
     return h.contiguous()
 
 
-def int8_megakernel(x, w_q, scale, grid_blocks: Optional[int] = None):
+def _mega_grid(grid_blocks: Optional[int]) -> int:
+    """0 (the kernel's own grid) or the even grid the caller asks for."""
+    if grid_blocks is None:
+        return 0
+    if grid_blocks < CLUSTER or grid_blocks % CLUSTER:
+        raise ValueError(f"int8_megakernel: grid_blocks {grid_blocks}: an even "
+                         f"number (clusters of {CLUSTER} blocks), at least {CLUSTER}")
+    return int(grid_blocks)
+
+
+def int8_megakernel(x, w_q, scale, grid_blocks: Optional[int] = None,
+                    return_acc: bool = False):
     """x bf16 [B, K] (B <= 8), w_q int8 [L, K, N], scale fp32 [L, 1, N] ->
-    bf16 [B, K]: L chained layers in one cooperative launch. ``grid_blocks``
-    (tests) asks for a grid of that size instead of one block per tile; a
-    grid the device cannot hold at once is refused with an error, never
-    launched."""
+    bf16 [B, K]: L chained layers in one persistent launch. ``grid_blocks``
+    (tests) asks for an even grid of that size instead of two blocks a
+    128-column strip; a grid the device cannot hold at once is refused with
+    an error, never launched. ``return_acc`` (tests) also returns the last
+    layer's fp32 sums times the scale, [B, N]: every column the kernel
+    computes, not only the K it feeds back."""
     global mega_launches
     if x.device.type == "cpu":
-        return reference_int8_mega(x, w_q, scale)
+        return reference_int8_mega(x, w_q, scale, return_acc=return_acc)
     if x.device.type != "cuda":
         raise _not_cpu_or_cuda("int8_megakernel", x)
     name = "int8_megakernel"
     _check_mega_args(name, x, w_q, scale)
+    request = _mega_grid(grid_blocks)
     (b, k), (n_layers, _, n) = x.shape, w_q.shape
-    h = torch.empty((2, MEGA_ROWS, k), dtype=torch.float32, device=x.device)
+    hs = torch.empty((max(n_layers - 1, 1), MEGA_ROWS, k), dtype=torch.bfloat16,
+                     device=x.device)
+    flags = torch.zeros((n_layers,), dtype=torch.int32, device=x.device)
+    last = torch.empty((b, n), dtype=torch.float32, device=x.device)
     out = torch.empty((b, k), dtype=torch.bfloat16, device=x.device)
     grid = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         err = load_kernel().lib.ssr_int8_mega_bf16(
-            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), h.data_ptr(),
-            out.data_ptr(), b, n_layers, k, n, int(grid_blocks or 0),
-            ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), hs.data_ptr(),
+            flags.data_ptr(), last.data_ptr(), out.data_ptr(), b, n_layers, k, n,
+            request, ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} (grid of "
-                           f"{grid.value} blocks; a cooperative grid must be "
+                           f"{grid.value} blocks; a persistent grid must be "
                            f"resident at once)")
     mega_launches += 1
-    return out
+    return (out, last) if return_acc else out
+
+
+def int8_mega_stream(w_q, grid_blocks: Optional[int] = None) -> None:
+    """The megakernel's weight stream alone over int8 [L, K, N] weights: its
+    grid, ring and tiles with no products, h or flags (a measurement of the
+    rate the stream reaches, not a function: nothing is written). Not counted
+    in ``mega_launches``; needs the card."""
+    n_layers, k, n = w_q.shape
+    if w_q.dtype != torch.int8 or n < k or n % TILE_N or k % K_MULTIPLE:
+        raise ValueError(f"int8_mega_stream: int8 [L, K, N] with N >= K, N a "
+                         f"multiple of {TILE_N}, K of {K_MULTIPLE}; got "
+                         f"{w_q.dtype} {tuple(w_q.shape)}")
+    check_layout("int8_mega_stream", w_q=w_q)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(w_q.device):
+        err = load_kernel().lib.ssr_int8_mega_stream(
+            w_q.data_ptr(), n_layers, k, n, _mega_grid(grid_blocks), ctypes.byref(grid),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8_mega_stream launch failed: CUDA error {err} "
+                           f"(grid of {grid.value} blocks)")
+
+
+def mega_resident() -> int:
+    """The largest megakernel grid the card holds at once (blocks); needs the
+    card."""
+    blocks = ctypes.c_int(0)
+    err = load_kernel().lib.ssr_int8_mega_resident(ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"megakernel occupancy query failed: CUDA error {err}")
+    return blocks.value
 
 
 def occupancy(mode: str, rows: int) -> int:

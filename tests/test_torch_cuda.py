@@ -537,18 +537,100 @@ def test_int8_megakernel_matches_plain(device, b, layers, k, n):
 
 
 def test_int8_megakernel_smaller_grid_and_co_residency(device):
-    """Fewer blocks than tiles: each block walks several tiles, same result
-    bit for bit. More blocks than the device holds at once: refused with an
-    error instead of a launch that would never pass its barrier."""
+    """Fewer blocks than strips: each cluster walks several strips, same
+    result bit for bit. An odd grid (the blocks come in 2-block clusters) is
+    refused before any launch. More blocks than the device holds at once:
+    refused with an error instead of a launch whose blocks would wait for
+    flags that blocks never scheduled would have to raise."""
     x, wq, s = _i8_inputs(8, 256, 16384, 9, device, 3)
     full = i8.int8_megakernel(x, wq, s)
-    assert torch.equal(i8.int8_megakernel(x, wq, s, grid_blocks=7), full)
+    assert torch.equal(i8.int8_megakernel(x, wq, s, grid_blocks=6), full)
     i8.reset_launches()
+    with pytest.raises(ValueError, match="even"):
+        i8.int8_megakernel(x, wq, s, grid_blocks=7)
     with pytest.raises(RuntimeError, match="resident"):
         i8.int8_megakernel(x, wq, s, grid_blocks=100000)
     assert i8.mega_launches == 0
     torch.cuda.synchronize()
     assert torch.equal(i8.int8_megakernel(x, wq, s), full)  # the device is fine
+
+
+MEGA_SHAPES = [(8, 3, 128, 512), (2, 16, 128, 128), (5, 4, 256, 16384),
+               (3, 2, 288, 640), (2, 16, 2048, 8192), (8, 16, 2048, 8192)]
+
+
+def _per_column_rel(got, want):
+    """max over columns of max |got - want| / max |want| in that column."""
+    err = (got.float() - want.float()).abs().amax(dim=0)
+    return (err / want.float().abs().amax(dim=0).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("b,layers,k,n", [(8, 3, 128, 512), (3, 2, 288, 640),
+                                          (2, 4, 2048, 8192), (8, 4, 2048, 8192)])
+def test_int8_megakernel_walks_as_its_tiled_plain_version(device, b, layers, k, n):
+    """Layer by layer, from the kernel's own h: the first l + 1 layers
+    against ``tiled_int8_mega`` of layer l on the output of the first l
+    (the kernel's bits for a prefix are those of the prefix's launch). The
+    walk sums in the kernel's order, the tensor cores' order inside one
+    k-step aside, so the output agrees within one bf16 rounding and each of
+    the layer's fp32 sums within 1e-6 of sum_i |h_i w_ij| |s_j|, the scale
+    of its summation error (a column's largest of 2 rows can lie near 0).
+    A block's partial rounded to bf16 before the cluster's sum is off by
+    ~2^-9 of the partial: 1e-5 to 1e-4 of that scale at K = 2048."""
+    x, wq, s = _i8_inputs(b, k, n, 3 * layers + b, device, layers)
+    h = x
+    for layer in range(layers):
+        got, acc = i8.int8_megakernel(x, wq[:layer + 1], s[:layer + 1], return_acc=True)
+        want, want_acc = i8.tiled_int8_mega(h, wq[layer:layer + 1], s[layer:layer + 1],
+                                            return_acc=True)
+        terms = (h.float().abs() @ wq[layer].float().abs()) * s[layer].abs()
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 2.0 ** -8, f"layer {layer}"
+        err = ((acc - want_acc).abs() / terms.clamp_min(1e-30)).max().item()
+        assert err <= 1e-6, f"layer {layer}: sums {err:.3g} of sum |h w| |s|"
+        h = got
+
+
+@pytest.mark.parametrize("b,layers,k,n", MEGA_SHAPES)
+def test_int8_megakernel_return_acc_covers_every_column(device, b, layers, k, n):
+    """The last layer's fp32 sums on all N columns (not only the K fed
+    back) against the plain last layer taken from the kernel's own h before
+    it: a column the kernel skipped reads 0 or garbage and fails here."""
+    x, wq, s = _i8_inputs(b, k, n, layers + 2 * b, device, layers)
+    out, acc = i8.int8_megakernel(x, wq, s, return_acc=True)
+    h = i8.int8_megakernel(x, wq[:-1], s[:-1]) if layers > 1 else x
+    want = (h.float() @ wq[-1].float()) * s[-1].float()
+    torch.cuda.synchronize()
+    assert acc.shape == (b, n) and torch.isfinite(acc).all()
+    assert _per_column_rel(acc, want) <= REL
+    assert torch.equal(acc[:, :k].to(torch.bfloat16), out)
+
+
+@pytest.mark.parametrize("b,layers,k,n", [(8, 3, 256, 16384), (2, 16, 2048, 8192),
+                                          (8, 16, 2048, 8192)])
+def test_int8_megakernel_bit_identical_across_runs_and_grids(device, b, layers, k, n):
+    """A fixed order and no atomics on values: two runs and any even grid
+    (one cluster, a few, the kernel's own) give the same bits, output and
+    last-layer sums alike."""
+    x, wq, s = _i8_inputs(b, k, n, 11 * b, device, layers)
+    out, acc = i8.int8_megakernel(x, wq, s, return_acc=True)
+    resident = i8.mega_resident()
+    for grid in (None, None, 2, 6, 64, resident - resident % 2):
+        o, a = i8.int8_megakernel(x, wq, s, grid_blocks=grid, return_acc=True)
+        torch.cuda.synchronize()
+        assert torch.equal(o, out) and torch.equal(a, acc), grid
+
+
+def test_int8_mega_stream_runs_alone(device):
+    """The megakernel's weight stream without products (a measurement tool)
+    launches at full width and leaves the card usable; it counts no launch
+    of the megakernel."""
+    _, wq, _ = _i8_inputs(2, 2048, 8192, 1, device, 16)
+    i8.reset_launches()
+    i8.int8_mega_stream(wq)
+    i8.int8_mega_stream(wq, grid_blocks=6)
+    torch.cuda.synchronize()
+    assert i8.mega_launches == 0 and i8.mega_resident() >= 2
 
 
 def test_int8_kernels_refuse_what_they_cannot_take(device):

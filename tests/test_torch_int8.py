@@ -289,6 +289,90 @@ def test_mega_keeps_h_in_fp32_between_layers():
     assert _rel(_np(chain), _np(mega)) <= ULP
 
 
+@functools.lru_cache(maxsize=None)
+def _probe3_at(d, layers):
+    """probe 3's ``mega`` compiled for another D and L (F and BN as above)."""
+    return _probe_functions("int8_kernel_probe3.py", ["kern", "mega"],
+                            D=d, F=F, L=layers, BN=BN)["mega"]
+
+
+def _mega_inputs(d, layers, seed):
+    rng = np.random.default_rng(seed)
+    wq = rng.integers(-127, 127, size=(layers, d, F)).astype(np.int8)
+    s = (np.abs(rng.normal(size=(layers, 1, F))) * 0.01).astype(np.float32)
+    x = rng.normal(size=(8, d)).astype(np.float32)
+    return wq, s, x
+
+
+# the kernel's 256-row stages, and stages short enough that every block and
+# k-part of D = 128 gets a share
+@pytest.mark.parametrize("stage_rows", [256, 32])
+def test_tiled_mega_is_the_pallas_megakernel(probe3, stage_rows):
+    """The megakernel's walk (``tiled_int8_mega``: bf16 h slots, each layer
+    summed as the kernel's stages, parts and blocks add them) against probe
+    3's ``mega`` in interpret mode and against ``reference_int8_mega``, at
+    one bf16 ulp of the max; its first K fp32 columns round to its output."""
+    wq, s, x = _probe_inputs(8, seed=1 + stage_rows, layers=L)
+    want = np.asarray(probe3["mega"](jnp.asarray(x, jnp.bfloat16), jnp.asarray(wq),
+                                     jnp.asarray(s)), np.float32)
+    args = (_bf16(x), torch.from_numpy(wq), torch.from_numpy(s))
+    got, acc = ti8.tiled_int8_mega(*args, stage_rows=stage_rows, return_acc=True)
+    assert got.shape == (8, D) and got.dtype == torch.bfloat16
+    assert acc.shape == (8, F) and acc.dtype == torch.float32
+    assert _rel(_np(got), want) <= ULP
+    assert _rel(_np(got), _np(ti8.reference_int8_mega(*args))) <= ULP
+    assert torch.equal(acc[:, :D].to(torch.bfloat16), got)
+
+
+@pytest.mark.parametrize("d,layers", [(128, 1), (160, 2), (288, 2), (416, 3)])
+def test_tiled_mega_one_layer_and_k_off_the_stage_size(d, layers):
+    """One layer, and K not a multiple of the 256-row stage (160: one short
+    stage, the cluster's second block gets none; 288: a full stage and a
+    short one; 416: four feedback strips, the last past K, over two
+    stages), against probe 3 compiled at that D and L."""
+    wq, s, x = _mega_inputs(d, layers, seed=d + layers)
+    want = np.asarray(_probe3_at(d, layers)(jnp.asarray(x, jnp.bfloat16), jnp.asarray(wq),
+                                            jnp.asarray(s)), np.float32)
+    args = (_bf16(x), torch.from_numpy(wq), torch.from_numpy(s))
+    plain = ti8.int8_megakernel(*args)  # CPU tensors: the plain version
+    assert plain.shape == (8, d) and _rel(_np(plain), want) <= ULP
+    got = ti8.tiled_int8_mega(*args)
+    assert got.shape == (8, d) and _rel(_np(got), want) <= ULP
+
+
+@pytest.mark.parametrize("layers", [1, L])
+def test_mega_return_acc_is_the_last_layer_on_every_column(layers):
+    """``return_acc``: the last layer's fp32 sums times the scale on all N
+    columns, not only the K fed back. On the CPU the wrapper's is the plain
+    version's, bit for bit the last layer taken alone from the h before it;
+    the kernel's walk agrees within fp32 summation order, column by column."""
+    wq, s, x = _probe_inputs(5, seed=20 + layers, layers=layers)
+    args = (_bf16(x), torch.from_numpy(wq), torch.from_numpy(s))
+    out, acc = ti8.int8_megakernel(*args, return_acc=True)
+    assert torch.equal(out, ti8.int8_megakernel(*args))
+    h = ti8.reference_int8_mega(args[0], args[1][:-1], args[2][:-1]) if layers > 1 \
+        else args[0]
+    want = (h.float() @ args[1][-1].float()) * args[2][-1].float()
+    assert acc.shape == (5, F) and acc.dtype == torch.float32
+    assert torch.equal(acc, want)
+    _, walk = ti8.tiled_int8_mega(*args, return_acc=True)
+    err = (walk - want).abs().amax(dim=0)
+    assert (err <= 1e-6 * want.abs().amax(dim=0)).all()
+
+
+def test_mega_grid_requests():
+    """A grid of 2-block clusters: even requests are passed on, odd or
+    smaller than one cluster refused before any launch; None is the
+    kernel's own grid."""
+    assert ti8._mega_grid(None) == 0 and ti8._mega_grid(6) == 6
+    for bad in (7, 1, 0, -2):
+        with pytest.raises(ValueError, match="even"):
+            ti8._mega_grid(bad)
+    wq, _, _ = _probe_inputs(2, layers=L)
+    with pytest.raises(ValueError, match="is on cpu"):  # the stream needs the card
+        ti8.int8_mega_stream(torch.from_numpy(wq))
+
+
 # -------------------------------------------------- wrappers and the probe
 
 

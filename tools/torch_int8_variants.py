@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
-"""Variants of the int8 streaming kernel (K7/K8), timed against it on one card.
+"""Variants of the int8 streaming kernel (K7/K8) and the megakernel (K9),
+timed against them on one card.
 
     python3 tools/torch_int8_variants.py [--first_form FILE.cu] [--rounds 2]
+        [--only NAME,...] [--cases k8,k9]
 
 Each variant is ``ssr_speech_tpu_torch/csrc/int8_matmul.cu`` with a few lines
 replaced (``VARIANTS``: anchor, replacement; each anchor must occur once, so
 the tool fails loudly once the kernel changes). They are written beside it as
 ``int8_matmul_v_<name>.cu`` (removed at exit), built in parallel and loaded
-through ``int8_matmul._KERNEL``. ``--first_form`` adds the kernel a file
-holds as it is (for instance the PR 3 kernel, ``git show
-d28c1c8:ssr_speech_tpu_torch/csrc/int8_matmul.cu``), which has no switch for
-programmatic dependent launch. Per round, each kernel in turn, a line with
-the queued ms (``int8_probe.queued_ms``) of one 16-layer chain over 16
-distinct [2048, 8192] matrices in mode bf16 at 2, 8 and 64 rows and in mode
-int8 at 2 rows, and over one shared (L2-resident) matrix at 2 rows, each with
-PDL on and off. Outputs are checked against the kernel's: the int8 mode bit
-for bit, bf16 within 5e-2 of the largest (a variant may sum in another
-order); a ``probe_`` variant is not a kernel and is not checked. Needs the
-card.
+through ``int8_matmul._KERNEL``. ``--first_form`` adds the kernels a file
+holds as they are (for instance the tree before the megakernel's rebuild,
+whose megakernel is the first form: ``git show
+2413141:ssr_speech_tpu_torch/csrc/int8_matmul.cu``;
+a file without the switch for programmatic dependent launch gets a stub).
+Per round, each kernel in turn, a line with the queued ms
+(``int8_probe.queued_ms``) of
+
+- ``k8``: one 16-layer chain over 16 distinct [2048, 8192] matrices in mode
+  bf16 at 2, 8 and 64 rows and in mode int8 at 2 rows, and over one shared
+  (L2-resident) matrix at 2 rows, each with PDL on and off;
+- ``k9``: the megakernel over the same 16 distinct matrices at 2 and 8
+  rows, and, where the library has it, its weight stream alone
+  (``int8_mega_stream``: the persistent grid's ring with no products). The
+  first form's megakernel is called through its own signature (h fp32 [2,
+  8, K], no flags).
+
+Outputs are checked against the kernel's: the int8 mode bit for bit, bf16
+within 5e-2 of the largest (a variant may sum in another order; the
+megakernel's ring depth does not change its order, so its variants must
+agree bit for bit); a ``probe_`` variant is not a kernel and is not
+checked. Needs the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -60,12 +74,45 @@ VARIANTS = {
     # out (its output is not checked), for the rate the TMA ring reaches
     "probe_stream_only": (("      if (k0 < K) {  // warp-uniform; K is a multiple of kStep",
                            "      if (k0 < 0) {"),),
+    # the megakernel with a ring of 4 stages (128 KB) instead of 6
+    "mega_ring4": (("constexpr int kMegaStages = 6;", "constexpr int kMegaStages = 4;"),),
 }
 
-# the first form has no switch for programmatic dependent launch
+# a first form without the switch for programmatic dependent launch
 NO_PDL = '\nextern "C" int ssr_int8_set_pdl(int on) { return 0; }\n'
 CASES = (("bf16", 2, "distinct"), ("bf16", 8, "distinct"), ("bf16", 64, "distinct"),
          ("int8", 2, "distinct"), ("bf16", 2, "same"))
+MEGA_ROWS = (2, 8)
+
+
+def first_form_mega(lib, x, wq, s):
+    """The first form's megakernel entry point: (x, w, scale, h fp32 [2, 8, K], out,
+    B, L, K, N, grid_request, *grid_used, stream)."""
+    import ctypes
+
+    import torch
+
+    fn = lib.ssr_int8_mega_bf16
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.POINTER(i32), ptr]
+    (b, k), (n_layers, _, n) = x.shape, wq.shape
+    h = torch.empty((2, 8, k), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, k), dtype=torch.bfloat16, device=x.device)
+    grid = ctypes.c_int(0)
+    err = fn(x.data_ptr(), wq.data_ptr(), s.data_ptr(), h.data_ptr(), out.data_ptr(), b,
+             n_layers, k, n, 0, ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the first form's megakernel failed: CUDA error {err}")
+    return out
+
+
+def bind_first_form(i8, lib) -> None:
+    """Bind the entry points the first form shares with the kernel, so that
+    ``int8_matmul.load_kernel`` finds its library bound; its megakernel has
+    its own signature (``first_form_mega``) and it has no weight stream
+    alone."""
+    i8.bind(lib, [name for name in i8.ENTRY_POINTS
+                  if name != "ssr_int8_mega_bf16" and hasattr(lib, name)])
 
 
 def variant_source(src: str, edits) -> str:
@@ -82,7 +129,9 @@ def main(argv=None) -> dict:
     p.add_argument("--rounds", type=int, default=2)
     p.add_argument("--only", default=None, help="comma-separated variant names")
     p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--cases", default="k8,k9", help="k8, k9 or both")
     args = p.parse_args(argv)
+    cases = args.cases.split(",")
     import numpy as np
     import torch
 
@@ -92,13 +141,17 @@ def main(argv=None) -> dict:
     from ssr_speech_tpu_torch.ops import int8_matmul as i8
 
     device = resolve_device("cuda")
+    print("[card] " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
     src = (cuda_build.CSRC / "int8_matmul.cu").read_text()
     names = args.only.split(",") if args.only else list(VARIANTS)
     sources = {"kernel": None}
     for name in names:
         sources[name] = variant_source(src, VARIANTS[name])
     if args.first_form:
-        sources["first_form"] = Path(args.first_form).read_text() + NO_PDL
+        text = Path(args.first_form).read_text()
+        sources["first_form"] = text + ("" if "ssr_int8_set_pdl" in text else NO_PDL)
     libs = {}
     for name, text in sources.items():
         if text is None:
@@ -110,6 +163,8 @@ def main(argv=None) -> dict:
     try:
         with ThreadPoolExecutor(len(libs)) as pool:
             list(pool.map(cuda_build.load, libs.values()))
+        if "first_form" in libs:
+            bind_first_form(i8, cuda_build.load(libs["first_form"]).lib)
         d, f, n_layers = 2048, 8192, 16
         rng = np.random.default_rng(args.seed)
         wq = torch.from_numpy(rng.integers(-127, 127, size=(n_layers, d, f)).astype(np.int8)
@@ -123,9 +178,9 @@ def main(argv=None) -> dict:
             for name, lib in libs.items():
                 i8._KERNEL = lib
                 line = {}
-                for mode, rows, variant in CASES:
-                    if name == "first_form" and rows > 8:
-                        continue  # the first form takes at most 8 rows
+                for mode, rows, variant in CASES if "k8" in cases else ():
+                    if name.startswith("mega_"):
+                        continue  # the megakernel's variants leave K7/K8 as they are
                     w, sc = (wq, s) if variant == "distinct" else (wq[0], s[0])
                     run = lambda: i8.int8_matvec_chain(xs[rows], w, sc, mode, n_layers)  # noqa: E731
                     out = run()
@@ -147,9 +202,34 @@ def main(argv=None) -> dict:
                     finally:
                         i8.PDL = True
                     line[f"{mode} rows {rows} {variant}"] = (on, off)
+                lib_handle = i8.load_kernel().lib
+                for rows in MEGA_ROWS if "k9" in cases else ():
+                    if name == "first_form":
+                        run = lambda: first_form_mega(lib_handle, xs[rows], wq, s)  # noqa: E731
+                    else:
+                        run = lambda: i8.int8_megakernel(xs[rows], wq, s)  # noqa: E731
+                    out = run()
+                    key = ("mega", rows)
+                    if name.startswith("probe_"):
+                        pass
+                    elif key not in ref:
+                        ref[key] = out
+                    elif name.startswith("mega_") and not torch.equal(out, ref[key]):
+                        raise RuntimeError(f"{name} {key}: the megakernel differs")
+                    elif ((out.float() - ref[key].float()).abs().max()
+                          / ref[key].float().abs().max()).item() > 5e-2:
+                        raise RuntimeError(f"{name} {key}: differs beyond 5e-2")
+                    eager = int8_probe._time_ms(run, 3, device)
+                    q = int8_probe.queued_ms(run, eager, device)
+                    line[f"megakernel rows {rows}"] = (q, None)
+                if "k9" in cases and hasattr(lib_handle, "ssr_int8_mega_stream"):
+                    run = lambda: i8.int8_mega_stream(wq)  # noqa: E731
+                    eager = int8_probe._time_ms(run, 3, device)
+                    line["megakernel stream alone"] = (int8_probe.queued_ms(run, eager, device), None)
                 results.setdefault(name, []).append(line)
                 print(f"[int8 variants] round {rnd} {name}: " + "; ".join(
-                    f"{k} {v[0]:.4f} (PDL off {v[1]:.4f})" for k, v in line.items()), flush=True)
+                    f"{k} {v[0]:.4f}" + (f" (PDL off {v[1]:.4f})" if v[1] is not None else "")
+                    for k, v in line.items()), flush=True)
     finally:
         i8._KERNEL = "int8_matmul"
         for lib in libs.values():
