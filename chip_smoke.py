@@ -17,8 +17,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    two runs bit for bit); both also on five layouts that make the kernels
    skip tiles (a text-pad block, an audio-pad block, the banned [1, sx) row,
    ids beyond {0, 1}, rows alone in their segment), against the dense and
-   the tiled plain versions; ``tile_visits`` on the card against the dense
-   mask at every case, with the visited share of the causal tiles; the
+   the tiled plain versions; the forward at the multi-prompt prefill's
+   exact shape and per-row segments; ``tile_visits`` on the card against the
+   dense mask at every case, with the visited share of the causal tiles; the
    forward timed at the training batch's shape too; the fused CE head's forward, dhidden and dw2/db2 on
    the training batch (K = 4, N = B(Sy - 1), Hh = 1024, C = 2056, its
    targets), at N = 8000 and at two small ragged shapes (C no multiple of 8,
@@ -45,6 +46,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    watermarked edit (CFG stride 5) and a TTS request, each twice, greedy
    (--top_k 1). Each run must give a finite 16 kHz wav of the expected length,
    go through the prefill kernel once per layer, and repeat bit for bit.
+   Batched serving on the same bundles: one shared decode step (16 rows over
+   a shared prefill) against the single step on the same rows, within the
+   bf16 tolerance; the edit with ``--sample_batch_size 8`` (16 rows) twice,
+   its 8 greedy wavs identical to each other and over the runs, one prefill
+   launch per layer, aggregate RTF printed; and ``inference_multi`` over
+   three jobs (the edit, a two-span mask, a shorter text: 6 rows with ragged
+   text and prefix lengths) twice, bit for bit, one prefill launch per layer
+   per call, at the layout K1 was held at in step 3.
 5. Training: over the seeded synthetic corpus (600 utterances of 2-20 s),
    drive ``ssr_speech_tpu_torch.train_lm.main`` on the e830M geometry with
    the flash and fused-CE kernels, ScaledAdam and the CLI's dropouts for 6
@@ -58,7 +67,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    finite outputs; each chain's CUDA graph is captured from 16 launches and
    its replay equals the eager chain.
 7. Print the kernel report (JSON; each kernel's launches are those of steps
-   4 to 6, counted from zero before each; ``bound_ms`` is the least time the
+   4 to 6, counted from zero before each path, the flash forward's also by
+   path; ``bound_ms`` is the least time the
    card could take for the same work, from the inputs' bytes and operations
    and the published peaks below), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -188,7 +198,12 @@ def check_tile_visits(torch, fa, seg) -> float:
     return (vis & causal).sum().item() / (b * causal.sum().item())
 
 
-def check_flash(torch, device) -> dict:
+def check_flash(torch, device, multi_seg) -> dict:
+    """K1 against its plain versions: on the skip layouts, at the serving
+    prefills' shapes, and at the multi-prompt prefill's exact shape and
+    per-row segments ``multi_seg`` (each row its own dead text and prefix
+    tails), with the visited share of the tiles checked against the dense
+    mask at each."""
     from ssr_speech_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -263,6 +278,8 @@ def check_flash(torch, device) -> dict:
                                f"version at {shape}: {err} > {ATOL}")
         worst = max(worst, err)
         times[shape] = (ms, plain_ms)
+    multi = check_flash_multi(torch, fa, gen, multi_seg)
+    worst = max(worst, multi["max_abs_err"])
     fa.reset_launches()
     ms, plain_ms = times[MAIN_PATH_SHAPE]
     print(f"[flash] encoding the launch's three TMA tensor maps on the host: "
@@ -274,7 +291,51 @@ def check_flash(torch, device) -> dict:
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, **lower, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(attn_mask=causal & "
-                       "same segment)", "shape": list(MAIN_PATH_SHAPE)}
+                       "same segment)", "shape": list(MAIN_PATH_SHAPE),
+            "multi_prefill": multi}
+
+
+def check_flash_multi(torch, fa, gen, seg) -> dict:
+    """K1 at the multi-prompt prefill's shape [2S, 16, sx + P, 128] with its
+    per-row segments: the valid rows against the dense plain version, the
+    skip rule against the dense mask; kernel, plain and library timed with
+    CUDA events, the bound from the attending pairs."""
+    b, s = seg.shape
+    shape = (b, 16, s, 128)
+    q, k, v = (torch.randn(shape, generator=gen, device=seg.device,
+                           dtype=torch.float32).to(torch.bfloat16)
+               for _ in range(3))
+    share = check_tile_visits(torch, fa, seg)
+    fa.reset_launches()
+    got = fa.flash_attend_xy(q, k, v, seg)
+    torch.cuda.synchronize()
+    if fa.launches != 1:
+        raise RuntimeError("flash_attend_xy did not launch the kernel")
+    want = fa.reference_attend(q, k, v, seg, 1.0 / 128 ** 0.5)
+    valid = (seg == 1)[:, None, :, None].expand_as(got)
+    err = (got.float() - want.float()).abs()[valid].max().item()
+    if not (torch.isfinite(got).all() and err <= ATOL):
+        raise RuntimeError(f"flash kernel disagrees with the plain version at "
+                           f"the multi prefill {shape}: {err} > {ATOL}")
+    mask = attention_mask(torch, seg)
+    res = {"shape": list(shape), "max_abs_err": err,
+           "ms": cuda_time_ms(torch, lambda: fa.flash_attend_xy(q, k, v, seg)),
+           "plain_ms": cuda_time_ms(torch, lambda: fa.reference_attend(
+               q, k, v, seg, 1.0 / 128 ** 0.5)),
+           "library_ms": cuda_time_ms(
+               torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask)),
+           **bound(nbytes(q, k, v, seg) + nbytes(q),
+                   4 * 16 * 128 * attended_pairs(seg), "bf16"),
+           "visited_share_of_causal_tiles": share,
+           "valid_keys_by_row": (seg == 1).sum(dim=1).tolist()}
+    print(f"[flash] multi prefill {shape}, valid keys by row "
+          f"{res['valid_keys_by_row']}: max_abs_err valid rows {err:.3e} (tol "
+          f"{ATOL}); kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
+          f"ms, library {res['library_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']}; tile_visits covers "
+          f"the dense mask, visits {share:.3f} of the causal tiles")
+    return res
 
 
 WORDS = ["but", "when", "i", "had", "approached", "so", "near", "to",
@@ -282,6 +343,58 @@ WORDS = ["but", "when", "i", "had", "approached", "so", "near", "to",
 EDIT_TARGET = "but when i saw the mirage so near to them in the quiet morning light"
 TTS_TARGET = "a brand new sentence for the card to speak"
 PHONES = "abcdefghijklmnopqrstuvwxyz_.!?,'"
+WAV_SECONDS = 6.0  # the seeded source wav: 300 codec frames
+BATCH = 8  # --sample_batch_size of the batched request: 16 rows under CFG
+# the multi-prompt request's jobs (target text, mask in codec frames): the
+# edit (its own mask, None), the same audio with two spans, a shorter text
+MULTI_JOBS = ((EDIT_TARGET, None), (EDIT_TARGET, ((40, 80), (170, 210))),
+              ("i saw the mirage", None))
+
+
+def alignment_words(dur: float = WAV_SECONDS) -> list:
+    """(word, start, end) rows of the seeded wav's word alignment."""
+    step = dur / (len(WORDS) + 1)
+    return [(word, round(i * step + 0.05, 3), round((i + 1) * step, 3))
+            for i, word in enumerate(WORDS)]
+
+
+def multi_jobs(wav_path: str) -> list:
+    """``pipeline.inference_multi`` jobs of ``MULTI_JOBS`` over the wav; the
+    edit's mask is the CLI's for the edit request."""
+    from ssr_speech_tpu_torch.inference import cli
+
+    edit_mask = cli.prepare_job(alignment_words(), " ".join(WORDS),
+                                EDIT_TARGET, WAV_SECONDS)[3]
+    return [dict(audio_path=wav_path, target_text=text,
+                 mask_interval=[tuple(m) for m in (mask or edit_mask)])
+            for text, mask in MULTI_JOBS]
+
+
+def multi_layout(torch, cfg, device):
+    """The multi-prompt prefill's layout for ``MULTI_JOBS`` under CFG (2S
+    rows), from the host code ``generate_multi`` runs: (the lengths its
+    ``stats`` must report, segment ids [2S, sx + P] on ``device``)."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.data.tokenizer import TextTokenizer
+    from ssr_speech_tpu_torch.inference import decode, pipeline
+    from ssr_speech_tpu_torch.ops import patterns
+
+    tok = TextTokenizer(language="en-us")
+    phn2num = {c: i for i, c in enumerate(PHONES)}
+    y = np.zeros((cfg.n_codebooks, int(WAV_SECONDS * 50)), np.int32)
+    jobs = multi_jobs("")
+    x_lens = [len(pipeline.text_to_ids(tok, phn2num, j["target_text"]))
+              for j in jobs] * 2
+    p_lens = [patterns.build_inference_prefix(y, j["mask_interval"],
+                                              cfg.tokens)[0].shape[1]
+              for j in jobs]
+    sx = decode._bucket(max(x_lens), decode.X_BUCKET)
+    P = decode._bucket(max(p_lens), decode.PREFIX_BUCKET)
+    dead = decode.multi_dead_keys(torch.tensor(x_lens), torch.tensor(p_lens),
+                                  sx, P, aug_text=True, cfg_pretrained=True)
+    return (dict(x_lens=x_lens, p_lens=p_lens, sx_pad=sx, p_pad=P),
+            (~dead).to(device, torch.int32))
 
 
 def write_inputs(torch, device, work: Path, cfg, codec_cfg) -> dict:
@@ -310,19 +423,17 @@ def write_inputs(torch, device, work: Path, cfg, codec_cfg) -> dict:
     save_bundle(str(codec), params=twm.init_wmencodec(gen, codec_cfg, device),
                 config=codec_cfg)
     rng = np.random.default_rng(0)
-    sr, dur = 16000, 6.0
+    sr, dur = 16000, WAV_SECONDS
     t = np.arange(int(sr * dur)) / sr
     wav = (0.1 * np.sin(2 * np.pi * 220.0 * t) * np.sin(2 * np.pi * 1.3 * t)
            + 0.03 * rng.standard_normal(t.shape)).astype(np.float32)
     wav_path = work / "in.wav"
     audio_io.write_wav(str(wav_path), wav[None], sr)
     align = work / "align.csv"
-    step = dur / (len(WORDS) + 1)
     with open(align, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["word", "start", "end"])
-        for i, word in enumerate(WORDS):
-            w.writerow([word, round(i * step + 0.05, 3), round((i + 1) * step, 3)])
+        w.writerows(alignment_words())
     print(f"[inputs] LM {n_params / 1e6:.1f}M params ({cfg.num_layers} layers, "
           f"d_model {cfg.d_model}), codec n_filters {codec_cfg.seanet.n_filters}"
           f", {dur} s wav: written in "
@@ -337,17 +448,12 @@ def run_request(torch, device, inputs: dict, out_dir: Path, name: str,
     from ssr_speech_tpu_torch.ops import flash_attention as fa
 
     before = fa.launches
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
     stats = cli.main([
         "--device", str(device), "--model_path", inputs["lm"],
         "--codec_path", inputs["codec"], "--orig_audio", inputs["wav"],
         "--orig_transcript", " ".join(WORDS), "--alignment_file",
         inputs["align"], "--output_dir", str(out_dir), "--savename", name,
         "--top_k", "1", *extra])
-    stats["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 2 ** 30
-                            if cuda else float("nan"))
     stats["prefill_launches"] = fa.launches - before
     stats["wav_bytes"] = Path(stats["out_path"]).read_bytes()
     hop = inputs["codec_cfg"].hop_length
@@ -362,7 +468,7 @@ def run_request(torch, device, inputs: dict, out_dir: Path, name: str,
           f"{stats['prefill_tokens']} tokens, decode "
           f"{stats['decode_s'] / max(steps, 1) * 1e3:.2f} ms/step), RTF "
           f"{audio_s / stats['request_s']:.3f}x realtime, peak "
-          f"{stats['peak_mem_gb']:.2f} GiB, flash launches "
+          f"{stats['peak_mem_gib'] or float('nan'):.2f} GiB, flash launches "
           f"{stats['prefill_launches']}")
     if stats["sample_rate"] != 16000 or not stats["out_finite"]:
         raise RuntimeError(f"{name}: output not a finite 16 kHz waveform")
@@ -375,18 +481,26 @@ def run_request(torch, device, inputs: dict, out_dir: Path, name: str,
     return stats
 
 
+def serving_config():
+    """The 830M LM of z_scripts/e830M.sh, as __graft_entry__.py builds it."""
+    from ssr_speech_tpu_torch.config import SSRModelConfig
+
+    return SSRModelConfig(d_model=2048, nhead=16, num_layers=16,
+                          n_codebooks=4, text_vocab_size=120)
+
+
 def drive_main_path(torch, device, work: Path, card: str, cfg=None,
-                    codec_cfg=None) -> int:
+                    codec_cfg=None) -> dict:
     """The port's CLI on full-width bundles (by default the 830M
     configuration of z_scripts/e830M.sh, as __graft_entry__.py builds it, and
     the default encodec_large_nq4_s320 codec): an edit with the watermark
     splice and CFG (stride 5), and a TTS request, each twice. Returns the
-    flash kernel's launches in this phase."""
-    from ssr_speech_tpu_torch.config import CodecConfig, SSRModelConfig
+    flash kernel's launches in this phase, the inputs and the first edit
+    run's statistics."""
+    from ssr_speech_tpu_torch.config import CodecConfig
     from ssr_speech_tpu_torch.ops import flash_attention as fa
 
-    cfg = cfg or SSRModelConfig(d_model=2048, nhead=16, num_layers=16,
-                                n_codebooks=4, text_vocab_size=120)
+    cfg = cfg or serving_config()
     inputs = write_inputs(torch, device, work, cfg, codec_cfg or CodecConfig())
     requests = {
         "edit": ["--target_transcript", EDIT_TARGET, "--use_watermark",
@@ -415,7 +529,211 @@ def drive_main_path(torch, device, work: Path, card: str, cfg=None,
         raise RuntimeError(f"flash kernel launched {launches} times on the "
                            f"main path, expected {inputs['cfg'].num_layers} x "
                            f"{len(runs)} requests")
-    return launches
+    return dict(launches=launches, inputs=inputs, edit=runs[("edit", 1)])
+
+
+def cli_argv(device, inputs: dict, out_dir: Path, name: str, extra) -> list:
+    return ["--device", str(device), "--model_path", inputs["lm"],
+            "--codec_path", inputs["codec"], "--orig_audio", inputs["wav"],
+            "--orig_transcript", " ".join(WORDS), "--alignment_file",
+            inputs["align"], "--output_dir", str(out_dir), "--savename", name,
+            "--top_k", "1", *extra]
+
+
+def drive_batched_path(torch, device, main: dict, work: Path, card: str) -> dict:
+    """The CLI's edit request with ``--sample_batch_size 8`` (16 rows under
+    CFG), twice: every seed's wav finite, of the expected length and
+    identical to the others bit for bit (greedy), the two runs identical, one
+    flash launch per layer per request. Prints the aggregate RTF (8 x audio
+    s / request s), decode ms/step, prefill ms and peak GiB, and the first
+    decode step at which a chain differs from the single edit's (not a
+    gate: another row count may round a near-tie the other way). Returns
+    the flash kernel's launches in this phase and the first run's
+    statistics."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.inference import cli
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    inputs = main["inputs"]
+    cfg = inputs["cfg"]
+    hop = inputs["codec_cfg"].hop_length
+    extra = ["--target_transcript", EDIT_TARGET, "--use_watermark",
+             "--aug_text", "--cfg_pretrained", "--cfg_stride", "5",
+             "--sample_batch_size", str(BATCH)]
+    fa.reset_launches()  # count only this path's launches
+    runs = []
+    for rep in (1, 2):
+        before = fa.launches
+        st = cli.main(cli_argv(device, inputs, work / "out", f"batch_{rep}",
+                               extra))
+        st["prefill_launches"] = fa.launches - before
+        st["wav_bytes"] = [Path(p).read_bytes() for p in st["out_paths"]]
+        audio_s = sum(st["out_samples"]) / st["sample_rate"]
+        steps = st["decode_steps"]
+        st["aggregate_rtf"] = audio_s / st["request_s"]
+        print(f"[batch-{BATCH}] run {rep}: {steps} decode steps of "
+              f"{2 * BATCH} rows, {len(st['out_paths'])} wavs of "
+              f"{st['out_samples'][0] / st['sample_rate']:.2f} s; request "
+              f"{st['request_s']:.3f} s (prefill {st['prefill_s'] * 1e3:.1f} "
+              f"ms for {st['prefill_tokens']} tokens, decode "
+              f"{st['decode_s'] / max(steps, 1) * 1e3:.2f} ms/step), aggregate "
+              f"RTF {st['aggregate_rtf']:.3f}x realtime ({BATCH} x audio s / "
+              f"request s), peak {st['peak_mem_gib'] or float('nan'):.2f} GiB, "
+              f"flash launches {st['prefill_launches']} [{card}]")
+        expect = [f * hop for f in st["output_frames"]]
+        if (st["n_samples"] != BATCH or not st["out_finite"]
+                or st["sample_rate"] != 16000):
+            raise RuntimeError(f"batch run {rep}: not {BATCH} finite 16 kHz wavs")
+        if st["out_samples"] != expect or min(expect) <= 0:
+            raise RuntimeError(f"batch run {rep}: {st['out_samples']} samples, "
+                               f"expected {expect}")
+        if len(set(st["wav_bytes"])) != 1:
+            raise RuntimeError(f"batch run {rep}: the {BATCH} greedy chains "
+                               "differ from each other")
+        if st["prefill_launches"] != cfg.num_layers:
+            raise RuntimeError(f"batch run {rep}: {st['prefill_launches']} "
+                               "flash launches, expected one per layer")
+        runs.append(st)
+    launches = fa.launches
+    if runs[0]["wav_bytes"] != runs[1]["wav_bytes"]:
+        raise RuntimeError("batched greedy output differs between runs")
+    single, batch = main["edit"]["out_tokens"], runs[0]["out_tokens"][0]
+    diff = np.nonzero((single != batch).any(axis=0))[0]
+    print(f"[batch-{BATCH}] {BATCH} chains bit-identical to each other and over "
+          f"two runs; against the single edit request ({main['edit']['decode_steps']} "
+          f"steps, {runs[0]['decode_steps']} here): "
+          + (f"first differs at decode step {int(diff[0])}" if diff.size
+             else "the same tokens at every step"))
+    return dict(launches=launches, stats=runs[0])
+
+
+def drive_multi_path(torch, device, main: dict, layout: dict, card: str) -> dict:
+    """``pipeline.inference_multi`` over ``MULTI_JOBS`` (6 rows under CFG,
+    stride 5, greedy, watermarked), twice: finite waveforms, bit-identical
+    between runs, one flash launch per layer per call, and the prefill's
+    layout (text and prefix lengths, pads) the one ``check_flash`` held K1
+    at. Returns the flash kernel's launches in this phase and the first
+    call's statistics."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.data.tokenizer import TextTokenizer
+    from ssr_speech_tpu_torch.inference import pipeline
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    inputs = main["inputs"]
+    lm, cfg, phn2num = pretrained.load_lm(inputs["lm"], device)
+    audio_tok = pretrained.load_codec(inputs["codec"], device)
+    text_tok = TextTokenizer(language="en-us")
+    dec = DecodeConfig(top_k=1, cfg_pretrained=True)  # the CLI's edit flags
+    jobs = multi_jobs(inputs["wav"])
+    cuda = device.type == "cuda"
+    fa.reset_launches()  # count only this path's launches
+    runs = []
+    for rep in (1, 2):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        stats = {}
+        t0 = time.perf_counter()
+        outs = pipeline.inference_multi(lm, cfg, dec, phn2num, text_tok,
+                                        audio_tok, jobs, use_watermark=True,
+                                        stats=stats)
+        stats["request_s"] = time.perf_counter() - t0
+        stats["peak_mem_gib"] = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                                 if cuda else float("nan"))
+        audio_s = sum(o.shape[1] for o in outs) / audio_tok.sample_rate
+        steps = stats["decode_steps"]
+        stats["aggregate_rtf"] = audio_s / stats["request_s"]
+        print(f"[multi-{len(jobs)}] run {rep}: masks "
+              f"{[j['mask_interval'] for j in jobs]}, {steps} decode steps of "
+              f"{2 * len(jobs)} rows; request {stats['request_s']:.3f} s "
+              f"(prefill {stats['prefill_s'] * 1e3:.1f} ms for "
+              f"{stats['prefill_tokens']} tokens, decode "
+              f"{stats['decode_s'] / max(steps, 1) * 1e3:.2f} ms/step), "
+              f"{audio_s:.2f} s of audio, aggregate RTF "
+              f"{stats['aggregate_rtf']:.3f}x realtime, peak "
+              f"{stats['peak_mem_gib']:.2f} GiB [{card}]")
+        if not all(o.shape[1] > 0 and np.isfinite(o).all() for o in outs):
+            raise RuntimeError(f"multi run {rep}: empty or non-finite output")
+        got = {k: stats[k] for k in layout}
+        if got != layout:
+            raise RuntimeError(f"multi prefill ran at {got}; the kernel check "
+                               f"took {layout}")
+        runs.append((outs, stats))
+    launches = fa.launches
+    if launches != 2 * cfg.num_layers:
+        raise RuntimeError(f"multi path: {launches} flash launches, expected "
+                           f"one per layer per call")
+    if not all(np.array_equal(a, b) for a, b in zip(runs[0][0], runs[1][0])):
+        raise RuntimeError("multi-prompt greedy output differs between runs")
+    print(f"[multi-{len(jobs)}] outputs bit-identical over two runs; flash "
+          f"launches {launches}")
+    return dict(launches=launches, stats=runs[0][1])
+
+
+def check_shared_step(torch, device, main: dict) -> dict:
+    """One shared decode step against ``transformer_decode_step`` from the
+    same prefill: the edit request's prompt (its text, seeded source codes,
+    its mask) prefilled once with ``tmax`` as ``generate_batch`` takes it;
+    ``BATCH`` chains a CFG group through the shared step and the [cond,
+    uncond] pair through the single step, each fed the first span's
+    sentinel. The 16 rows' logits must lie within ``REL`` of the max of the
+    single step's (the bf16 tolerance of the prefill check)."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.data.tokenizer import TextTokenizer
+    from ssr_speech_tpu_torch.inference import decode, pipeline
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models import transformer as trf
+
+    inputs = main["inputs"]
+    lm, cfg, phn2num = pretrained.load_lm(inputs["lm"], device)
+    dtype = lm["decoder"]["layers"]["qkv_w"].dtype
+    dec = DecodeConfig(top_k=1, cfg_pretrained=True)
+    x = pipeline.text_to_ids(TextTokenizer(language="en-us"), phn2num,
+                             EDIT_TARGET)
+    y = np.random.default_rng(0).integers(
+        0, 2048, size=(cfg.n_codebooks, int(WAV_SECONDS * 50)))
+    mask = multi_jobs("")[0]["mask_interval"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    p = decode._one_prompt(lm, cfg, dec, x, y, mask, gen, None, None, None,
+                           "check_shared_step")
+    with torch.no_grad():
+        pfx, banned = decode._prefill_impl(
+            lm, p["xb"], p["prefix"], p["x_len"], p["p_len"], cfg=cfg,
+            tmax=decode._bucket(p["sx_pad"] + p["p_pad"] + 8, 256),
+            dtype=dtype, cfg_pretrained=True, aug_text=True)
+        single = trf.KVCache(pfx.k.clone(), pfx.v.clone(), pfx.length)
+        pe = tssr.sine_table(cfg.max_position, cfg.d_model, device=device)
+        tokens = p["sentinels"][0].expand(BATCH, cfg.n_codebooks)
+        h = decode._embed_step_tokens(lm, cfg, tokens, pe, p["p_len"], True,
+                                      dtype)
+        gen_cache = trf.init_kv_cache(cfg, 2 * BATCH, 128, dtype=dtype,
+                                      device=device)
+        out_b, _ = trf.transformer_decode_step_shared(
+            lm["decoder"], h, pfx, gen_cache, banned, cfg, n_groups=2,
+            dtype=dtype)
+        out_s, _ = trf.transformer_decode_step(
+            lm["decoder"], h[[0, BATCH]], single, banned, cfg, dtype=dtype)
+        got = tssr.predict_logits(lm, out_b)
+        want = tssr.predict_logits(lm, out_s)[[0] * BATCH + [1] * BATCH]
+    err = rel_err(got, want)
+    argmax = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    rows_equal = all(torch.equal(got[i], got[g * BATCH])
+                     for g in (0, 1) for i in range(g * BATCH, (g + 1) * BATCH))
+    print(f"[shared step] {2 * BATCH} rows over a shared prefill of "
+          f"{pfx.length} keys against transformer_decode_step on [cond, "
+          f"uncond]: logits max err / max {err:.2e} (tol {REL}); argmax "
+          f"agrees on {argmax:.3f} of the codebook rows; the chains of a group "
+          + ("bit-identical" if rows_equal else "NOT bit-identical"))
+    if not err <= REL or not rows_equal:
+        raise RuntimeError(f"the shared decode step disagrees with the single "
+                           f"step: {err} (tol {REL}), rows equal {rows_equal}")
+    return {"rel_err": err, "argmax_agreement": argmax}
 
 
 def check_small_reference(torch, device) -> None:
@@ -1389,13 +1707,19 @@ def main() -> int:
               f"{list(batch['y'].shape)}; kernel checks at attention "
               f"{list(attn_case[0])} and CE {list(ce_case[0])}")
         flash_bwd, fwd_train = check_flash_backward(torch, device, attn_case)
-        kernels = [check_flash(torch, device), flash_bwd,
+        layout, multi_seg = multi_layout(torch, serving_config(), device)
+        kernels = [check_flash(torch, device, multi_seg), flash_bwd,
                    *check_fused_ce(torch, device, ce_case),
                    *check_int8(torch, device)]
         del attn_case, ce_case
         check_small_reference(torch, device)
         check_small_train_step(torch, device)
         serving = drive_main_path(torch, device, work, card)
+        check_shared_step(torch, device, serving)
+        batched = drive_batched_path(torch, device, serving, work, card)
+        multi = drive_multi_path(torch, device, serving, layout, card)
+        gc.collect()
+        torch.cuda.empty_cache()
         training = drive_training_path(
             torch, device, argv, card,
             (batch["x"].shape[0], batch["x"].shape[1], batch["y"].shape[1]))
@@ -1407,14 +1731,17 @@ def main() -> int:
     for entry in kernels:
         entry["launches"] = {**training, **streaming}[entry["name"]]
     fwd = kernels[0]
-    fwd["launches_by_path"] = {"serving": serving,
+    fwd["launches_by_path"] = {"serving": serving["launches"],
+                               "batched": batched["launches"],
+                               "multi": multi["launches"],
                                "training": training[fwd["name"]]}
-    fwd["launches"] = serving + training[fwd["name"]]
-    # the top-level numbers are the serving prefill's; both paths' shapes here
+    fwd["launches"] = sum(fwd["launches_by_path"].values())
+    # the top-level numbers are the serving prefill's; every path's shape here
     fwd["by_shape"] = {
         "serving": {key: fwd[key] for key in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")},
+        "multi": fwd.pop("multi_prefill"),
         "training": fwd_train}
     # the TPU package has two forward kernels (library flash and splash); one
     # Hopper kernel replaces both, so the report lists it once for each

@@ -7,8 +7,9 @@
 The flags are those of ``ssr_speech_tpu.inference.cli`` plus ``--device``
 (default ``cuda``; asking for it without a card is an error, never a silent
 CPU run). The word alignment comes from ``--alignment_file`` (CSV rows
-``word,start,end``); the whisper / wav2vec2 aligners and
-``--sample_batch_size > 1`` are not ported yet.
+``word,start,end``); the whisper / wav2vec2 aligners are not ported yet.
+``--sample_batch_size N`` > 1 decodes N seeds of the request in one loop and
+writes ``{savename}_seed{seed + i}.wav`` for i < N.
 """
 
 from __future__ import annotations
@@ -130,11 +131,14 @@ def prepare_job(words, orig_transcript, target_transcript, audio_dur, *,
 
 
 def main(argv=None) -> Optional[Dict]:
-    """Run one request. Returns a summary dict (output path, frame counts,
-    timings) for callers that drive the CLI in-process."""
+    """Run one request. Returns a summary dict (output path or, with
+    ``--sample_batch_size`` > 1, paths; frame counts, timings, peak device
+    memory) for callers that drive the CLI in-process."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     t0 = time.perf_counter()
+
+    import torch
 
     from ..config import DecodeConfig
     from ..utils import audio as audio_io
@@ -146,9 +150,9 @@ def main(argv=None) -> Optional[Dict]:
 
     device = resolve_device(args.device)
     set_precision_policy()
-    if args.sample_batch_size > 1:
-        raise NotImplementedError(
-            "--sample_batch_size > 1 (batched seeds) is not yet ported")
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     if args.whisper_model or args.whisper_model_name or args.align_model:
         raise NotImplementedError("the whisper / wav2vec2 aligners are not "
                                   "yet ported: pass --alignment_file")
@@ -187,25 +191,40 @@ def main(argv=None) -> Optional[Dict]:
                         "wav header is labeled %d (no resample)", out_sr,
                         audio_tok.sample_rate, out_sr)
     stats: Dict = {}
-    out = pipeline.inference_one_sample(
-        lm, cfg, dec, phn2num, text_tok, audio_tok, args.orig_audio,
-        orig_transcript, target_text, mask_intervals,
-        use_watermark=args.use_watermark, tts=args.tts, seed=args.seed,
-        stats=stats)
-    out_path = os.path.join(args.output_dir, f"{args.savename}.wav")
-    audio_io.write_wav(out_path, out[0, :, 0], out_sr)
-    if device.type == "cuda":
-        import torch
-
+    if args.sample_batch_size > 1:
+        # all seeds decoded in one loop
+        outs = pipeline.inference_batch(
+            lm, cfg, dec, phn2num, text_tok, audio_tok, args.orig_audio,
+            target_text, mask_intervals, n_samples=args.sample_batch_size,
+            use_watermark=args.use_watermark, tts=args.tts, seed=args.seed,
+            stats=stats)
+        paths = [os.path.join(args.output_dir,
+                              f"{args.savename}_seed{args.seed + i}.wav")
+                 for i in range(len(outs))]
+    else:
+        outs = [pipeline.inference_one_sample(
+            lm, cfg, dec, phn2num, text_tok, audio_tok, args.orig_audio,
+            orig_transcript, target_text, mask_intervals,
+            use_watermark=args.use_watermark, tts=args.tts, seed=args.seed,
+            stats=stats)]
+        paths = [os.path.join(args.output_dir, f"{args.savename}.wav")]
+    for path, out in zip(paths, outs):
+        audio_io.write_wav(path, out[0, :, 0], out_sr)
+    if cuda:
         torch.cuda.synchronize(device)
     t_end = time.perf_counter()
     logging.info("Running time: %.2f s", t_end - t0)
-    stats.update(out_path=out_path, out_samples=int(out.shape[1]),
-                 out_finite=bool(np.isfinite(out).all()),
+    stats.update(out_finite=all(bool(np.isfinite(o).all()) for o in outs),
                  sample_rate=out_sr, load_s=t_loaded - t0,
-                 request_s=t_end - t_loaded, mask_intervals=mask_intervals)
+                 request_s=t_end - t_loaded, mask_intervals=mask_intervals,
+                 peak_mem_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
+                               if cuda else None))
+    if args.sample_batch_size > 1:
+        stats.update(n_samples=len(outs), out_paths=paths,
+                     out_samples=[int(o.shape[1]) for o in outs])
+    else:
+        stats.update(out_path=paths[0], out_samples=int(outs[0].shape[1]))
     return stats
-
 
 if __name__ == "__main__":
     main()

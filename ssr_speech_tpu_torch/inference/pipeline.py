@@ -1,11 +1,13 @@
 """End-to-end inference: text + audio -> edited or synthesized waveform (port of
-the single-sample path of ``ssr_speech_tpu/inference/pipeline.py``).
+``ssr_speech_tpu/inference/pipeline.py``).
 
 Phonemize the target text, codec-encode the source audio, run the LM's span
-infilling (``decode.generate``), then either the watermark decode (original
-samples copied into the un-edited regions, the watermark embedded in the
-generated ones) or a plain codec decode, and crop the prompt for TTS. The
-host helpers are restated from the JAX module, which imports JAX.
+infilling (``decode.generate``; ``generate_batch`` for several seeds of one
+request, ``generate_multi`` for several requests), then either the watermark
+decode (original samples copied into the un-edited regions, the watermark
+embedded in the generated ones) or a plain codec decode, and crop the prompt
+for TTS. The host helpers are restated from the JAX module, which imports
+JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..config import DecodeConfig, SSRModelConfig
 from ..data.tokenizer import (AudioTokenizer, TextTokenizer, tokenize_audio,
                               tokenize_text)
 from . import decode as decode_mod
+from . import serve
 
 logger = logging.getLogger(__name__)
 
@@ -127,6 +130,27 @@ def splice_waveform(wav: np.ndarray, n_frames: int, hop: int, nm, out_iv
     return new_wav
 
 
+def _render_waveform(audio_tokenizer: AudioTokenizer, result, wav: np.ndarray,
+                    scale, use_watermark: bool, tts: bool) -> np.ndarray:
+    """One decoded result (codes, marks, out_intervals, nm_intervals) ->
+    waveform [1, T, 1]: the watermark decode over the source samples spliced
+    into the un-edited regions, or a plain decode; TTS drops the prompt."""
+    out_codes, marks, out_intervals, nm = result
+    hop = audio_tokenizer.cfg.hop_length
+    if use_watermark:
+        new_wav = splice_waveform(wav, out_codes.shape[2], hop, nm, out_intervals)
+        out = audio_tokenizer.wmdecode(out_codes, marks, new_wav, scale)
+    else:
+        out = audio_tokenizer.decode(out_codes, scale)
+    if tts:
+        out = out[:, out_intervals[0][1] * hop:]
+    return out
+
+
+def _generator(lm, seed: int) -> torch.Generator:
+    return torch.Generator(device=lm["text_emb"].device).manual_seed(seed)
+
+
 def inference_one_sample(lm, cfg: SSRModelConfig, dec: DecodeConfig,
                          phn2num: Dict[str, int], text_tokenizer: TextTokenizer,
                          audio_tokenizer: AudioTokenizer, audio_path: str,
@@ -144,24 +168,77 @@ def inference_one_sample(lm, cfg: SSRModelConfig, dec: DecodeConfig,
     y = codes[0]  # [K, F]
     logger.info("source audio: %d codec frames (%.2f s)", y.shape[1],
                 y.shape[1] / dec.codec_sr)
-    gen = torch.Generator(device=lm["text_emb"].device).manual_seed(seed)
     # aug_context feeds the original codes as the context audio too
-    out_codes, marks, out_intervals, nm = decode_mod.generate(
-        lm, cfg, dec, x, y, list(mask_interval), gen, prompt_x=prompt_x,
-        prompt_y=y, stats=stats)
+    result = decode_mod.generate(
+        lm, cfg, dec, x, y, list(mask_interval), _generator(lm, seed),
+        prompt_x=prompt_x, prompt_y=y, stats=stats)
+    out_codes, _, out_intervals, _ = result
     logger.info("generated %d codec frames (%.2f s)", out_codes.shape[2],
                 out_codes.shape[2] / dec.codec_sr)
     if stats is not None:
         stats["source_frames"] = int(y.shape[1])
         stats["output_frames"] = int(out_codes.shape[2])
         stats["out_intervals"] = out_intervals
+    return _render_waveform(audio_tokenizer, result, wav, scale, use_watermark,
+                           tts)
 
-    hop = audio_tokenizer.cfg.hop_length
-    if use_watermark:
-        new_wav = splice_waveform(wav, out_codes.shape[2], hop, nm, out_intervals)
-        out = audio_tokenizer.wmdecode(out_codes, marks, new_wav, scale)
-    else:
-        out = audio_tokenizer.decode(out_codes, scale)
-    if tts:
-        out = out[:, out_intervals[0][1] * hop:]
-    return out
+
+def inference_batch(lm, cfg: SSRModelConfig, dec: DecodeConfig,
+                    phn2num: Dict[str, int], text_tokenizer: TextTokenizer,
+                    audio_tokenizer: AudioTokenizer, audio_path: str,
+                    target_text: str, mask_interval: Sequence[Span],
+                    n_samples: int, use_watermark: bool = True,
+                    tts: bool = False, seed: int = 1,
+                    stats: Optional[Dict] = None) -> List[np.ndarray]:
+    """``n_samples`` seeds of one request decoded in one loop
+    (``decode.generate_batch``). Returns a list of waveforms [1, T, 1];
+    ``stats`` as in :func:`inference_one_sample`, with the frame counts and
+    intervals per chain."""
+    x = text_to_ids(text_tokenizer, phn2num, target_text)
+    codes, scale, _, wav = tokenize_audio(audio_tokenizer, audio_path)
+    y = codes[0]
+    results = decode_mod.generate_batch(
+        lm, cfg, dec, x, y, list(mask_interval), _generator(lm, seed),
+        n_samples, stats=stats)
+    if stats is not None:
+        stats["source_frames"] = int(y.shape[1])
+        stats["output_frames"] = [int(r[0].shape[2]) for r in results]
+        stats["out_intervals"] = [r[2] for r in results]
+    return [_render_waveform(audio_tokenizer, r, wav, scale, use_watermark, tts)
+            for r in results]
+
+
+def inference_multi(lm, cfg: SSRModelConfig, dec: DecodeConfig,
+                    phn2num: Dict[str, int], text_tokenizer: TextTokenizer,
+                    audio_tokenizer: AudioTokenizer, jobs: Sequence[Dict],
+                    use_watermark: bool = True, seed: int = 1,
+                    continuous: bool = False, n_slots: int = 8,
+                    stats: Optional[Dict] = None) -> List[np.ndarray]:
+    """Several different requests decoded in one loop
+    (``decode.generate_multi``). Each job: {audio_path, target_text,
+    mask_interval, tts?}. Up to ``n_slots`` jobs go in one batch; more go
+    in static batches of neighbours by text length
+    (``serve.sorted_static_batches``), each from a generator seeded with
+    ``seed``. Returns waveforms in job order;
+    ``stats`` receives the last batch's decode statistics."""
+    if continuous:
+        raise NotImplementedError(
+            "continuous=True (the continuous-batching server) is not ported "
+            "yet: ROADMAP item 8, serving and streaming")
+    prompts, metas = [], []
+    for job in jobs:
+        x = text_to_ids(text_tokenizer, phn2num, job["target_text"])
+        codes, scale, _, wav = tokenize_audio(audio_tokenizer, job["audio_path"])
+        prompts.append((x, codes[0], list(job["mask_interval"])))
+        metas.append((wav, bool(job.get("tts", False)), scale))
+    batches = (serve.sorted_static_batches(prompts, n_slots)
+               if len(prompts) > n_slots else [list(range(len(prompts)))])
+    results = [None] * len(prompts)
+    for batch in batches:
+        outs = decode_mod.generate_multi(lm, cfg, dec,
+                                         [prompts[i] for i in batch],
+                                         _generator(lm, seed), stats=stats)
+        for i, r in zip(batch, outs):
+            results[i] = r
+    return [_render_waveform(audio_tokenizer, r, wav, scale, use_watermark, tts)
+            for (wav, tts, scale), r in zip(metas, results)]

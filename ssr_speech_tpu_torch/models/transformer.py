@@ -273,3 +273,64 @@ def transformer_decode_step(params, h_t: torch.Tensor, cache: KVCache,
         h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True)
     out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
     return out[:, 0, :], KVCache(cache.k, cache.v, pos + 1)
+
+
+def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
+                                   gen: KVCache, key_banned: torch.Tensor,
+                                   cfg: SSRModelConfig, *, n_groups: int,
+                                   dtype=torch.bfloat16,
+                                   layers=None) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode of ``n_groups * S`` chains over a shared prompt cache
+    (JAX ``transformer_decode_step_shared``).
+
+    h_t: [B, D], B = n_groups * S in group-major rows. ``pfx`` [L, G, H, Tp,
+    Dh] holds each group's prompt once, read once a step for its S chains;
+    ``gen`` [L, B, H, Tg, Dh] holds each chain's generated positions, and the
+    new K/V are written into it in place at ``gen.length``. ``key_banned``
+    is the banned prefix key range [G, 2] (keys at and beyond ``pfx.length``
+    are banned too) or a bool mask [G, Tp] that the multi-prompt prefill
+    builds True from ``pfx.length`` on. Keys [0, pfx.length) of the prefix
+    and [0, gen.length] of the generated cache are read: JAX reads both
+    whole buffers with the rest masked, which adds exact zeros to the same
+    softmax. The arithmetic is JAX's: q scaled (in ``dtype``) before the
+    products, fp32 scores and one softmax over [prefix ; generated],
+    probabilities in ``dtype``, the last residual ``(h + ff @ w2) + b2``.
+    Returns (out [B, D], gen advanced by one)."""
+    act = _ffn_act(cfg)
+    b, d = h_t.shape
+    s = b // n_groups
+    nhead, dh = cfg.nhead, cfg.head_dim
+    gpos, tp = gen.length, pfx.length
+    if gpos >= gen.max_len:
+        raise ValueError(f"generated KV cache full ({gen.max_len} positions)")
+    if key_banned.dtype == torch.bool:
+        pfx_banned = key_banned[:, :tp]
+    else:
+        idx = torch.arange(tp, device=key_banned.device)[None, :]
+        pfx_banned = (idx >= key_banned[:, :1]) & (idx < key_banned[:, 1:2])
+    zero = torch.zeros((), dtype=torch.float32, device=h_t.device)
+    pfx_bias = torch.where(pfx_banned, -1e9, zero)[:, None, None, :]
+    # JAX multiplies by the scale as a weakly typed constant: in ``dtype``
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=dtype, device=h_t.device)
+    h = h_t.to(dtype)[:, None, :]
+    for l, lp in enumerate(layers or layer_params(params)):
+        hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
+        q, k, v = _qkv(lp, hn, nhead)  # [B, H, 1, Dh]
+        gen.k[l, :, :, gpos:gpos + 1] = k
+        gen.v[l, :, :, gpos:gpos + 1] = v
+        qs = q * scale
+        # prefix scores: the group's K read once for its S chains [G, H, S, Tp]
+        qg = qs.reshape(n_groups, s, nhead, dh).transpose(1, 2)
+        sp = torch.matmul(qg.float(), pfx.k[l, :, :, :tp].float()
+                          .transpose(-1, -2)) + pfx_bias
+        sg = torch.matmul(qs.float(), gen.k[l, :, :, :gpos + 1].float()
+                          .transpose(-1, -2))  # [B, H, 1, gpos + 1]
+        sg = sg.reshape(n_groups, s, nhead, gpos + 1).transpose(1, 2)
+        p = torch.softmax(torch.cat([sp, sg], dim=-1), dim=-1).to(dtype)
+        out_p = torch.matmul(p[..., :tp], pfx.v[l, :, :, :tp])  # [G, H, S, Dh]
+        pg = p[..., tp:].transpose(1, 2).reshape(b, nhead, 1, gpos + 1)
+        out_g = torch.matmul(pg, gen.v[l, :, :, :gpos + 1])  # [B, H, 1, Dh]
+        attn = out_p.transpose(1, 2).reshape(b, nhead, 1, dh) + out_g
+        h = _post_attention(lp, h, attn.reshape(b, 1, d), act, bias_last=True)
+    out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
+    return out[:, 0, :], KVCache(gen.k, gen.v, gpos + 1)

@@ -1,8 +1,9 @@
 """The port's CLI against the JAX CLI on the CPU, on tiny random bundles (the
 recipe of tests/test_cli_integration.py): the same edit and TTS requests,
-greedy, with the JAX decode pinned to fp32, must write the same wav. Also:
-the port's bundles load in the JAX package, its init matches the JAX init's
-structure, its CLI imports no JAX, and it refuses what it does not run."""
+greedy, with the JAX decode pinned to fp32, must write the same wav, and so
+must ``--sample_batch_size 3``'s three. Also: the port's bundles load in the
+JAX package, its init matches the JAX init's structure, its CLI imports no
+JAX, and it refuses what it does not run."""
 
 import csv
 import dataclasses
@@ -178,13 +179,46 @@ def test_cli_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_cli_sample_batch_size_matches_jax_cli(artifacts, monkeypatch):
+    """--sample_batch_size 3: the seeds decoded in one loop, one wav a seed
+    (``{savename}_seed{seed + i}``), each within one LSB of the JAX CLI's;
+    greedy, so the three are the same."""
+    out = artifacts["dir"] / "out_batch"
+    extra = REQUESTS["edit_watermark_cfg"] + ["--sample_batch_size", "3",
+                                              "--seed", "4"]
+    stats = tcli.main(_argv(artifacts, out, "torch_b", "--device", "cpu",
+                            *extra))
+    monkeypatch.setattr(jdecode, "generate_batch", functools.partial(
+        jdecode.generate_batch, dtype_name="float32"))
+    jcli.main(_argv(artifacts, out, "jax_b", *extra))
+    assert stats["n_samples"] == 3 and stats["decode_steps"] > 0
+    assert stats["out_paths"] == [str(out / f"torch_b_seed{i}.wav")
+                                  for i in (4, 5, 6)]
+    for i in (4, 5, 6):
+        got, sr = audio_io.read_wav(str(out / f"torch_b_seed{i}.wav"))
+        want, sr_j = audio_io.read_wav(str(out / f"jax_b_seed{i}.wav"))
+        assert sr == sr_j == 16000
+        assert got.shape == want.shape and got.shape[-1] > 0
+        assert np.abs(got - want).max() <= 1.0 / 32768 + 1e-9
+
+
 def test_cli_refuses_what_it_does_not_run(artifacts, tmp_path):
     base = _argv(artifacts, tmp_path, "x", "--target_transcript", "so near")
-    with pytest.raises(NotImplementedError):
-        tcli.main(base + ["--device", "cpu", "--sample_batch_size", "2"])
+    stats = tcli.main(base + ["--device", "cpu", "--sample_batch_size", "2"])
+    assert stats["n_samples"] == 2 and stats["out_finite"]
     with pytest.raises(NotImplementedError):
         tcli.main(base + ["--device", "cpu", "--whisper_model", "w"])
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(base)  # --device defaults to cuda: no silent CPU run
+
+
+def test_inference_multi_refuses_continuous():
+    """The continuous-batching server is not ported (ROADMAP item 8): asking
+    for it raises rather than running the static batches."""
+    from ssr_speech_tpu_torch.inference import pipeline as tpipe
+
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tpipe.inference_multi(None, port_config(CFG), None, {}, None, None, [],
+                              continuous=True)

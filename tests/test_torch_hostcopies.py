@@ -3,8 +3,9 @@ with it.
 
 ``ssr_speech_tpu_torch`` imports nothing of ``ssr_speech_tpu`` (and no JAX):
 it keeps its own copy of the host modules it needs (config, token patterns,
-edit spans, audio and text helpers, checkpoints, the dataset, the batcher,
-the prefetcher, the native helper). Three guards:
+edit spans, the static request scheduler, audio and text helpers,
+checkpoints, the dataset, the batcher, the prefetcher, the native helper).
+Three guards:
 
 (a) a fresh interpreter imports every module of the port, ``chip_smoke`` and
     ``tools/torch_profile_generate`` and ends with neither package loaded;
@@ -34,6 +35,7 @@ from ssr_speech_tpu.data import batching as jbatching
 from ssr_speech_tpu.data import dataset as jdataset
 from ssr_speech_tpu.data import prefetch as jprefetch
 from ssr_speech_tpu.inference import edit as jedit
+from ssr_speech_tpu.inference import serve as jserve
 from ssr_speech_tpu.ops import patterns as jpatterns
 from ssr_speech_tpu.utils import audio as jaudio
 from ssr_speech_tpu.utils import checkpoint as jckpt
@@ -45,6 +47,7 @@ from ssr_speech_tpu_torch.data import batching as tbatching
 from ssr_speech_tpu_torch.data import dataset as tdataset
 from ssr_speech_tpu_torch.data import prefetch as tprefetch
 from ssr_speech_tpu_torch.inference import edit as tedit
+from ssr_speech_tpu_torch.inference import serve as tserve
 from ssr_speech_tpu_torch.ops import patterns as tpatterns
 from ssr_speech_tpu_torch.utils import audio as taudio
 from ssr_speech_tpu_torch.utils import checkpoint as tckpt
@@ -253,6 +256,21 @@ def test_native_helpers_equal(tmp_path):
     assert tnative.levenshtein_ops(a, b) == jnative.levenshtein_ops(a, b)
 
 
+@pytest.mark.parametrize("n_slots", [1, 3, 8])
+def test_sorted_static_batches_equal(n_slots):
+    """The static scheduler: the same batches on requests with tied text
+    lengths (the sort is stable), by default and with an estimate given."""
+    rng = np.random.default_rng(n_slots)
+    reqs = [(np.zeros(int(n)), None, [(0, 1)]) for n in
+            rng.integers(3, 12, size=17)]
+    assert tserve.sorted_static_batches(reqs, n_slots) == \
+        jserve.sorted_static_batches(reqs, n_slots)
+    est = lambda r: -len(r[0]) % 5  # noqa: E731
+    assert tserve.sorted_static_batches(reqs, n_slots, est) == \
+        jserve.sorted_static_batches(reqs, n_slots, est)
+    assert tserve.sorted_static_batches([], n_slots) == []
+
+
 def test_text_norm_outputs_equal():
     for n in (0, 7, 13, 21, 100, 101, 999, 1000, 1234, 20005, 1000000, 987654321):
         assert ttext.num_to_words_en(n) == jtext.num_to_words_en(n)
@@ -360,7 +378,7 @@ def test_port_modules_are_the_ports_own():
 
     root = str(REPO / "ssr_speech_tpu_torch")
     for mod in (tconfig, tnative, tbatching, tdataset, tprefetch, tedit,
-                tpatterns, taudio, tckpt, ttext, twatchdog):
+                tserve, tpatterns, taudio, tckpt, ttext, twatchdog):
         assert importlib.import_module(mod.__name__).__file__.startswith(root)
     assert tdecode.patterns is tpatterns
     assert tpretrained.save_bundle is tckpt.save_bundle

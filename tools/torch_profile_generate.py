@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's decode spends its time, on one CUDA GPU.
 
-    python3 tools/torch_profile_generate.py [--out chiprun_out/torch_profile]
+    python3 tools/torch_profile_generate.py [--n_samples 1 8]
+        [--out chiprun_out/torch_profile]
 
-Runs ``ssr_speech_tpu_torch.inference.decode.generate`` on the smoke's edit
-request without the codec: the 830M LM (e830M geometry) with seeded random
-weights in bf16, 68 text tokens, 300 frames of seeded random source codes,
-one masked span (54, 108), greedy with CFG (cfg_pretrained, stride 5). It
-reports:
+Runs the smoke's edit request without the codec: the 830M LM (e830M
+geometry) with seeded random weights in bf16, 68 text tokens, 300 frames of
+seeded random source codes, one masked span (54, 108), greedy with CFG
+(cfg_pretrained, stride 5), through ``decode.generate`` for S = 1 and
+``decode.generate_batch`` (S chains, 2S rows over a shared prompt cache) for
+each other S of ``--n_samples``. For each S it reports:
 
-- wall, prefill and decode ms/step of ``generate``, twice, unprofiled;
-- the same call under ``torch.profiler``. Device time comes from the
-  kernel-level (device) events only, never from the aten ops that launched
-  them, which would count each kernel twice. The decode loop is every device
+- wall, prefill and decode ms/step, twice, unprofiled (every S before any
+  profiling: a profiler session slows the host calls that follow it);
+- the same call under ``torch.profiler``, tracing the device only. Device
+  time comes from the kernel-level events, never from the aten ops that
+  launched them, which would count each kernel twice. The decode loop is every device
   event after the prefill's last flash-attention launch. Reported: launches
   and device time per step by category, and the device busy share (union of
-  the device intervals over the unprofiled decode wall);
-- the transformer step plus heads alone, without the sampling bookkeeping;
-- the flash kernel against its plain version at prefill shapes
-  [2, 16, S, 128], S = 384, 640, 1000, 1300 (CUDA events).
+  the device intervals over the unprofiled decode wall).
 
-Writes ``<out>.json`` and ``<out>.txt`` (the profiler's table by kernel).
+Then, once: the transformer step plus heads alone, without the sampling
+bookkeeping, and the flash kernel against its plain version at prefill
+shapes [2, 16, S, 128], S = 384, 640, 1000, 1300 (CUDA events).
+
+Writes ``<out>.json`` and ``<out>.txt`` (the profiler's tables by kernel).
 """
 
 from __future__ import annotations
@@ -62,63 +66,39 @@ def union_us(intervals) -> float:
     return total
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="chiprun_out/torch_profile")
-    args = ap.parse_args()
-
-    import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from chip_smoke import card_line, cuda_time_ms, prefill_segments
-    from ssr_speech_tpu_torch.config import DecodeConfig, SSRModelConfig
-    from ssr_speech_tpu_torch.device import resolve_device, set_precision_policy
-    from ssr_speech_tpu_torch.inference import decode
-    from ssr_speech_tpu_torch.models import ssr as tssr
-    from ssr_speech_tpu_torch.models import transformer as trf
-    from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
-    from ssr_speech_tpu_torch.ops import flash_attention as fa
-
-    device = resolve_device("cuda")
-    set_precision_policy()
-    card = card_line()
-    rep = {"card": card}
-    cfg = SSRModelConfig(d_model=2048, nhead=16, num_layers=16, n_codebooks=4,
-                         text_vocab_size=120)
-    gen = torch.Generator(device=device).manual_seed(0)
-    lm = lm_from_jax(tssr.init_ssr(gen, cfg, device), cfg, device=device,
-                     dtype=torch.bfloat16)
-    rng = np.random.default_rng(0)
-    x = rng.integers(0, cfg.text_vocab_size - 1, size=68)
-    y = rng.integers(0, 2048, size=(cfg.n_codebooks, 300))
-    dec = DecodeConfig(top_k=1, top_p=0.8, stop_repetition=2,
-                       silence_tokens=(1388, 1898, 131), cfg_coef=1.5,
-                       cfg_stride=5, aug_text=True, cfg_pretrained=True)
-
+def decode_runner(torch, decode, lm, cfg, dec, x, y, n_samples, device):
+    """One call of the edit request at ``n_samples`` chains (``generate``
+    for 1, ``generate_batch`` above), returning its statistics."""
     def run():
         stats = {}
+        gen = torch.Generator(device=device).manual_seed(1)
         t0 = time.perf_counter()
-        decode.generate(lm, cfg, dec, x, y, [(54, 108)],
-                        torch.Generator(device=device).manual_seed(1),
-                        stats=stats)
+        if n_samples == 1:
+            decode.generate(lm, cfg, dec, x, y, [(54, 108)], gen, stats=stats)
+        else:
+            decode.generate_batch(lm, cfg, dec, x, y, [(54, 108)], gen,
+                                  n_samples, stats=stats)
         stats["wall_s"] = time.perf_counter() - t0
         stats["decode_ms_per_step"] = (stats["decode_s"] * 1e3
                                        / stats["decode_steps"])
+        del stats["out_tokens"]
         return stats
+    return run
 
-    run()  # cuBLAS handles, kernel build
-    rep["generate"] = [run(), run()]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        rep["profiled_generate"] = run()
 
+def profile_decode(torch, run, n_samples, n_layers, unprofiled_ms):
+    """``run`` under ``torch.profiler`` (device activity only). Returns
+    (report, the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rep = {"profiled_generate": run()}
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     flash = [e for e in dev_events if category(e.name) == "flash"]
-    if len(flash) != cfg.num_layers:
+    if len(flash) != n_layers:
         raise RuntimeError(f"{len(flash)} flash launches in the profile "
-                           f"(expected {cfg.num_layers}); is CUPTI tracing?")
+                           f"(expected {n_layers}); is CUPTI tracing?")
     prefill_end = max(e.time_range.end for e in flash)
     loop = [e for e in dev_events if e.time_range.start >= prefill_end]
     steps = rep["profiled_generate"]["decode_steps"]
@@ -129,10 +109,10 @@ def main() -> int:
     busy_us = union_us((e.time_range.start, e.time_range.end) for e in loop)
     span_us = (max(e.time_range.end for e in loop)
                - min(e.time_range.start for e in loop))
-    unprofiled_ms = min(g["decode_ms_per_step"] for g in rep["generate"])
     launches = len(loop) / steps
     rep["decode_loop_profile"] = {
         "steps": steps,
+        "rows": n_samples * 2,
         "launches_per_step": launches,
         "launches_per_step_by_category": {k: v / steps for k, v in
                                           counts.most_common()},
@@ -147,6 +127,66 @@ def main() -> int:
         "prefill_flash_device_ms": [(e.time_range.end - e.time_range.start)
                                     / 1e3 for e in flash],
     }
+    return rep, prof
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n_samples", type=int, nargs="+", default=[1, 8],
+                    help="chains of the request: 1 runs generate, more "
+                         "generate_batch")
+    ap.add_argument("--out", default="chiprun_out/torch_profile")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import card_line, cuda_time_ms, prefill_segments
+    from ssr_speech_tpu_torch.config import DecodeConfig, SSRModelConfig
+    from ssr_speech_tpu_torch.device import resolve_device, set_precision_policy
+    from ssr_speech_tpu_torch.inference import decode
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models import transformer as trf
+    from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    device = resolve_device("cuda")
+    set_precision_policy()
+    card = card_line()
+    rep = {"card": card, "by_n_samples": {}}
+    cfg = SSRModelConfig(d_model=2048, nhead=16, num_layers=16, n_codebooks=4,
+                         text_vocab_size=120)
+    gen = torch.Generator(device=device).manual_seed(0)
+    lm = lm_from_jax(tssr.init_ssr(gen, cfg, device), cfg, device=device,
+                     dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, cfg.text_vocab_size - 1, size=68)
+    y = rng.integers(0, 2048, size=(cfg.n_codebooks, 300))
+    dec = DecodeConfig(top_k=1, top_p=0.8, stop_repetition=2,
+                       silence_tokens=(1388, 1898, 131), cfg_coef=1.5,
+                       cfg_stride=5, aug_text=True, cfg_pretrained=True)
+    # every count's unprofiled runs first: a profiler session slows the
+    # host calls that follow it
+    runs = {n: decode_runner(torch, decode, lm, cfg, dec, x, y, n, device)
+            for n in args.n_samples}
+    plain = {}
+    for n, run in runs.items():
+        run()  # cuBLAS handles, kernel build
+        plain[n] = [run(), run()]
+    tables = []
+    for n, run in runs.items():
+        unprofiled_ms = min(g["decode_ms_per_step"] for g in plain[n])
+        r, prof = profile_decode(torch, run, n, cfg.num_layers, unprofiled_ms)
+        rep["by_n_samples"][n] = {"generate": plain[n], **r}
+        tables.append(f"=== n_samples {n} ===\n" + prof.key_averages().table(
+            sort_by="self_cuda_time_total", row_limit=60,
+            max_name_column_width=90))
+        p = r["decode_loop_profile"]
+        print(f"[profile] S = {n} ({p['rows']} rows): {p['steps']} steps, "
+              f"{p['launches_per_step']:.0f} launches and "
+              f"{p['device_ms_per_step']:.3f} ms of device time a step, "
+              f"{p['unprofiled_decode_ms_per_step']:.2f} ms a step unprofiled, "
+              f"busy {p['busy_share_of_unprofiled_wall']:.1%} [{card}]")
 
     # the transformer step and heads alone, on a cache filled to the edit's
     # prefill length (the sampling state machine left out)
@@ -183,8 +223,7 @@ def main() -> int:
     out = REPO / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.with_suffix(".json").write_text(json.dumps(rep, indent=1))
-    out.with_suffix(".txt").write_text(prof.key_averages().table(
-        sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=90))
+    out.with_suffix(".txt").write_text("\n".join(tables))
     print(json.dumps(rep, indent=1))
     return 0
 
