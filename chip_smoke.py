@@ -198,12 +198,13 @@ def check_tile_visits(torch, fa, seg) -> float:
     return (vis & causal).sum().item() / (b * causal.sum().item())
 
 
-def check_flash(torch, device, multi_seg) -> dict:
+def check_flash(torch, device, multi_seg, server_seg) -> dict:
     """K1 against its plain versions: on the skip layouts, at the serving
-    prefills' shapes, and at the multi-prompt prefill's exact shape and
-    per-row segments ``multi_seg`` (each row its own dead text and prefix
-    tails), with the visited share of the tiles checked against the dense
-    mask at each."""
+    prefills' shapes, at the multi-prompt prefill's exact shape and per-row
+    segments ``multi_seg`` (each row its own dead text and prefix tails),
+    and at the continuous server's prefill of one request ``server_seg``
+    ([cond, uncond] over the server's padded geometry), with the visited
+    share of the tiles checked against the dense mask at each."""
     from ssr_speech_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -278,8 +279,9 @@ def check_flash(torch, device, multi_seg) -> dict:
                                f"version at {shape}: {err} > {ATOL}")
         worst = max(worst, err)
         times[shape] = (ms, plain_ms)
-    multi = check_flash_multi(torch, fa, gen, multi_seg)
-    worst = max(worst, multi["max_abs_err"])
+    multi = check_flash_multi(torch, fa, gen, multi_seg, "multi prefill")
+    server = check_flash_multi(torch, fa, gen, server_seg, "server prefill")
+    worst = max(worst, multi["max_abs_err"], server["max_abs_err"])
     fa.reset_launches()
     ms, plain_ms = times[MAIN_PATH_SHAPE]
     print(f"[flash] encoding the launch's three TMA tensor maps on the host: "
@@ -292,14 +294,16 @@ def check_flash(torch, device, multi_seg) -> dict:
             "plain_ms": plain_ms, **lower, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(attn_mask=causal & "
                        "same segment)", "shape": list(MAIN_PATH_SHAPE),
-            "multi_prefill": multi}
+            "multi_prefill": multi, "server_prefill": server}
 
 
-def check_flash_multi(torch, fa, gen, seg) -> dict:
-    """K1 at the multi-prompt prefill's shape [2S, 16, sx + P, 128] with its
-    per-row segments: the valid rows against the dense plain version, the
-    skip rule against the dense mask; kernel, plain and library timed with
-    CUDA events, the bound from the attending pairs."""
+def check_flash_multi(torch, fa, gen, seg, label: str) -> dict:
+    """K1 at a prefill's shape [R, 16, sx + P, 128] with its per-row
+    segments (the multi-prompt prefill's 2S rows, or the continuous
+    server's [cond, uncond] of one request): the valid rows against the
+    dense plain version, the skip rule against the dense mask; kernel, plain
+    and library timed with CUDA events, the bound from the attending
+    pairs."""
     b, s = seg.shape
     shape = (b, 16, s, 128)
     q, k, v = (torch.randn(shape, generator=gen, device=seg.device,
@@ -316,7 +320,7 @@ def check_flash_multi(torch, fa, gen, seg) -> dict:
     err = (got.float() - want.float()).abs()[valid].max().item()
     if not (torch.isfinite(got).all() and err <= ATOL):
         raise RuntimeError(f"flash kernel disagrees with the plain version at "
-                           f"the multi prefill {shape}: {err} > {ATOL}")
+                           f"the {label} {shape}: {err} > {ATOL}")
     mask = attention_mask(torch, seg)
     res = {"shape": list(shape), "max_abs_err": err,
            "ms": cuda_time_ms(torch, lambda: fa.flash_attend_xy(q, k, v, seg)),
@@ -329,7 +333,7 @@ def check_flash_multi(torch, fa, gen, seg) -> dict:
                    4 * 16 * 128 * attended_pairs(seg), "bf16"),
            "visited_share_of_causal_tiles": share,
            "valid_keys_by_row": (seg == 1).sum(dim=1).tolist()}
-    print(f"[flash] multi prefill {shape}, valid keys by row "
+    print(f"[flash] {label} {shape}, valid keys by row "
           f"{res['valid_keys_by_row']}: max_abs_err valid rows {err:.3e} (tol "
           f"{ATOL}); kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
           f"ms, library {res['library_ms']:.4f} ms, bound "
@@ -734,6 +738,475 @@ def check_shared_step(torch, device, main: dict) -> dict:
         raise RuntimeError(f"the shared decode step disagrees with the single "
                            f"step: {err} (tol {REL}), rows equal {rows_equal}")
     return {"rel_err": err, "argmax_agreement": argmax}
+
+
+# ---------------------------------------------------- serving and streaming
+
+# the continuous-batching path's jobs (serve_cli --continuous): edits of the
+# seeded wav whose masks the CLI derives from the transcript diff (one span
+# at the start, middle or end, an insertion, two spans)
+SERVE_TARGETS = (
+    EDIT_TARGET,
+    "but when i saw the mirage so near to them in the quiet evening light",
+    "but when i had approached so near to us in the quiet morning light",
+    "but when i had approached so very near to them in the quiet morning light",
+    "but when i had approached so near to them in the quiet morning sun",
+    "but then i had approached so near to them in the quiet morning light")
+SERVE_SLOTS = 4  # 6 jobs through 4 lanes: at least two lanes are refilled
+SERVE_FLAGS = ["--top_k", "1", "--aug_text", "--cfg_pretrained",
+               "--cfg_stride", "5", "--use_watermark"]
+# the streaming path's TTS jobs (serve_cli --stream and the HTTP clients)
+STREAM_TARGETS = ("a short line to say", "the card speaks now",
+                  "streaming from the server")
+STREAM_FLAGS = ["--top_k", "1", "--prompt_length", "2"]
+STREAM_ATOL = 1e-4  # fp32 codec, TF32 off: streamed vs offline causal decode
+
+
+def write_jobs(path: Path, inputs: dict, targets, tts: bool) -> str:
+    """A serve_cli jobs file over the seeded wav and its alignment."""
+    with open(path, "w") as f:
+        for i, text in enumerate(targets):
+            f.write(json.dumps(dict(
+                orig_audio=inputs["wav"], orig_transcript=" ".join(WORDS),
+                target_transcript=text, alignment_file=inputs["align"],
+                tts=tts, savename=f"{'tts' if tts else 'edit'}{i}")) + "\n")
+    return str(path)
+
+
+def serve_prompts(cfg, targets=SERVE_TARGETS) -> list:
+    """(x, y, mask) of the continuous path's jobs as ``serve_cli`` builds
+    them (the text ids, zero codes of the wav's 300 frames: the layout
+    depends on their count only, the CLI's mask)."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.data.tokenizer import TextTokenizer
+    from ssr_speech_tpu_torch.inference import cli, pipeline
+
+    tok = TextTokenizer(language="en-us")
+    phn2num = {c: i for i, c in enumerate(PHONES)}
+    y = np.zeros((cfg.n_codebooks, int(WAV_SECONDS * 50)), np.int32)
+    out = []
+    for text in targets:
+        _, _, target, mask = cli.prepare_job(alignment_words(), " ".join(WORDS),
+                                             text, WAV_SECONDS)
+        out.append((pipeline.text_to_ids(tok, phn2num, target), y, mask))
+    return out
+
+
+def server_layout(torch, cfg, device):
+    """The continuous server's prefill layout of the first job, from the host
+    code ``serve_requests`` runs: its geometry (``serve.serve_geometry``
+    over all the jobs) and the job's [cond, uncond] dead keys
+    (``decode.multi_dead_keys``). Returns (the layout its stats must
+    report, segment ids [2, sx_pad + p_pad] on ``device``)."""
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import decode, serve
+    from ssr_speech_tpu_torch.ops import patterns
+
+    dec = DecodeConfig(top_k=1, cfg_pretrained=True)  # SERVE_FLAGS
+    prompts = serve_prompts(cfg)
+    sx, P, _ = serve.serve_geometry(cfg, dec, prompts)
+    x, y, mask = prompts[0]
+    p_len = patterns.build_inference_prefix(y, mask, cfg.tokens)[0].shape[1]
+    layout = dict(x_lens=[len(x)] * 2, p_lens=[p_len], sx_pad=sx, p_pad=P)
+    dead = decode.multi_dead_keys(torch.tensor(layout["x_lens"]),
+                                  torch.tensor([p_len]), sx, P, aug_text=True,
+                                  cfg_pretrained=True)
+    return layout, (~dead).to(device, torch.int32)
+
+
+def step_h(lm, cfg, srv):
+    """The embedded tokens a ContinuousBatcher feeds its next step."""
+    from ssr_speech_tpu_torch.inference import decode
+    from ssr_speech_tpu_torch.models import ssr as tssr
+
+    s = srv.state
+    pe = tssr.sine_table(cfg.max_position, cfg.d_model, device=s.y_pos.device)
+    return decode._embed_step_tokens(lm, cfg, s.next_tokens, pe, s.y_pos,
+                                     srv.aug, srv.dtype)
+
+
+def step_logits(torch, lm, cfg, srv, cache=None):
+    """The next step's logits of every row of a ContinuousBatcher through
+    the paged step, on a copy of its generated cache (or ``cache``)."""
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models import transformer as trf
+
+    s = srv.state
+    cache = cache or trf.KVCache(s.cache.k.clone(), s.cache.v.clone(), 0)
+    with torch.no_grad():
+        out, _ = trf.transformer_decode_step_paged(
+            lm["decoder"], step_h(lm, cfg, srv), srv._pfx, cache, srv._banned,
+            s.gen_len, cfg, dtype=srv.dtype)
+        return tssr.predict_logits(lm, out)
+
+
+def argmax_check(got, want):
+    """Argmax agreement of two logit tensors [..., V]: (the share of rows
+    that agree, the rows whose top two in ``want`` lie within twice that
+    row's max abs error, the rows that differ outside such a tie). No
+    perturbation within the row's error can flip a row outside a tie."""
+    top2 = want.float().topk(2, dim=-1).values
+    err = (got.float() - want.float()).abs().amax(-1)
+    tie = (top2[..., 0] - top2[..., 1]) <= 2 * err
+    differ = got.argmax(-1) != want.argmax(-1)
+    return ((~differ).float().mean().item(), int(tie.sum().item()),
+            int((differ & ~tie).sum().item()))
+
+
+def check_paged_step(torch, device, main: dict) -> dict:
+    """The paged decode step at full width, from the server's own state.
+    (a) ``SERVE_SLOTS`` lanes filled with the edit request and decoded 12
+    steps (fewer if the chains finish first), all rows at one column: the
+    paged step's logits against ``transformer_decode_step_shared`` on the
+    same rows (the [cond, uncond] prompts once, the same generated cache),
+    within ``REL`` of the max, and the argmax equal on every codebook row
+    outside a tie at that error (``argmax_check``: bf16 rounds the two
+    steps' sums apart, which flips rows whose top two lie that close).
+    (b) Lane 1 refilled with another
+    request beside the lanes mid-flight, its cache row filled with junk
+    where the previous occupant's K/V were: its rows' logits against a fresh
+    one-lane server's first step on that request, within ``REL``."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import serve
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models import transformer as trf
+
+    inputs = main["inputs"]
+    lm, cfg, _ = pretrained.load_lm(inputs["lm"], device)
+    dec = DecodeConfig(top_k=1, cfg_pretrained=True)
+    prompts = serve_prompts(cfg)
+    codes = np.random.default_rng(0).integers(
+        0, 2048, size=(cfg.n_codebooks, int(WAV_SECONDS * 50)))
+    (xa, _, ma), (xb, _, mb) = prompts[0], prompts[1]
+    sx, P, nt = serve.serve_geometry(cfg, dec, prompts)
+    S, g = SERVE_SLOTS, 12
+    geom = dict(sx_pad=sx, p_pad=P, num_task=nt)
+    srv = serve.ContinuousBatcher(lm, cfg, dec, S, **geom)
+    for slot in range(S):
+        srv._fill_slot(slot, slot, xa, codes, ma)
+    srv._run_chunk(g)  # stops early if the chains finish first
+    g = srv.state.steps
+    if g < 1 or not bool((srv.state.gen_len == g).all()):
+        raise RuntimeError(f"paged-step check: after {g} steps the lanes sit "
+                           f"at columns {srv.state.gen_len.tolist()}")
+    got = step_logits(torch, lm, cfg, srv)
+    s = srv.state
+    with torch.no_grad():
+        h = step_h(lm, cfg, srv)
+        rows = [0, S]
+        pfx = trf.KVCache(srv._pfx.k[:, rows], srv._pfx.v[:, rows],
+                          srv._pfx.length)
+        gen = trf.KVCache(s.cache.k.clone(), s.cache.v.clone(), g)
+        out, _ = trf.transformer_decode_step_shared(
+            lm["decoder"], h, pfx, gen, srv._banned[rows], cfg, n_groups=2,
+            dtype=srv.dtype)
+        want = tssr.predict_logits(lm, out)
+    err = rel_err(got, want)
+    argmax, ties, flips = argmax_check(got, want)
+    print(f"[paged step] {2 * S} rows at column {g} over the server's "
+          f"prefix rows: logits against the shared step, max err / max "
+          f"{err:.2e} (tol {REL}); argmax agrees on {argmax:.3f} of the "
+          f"codebook rows, {ties} rows within their error of a tie, "
+          f"{flips} rows differ outside a tie")
+    if not (err <= REL and flips == 0):
+        raise RuntimeError(f"the paged step disagrees with the shared step: "
+                           f"{err} (tol {REL}), argmax {argmax}, {flips} "
+                           f"rows differ outside a tie")
+    # (b) lane 1 refilled mid-flight, junk where the old occupant's K/V were
+    srv._splice_slot(1, S, srv._prefill_request(xb, codes, mb))
+    cache = trf.KVCache(s.cache.k.clone(), s.cache.v.clone(), 0)
+    gen_ = torch.Generator(device=device).manual_seed(3)
+    for row in (1, S + 1):
+        for buf in (cache.k, cache.v):
+            buf[:, row, :, :g] = 30 * torch.randn(
+                buf[:, row, :, :g].shape, generator=gen_, device=device,
+                dtype=torch.float32).to(buf.dtype)
+    mixed = step_logits(torch, lm, cfg, srv, cache)
+    one = serve.ContinuousBatcher(lm, cfg, dec, 1, **geom)
+    one._fill_slot(0, 0, xb, codes, mb)
+    fresh = step_logits(torch, lm, cfg, one)
+    err_b = rel_err(mixed[[1, S + 1]], fresh)
+    argmax_b, _, flips_b = argmax_check(mixed[[1, S + 1]], fresh)
+    print(f"[paged step] lane 1 refilled at column 0 beside {S - 1} lanes at "
+          f"column {g} (its old cache columns overwritten with junk): its "
+          f"logits against a fresh one-lane step, max err / max {err_b:.2e} "
+          f"(tol {REL}); argmax agrees on {argmax_b:.3f} of its codebook rows")
+    if not err_b <= REL:
+        raise RuntimeError(f"the refilled lane's step differs from a fresh "
+                           f"one: {err_b} (tol {REL})")
+    del srv, one, cache
+    return {"rel_err_vs_shared": err, "argmax_agreement": argmax,
+            "refilled_rel_err": err_b}
+
+
+def drive_continuous_path(torch, device, main: dict, layout: dict, work: Path,
+                          card: str) -> dict:
+    """``serve_cli --continuous --n_slots 4`` over the 6 greedy edit jobs of
+    ``SERVE_TARGETS``, twice: finite 16 kHz wavs of the expected lengths,
+    bit-identical over the runs, 16 flash launches (one a layer) per admitted
+    request, and every prefill at the server geometry K1 was held at (the
+    first request's layout exactly). Prints decode ms/step, prefill ms, each
+    request's completion, the aggregate RTF and peak GiB, and (not a gate)
+    the first decode step at which each served chain parts from its own
+    ``decode.generate`` run. Returns the flash launches of this phase."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.data.tokenizer import tokenize_audio
+    from ssr_speech_tpu_torch.inference import decode, serve_cli
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    inputs = main["inputs"]
+    cfg = inputs["cfg"]
+    hop = inputs["codec_cfg"].hop_length
+    jobs = write_jobs(work / "serve_jobs.jsonl", inputs, SERVE_TARGETS, False)
+    argv = ["--device", str(device), "--model_path", inputs["lm"],
+            "--codec_path", inputs["codec"], "--jobs", jobs, "--continuous",
+            "--n_slots", str(SERVE_SLOTS), *SERVE_FLAGS]
+    n = len(SERVE_TARGETS)
+    fa.reset_launches()  # count only this path's launches
+    runs = []
+    for rep in (1, 2):
+        before = fa.launches
+        st = serve_cli.main(argv + ["--output_dir", str(work / f"serve_{rep}")])
+        st["launches"] = fa.launches - before
+        st["wav_bytes"] = [Path(p).read_bytes() for p in st["out_paths"]]
+        audio_s = sum(st["out_samples"]) / st["sample_rate"]
+        steps = st["decode_steps"]
+        st["aggregate_rtf"] = audio_s / st["request_s"]
+        print(f"[continuous] run {rep}: {n} jobs through {SERVE_SLOTS} lanes "
+              f"({2 * SERVE_SLOTS} rows), {steps} decode steps in "
+              f"{st['chunks']} chunks, decode {st['decode_s'] / steps * 1e3:.2f}"
+              f" ms/step, prefill {np.mean(st['prefill_s']) * 1e3:.1f} ms a "
+              f"request ({len(st['prefill_s'])} prefills), completion s by "
+              f"request {[round(t, 3) for t in st['done_at']]}, request "
+              f"{st['request_s']:.3f} s, {audio_s:.2f} s of audio, aggregate "
+              f"RTF {st['aggregate_rtf']:.3f}x realtime, peak "
+              f"{st['peak_mem_gib'] or float('nan'):.2f} GiB, flash launches "
+              f"{st['launches']} [{card}]")
+        expect = [f * hop for f in st["output_frames"]]
+        if not st["out_finite"] or st["sample_rate"] != 16000:
+            raise RuntimeError(f"continuous run {rep}: not finite 16 kHz wavs")
+        if st["out_samples"] != expect or min(expect) <= 0:
+            raise RuntimeError(f"continuous run {rep}: {st['out_samples']} "
+                               f"samples, expected {expect}")
+        if st["launches"] != n * cfg.num_layers:
+            raise RuntimeError(f"continuous run {rep}: {st['launches']} flash "
+                               f"launches, expected {cfg.num_layers} a request")
+        if st["prefill_layouts"][0] != layout or any(
+                (lay["sx_pad"], lay["p_pad"]) != (layout["sx_pad"],
+                                                  layout["p_pad"])
+                for lay in st["prefill_layouts"]):
+            raise RuntimeError(f"server prefill ran at "
+                               f"{st['prefill_layouts']}; the kernel check "
+                               f"took {layout}")
+        runs.append(st)
+    launches = fa.launches
+    if runs[0]["wav_bytes"] != runs[1]["wav_bytes"]:
+        raise RuntimeError("continuous greedy output differs between runs")
+    # each job alone through decode.generate (not a gate)
+    lm, _, phn2num = pretrained.load_lm(inputs["lm"], device)
+    audio_tok = pretrained.load_codec(inputs["codec"], device)
+    y = tokenize_audio(audio_tok, inputs["wav"])[0][0]
+    dec = DecodeConfig(top_k=1, cfg_pretrained=True)
+    parts = []
+    for i, (x, _, mask) in enumerate(serve_prompts(cfg)):
+        st = {}
+        decode.generate(lm, cfg, dec, x, y, mask,
+                        torch.Generator(device=device).manual_seed(1),
+                        stats=st)
+        a, b = runs[0]["out_tokens"][i], st["out_tokens"]
+        w = min(a.shape[1], b.shape[1])
+        diff = np.nonzero((a[:, :w] != b[:, :w]).any(axis=0))[0]
+        parts.append(int(diff[0]) if diff.size else None)
+    print(f"[continuous] outputs bit-identical over two runs; first decode "
+          f"step at which each served chain parts from its own generate run "
+          f"(None: never): {parts}")
+    return dict(launches=launches, stats=runs[0], parts=parts)
+
+
+def write_causal_codec(torch, device, work: Path):
+    """A causal bundle at the default codec's widths (encodec_large_nq4_s320,
+    ``seanet.causal``, constant padding), from the port's seeded init."""
+    import dataclasses
+
+    from ssr_speech_tpu_torch.config import CodecConfig
+    from ssr_speech_tpu_torch.models.codec import wmencodec as twm
+    from ssr_speech_tpu_torch.models.pretrained import save_bundle
+
+    base = CodecConfig()
+    cfg = dataclasses.replace(base, seanet=dataclasses.replace(
+        base.seanet, causal=True, pad_mode="constant"))
+    path = work / "causal_codec.pkl"
+    gen = torch.Generator(device=device).manual_seed(4)
+    save_bundle(str(path), params=twm.init_wmencodec(gen, cfg, device),
+                config=cfg)
+    return str(path)
+
+
+def drive_stream_path(torch, device, main: dict, work: Path, card: str) -> dict:
+    """``serve_cli --stream`` over the 3 TTS jobs of ``STREAM_TARGETS`` on
+    the causal bundle (3 lanes): each client's concatenated chunks against
+    the offline causal decode of its own prompt and streamed codes, cropped
+    at the prompt, within ``STREAM_ATOL``; 16 flash launches per request.
+    Prints each client's time to first audio. Returns the flash launches of
+    this phase and what the HTTP phase reuses."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.inference import serve_cli
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    inputs = main["inputs"]
+    cfg = inputs["cfg"]
+    causal = write_causal_codec(torch, device, work)
+    jobs = write_jobs(work / "stream_jobs.jsonl", inputs, STREAM_TARGETS, True)
+    fa.reset_launches()  # count only this path's launches
+    st = serve_cli.main(["--device", str(device), "--model_path", inputs["lm"],
+                         "--codec_path", causal, "--jobs", jobs, "--output_dir",
+                         str(work / "stream"), "--stream", *STREAM_FLAGS])
+    launches = fa.launches
+    audio_tok = pretrained.load_codec(causal, device)
+    hop = audio_tok.cfg.hop_length
+    worst = 0.0
+    for i, s in enumerate(st["streams"]):
+        T = s["prompt_codes"].shape[1]
+        full = audio_tok.decode(np.concatenate(
+            [s["prompt_codes"], s["codes"]], axis=1)[None])[0, T * hop:]
+        if s["wav"].shape != full.shape or s["codes"].shape[1] == 0:
+            raise RuntimeError(f"stream {i}: {s['wav'].shape} samples, the "
+                               f"offline decode {full.shape}")
+        err = float(np.abs(s["wav"] - full).max())
+        worst = max(worst, err)
+        print(f"[stream] client {i}: prompt {T} frames, {s['codes'].shape[1]} "
+              f"frames in {s['chunks']} chunks, time to first audio "
+              f"{s['first_at'] * 1e3:.1f} ms, done {s['done_at']:.3f} s, max "
+              f"abs err against the offline causal decode {err:.2e} (tol "
+              f"{STREAM_ATOL}) [{card}]")
+    print(f"[stream] request {st['request_s']:.3f} s, peak "
+          f"{st['peak_mem_gib'] or float('nan'):.2f} GiB, flash launches "
+          f"{launches}")
+    if not worst <= STREAM_ATOL:
+        raise RuntimeError(f"streamed audio differs from the offline causal "
+                           f"decode: {worst} > {STREAM_ATOL}")
+    if launches != len(STREAM_TARGETS) * cfg.num_layers:
+        raise RuntimeError(f"stream path: {launches} flash launches, expected "
+                           f"{cfg.num_layers} a request")
+    return dict(launches=launches, causal=causal,
+                requests=[(s["x"], s["prompt_codes"]) for s in st["streams"]])
+
+
+def drive_http_path(torch, device, main: dict, stream: dict, card: str) -> dict:
+    """``TTSHttpServer`` on 127.0.0.1:0 over the causal bundle (CFG rows, as
+    ``http_server.main`` serves), 3 concurrent clients posting the stream
+    path's requests as ``text_ids`` and ``prompt_codes``: each client's PCM
+    equal to the engine's own finished waveform, the /health counters
+    advanced, and every flash launch of this phase made by the engine
+    thread (16 per request). Returns the flash launches of this phase."""
+    import http.client
+    import threading
+
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import decode, http_server
+    from ssr_speech_tpu_torch.inference import stream as tstream
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+    from ssr_speech_tpu_torch.ops import patterns
+
+    inputs = main["inputs"]
+    lm, cfg, _ = pretrained.load_lm(inputs["lm"], device)
+    audio_tok = pretrained.load_codec(stream["causal"], device)
+    reqs = stream["requests"]
+    dec = DecodeConfig(top_k=1, aug_text=True, cfg_pretrained=True,
+                       stop_repetition=-1)
+    p_max = max(patterns.build_inference_prefix(
+        y, [(y.shape[1], y.shape[1])], cfg.tokens)[0].shape[1] for _, y in reqs)
+    server = tstream.StreamingServer(
+        lm, cfg, dec, audio_tok.params, audio_tok.cfg, len(reqs),
+        sx_pad=decode._bucket(max(len(x) for x, _ in reqs), 64),
+        p_pad=decode._bucket(p_max, 128))
+    done = {}
+
+    def on_done(req_id, codes, wav):
+        done[req_id] = (wav, threading.current_thread().name)
+
+    def health(addr):
+        conn = http.client.HTTPConnection(*addr, timeout=60)
+        conn.request("GET", "/health")
+        return json.loads(conn.getresponse().read())
+
+    fa.reset_launches()  # count only this path's launches
+    srv = http_server.TTSHttpServer(
+        server, host="127.0.0.1", port=0, sample_rate=audio_tok.sample_rate,
+        generator=torch.Generator(device=device).manual_seed(1),
+        on_done=on_done).start()
+    try:
+        h0 = health(srv.address)
+        outs = [None] * len(reqs)
+
+        def client(i):
+            x, y = reqs[i]
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection(*srv.address, timeout=600)
+            conn.request("POST", "/tts", json.dumps(
+                {"text_ids": x.tolist(), "prompt_codes": y.tolist()}))
+            resp = conn.getresponse()
+            first, body = None, []
+            while True:
+                b = resp.read1(65536)
+                if not b:
+                    break
+                first = first or time.perf_counter() - t0
+                body.append(b)
+            outs[i] = (resp.status, int(resp.getheader("X-Request-Id")),
+                       b"".join(body), first, time.perf_counter() - t0)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:  # the counters follow the bodies
+            h1 = health(srv.address)
+            if h1["completed"] >= h0["completed"] + len(reqs):
+                break
+            time.sleep(0.05)
+    finally:
+        srv.shutdown()
+    launches = fa.launches
+    by_thread = dict(fa.launches_by_thread)
+    for i, out in enumerate(outs):
+        if out is None or out[0] != 200:
+            raise RuntimeError(f"http client {i}: {out and out[0]}")
+        status, req_id, pcm, first, total = out
+        wav, thread = done[req_id]
+        same = pcm == http_server.float_to_pcm16(wav)
+        print(f"[http] client {i} (request {req_id}): {len(pcm) // 2} samples,"
+              f" first bytes after {first * 1e3:.1f} ms, body done after "
+              f"{total:.3f} s; PCM " + ("equal to" if same else "DIFFERS from")
+              + f" the engine's waveform (finished on thread {thread!r}) "
+              f"[{card}]")
+        if not same or len(pcm) == 0:
+            raise RuntimeError(f"http client {i}: its PCM is not the engine's "
+                               "waveform")
+    moved = {k: h1[k] - h0[k] for k in ("admitted", "completed", "chunks")}
+    print(f"[http] /health counters advanced by {moved}; ttfa p50 "
+          f"{h1.get('ttfa_p50_ms')} ms; flash launches by thread {by_thread}")
+    if moved["admitted"] != len(reqs) or moved["completed"] != len(reqs) or \
+            moved["chunks"] < len(reqs):
+        raise RuntimeError(f"/health counters did not advance: {moved}")
+    if by_thread != {"tts-engine": len(reqs) * cfg.num_layers}:
+        raise RuntimeError(f"http path: flash launches by thread {by_thread}, "
+                           f"expected {len(reqs) * cfg.num_layers} from the "
+                           "engine thread alone")
+    return dict(launches=launches)
 
 
 def check_small_reference(torch, device) -> None:
@@ -1708,7 +2181,8 @@ def main() -> int:
               f"{list(attn_case[0])} and CE {list(ce_case[0])}")
         flash_bwd, fwd_train = check_flash_backward(torch, device, attn_case)
         layout, multi_seg = multi_layout(torch, serving_config(), device)
-        kernels = [check_flash(torch, device, multi_seg), flash_bwd,
+        srv_layout, server_seg = server_layout(torch, serving_config(), device)
+        kernels = [check_flash(torch, device, multi_seg, server_seg), flash_bwd,
                    *check_fused_ce(torch, device, ce_case),
                    *check_int8(torch, device)]
         del attn_case, ce_case
@@ -1718,6 +2192,13 @@ def main() -> int:
         check_shared_step(torch, device, serving)
         batched = drive_batched_path(torch, device, serving, work, card)
         multi = drive_multi_path(torch, device, serving, layout, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        paged = check_paged_step(torch, device, serving)
+        continuous = drive_continuous_path(torch, device, serving, srv_layout,
+                                           work, card)
+        tts_stream = drive_stream_path(torch, device, serving, work, card)
+        http_path = drive_http_path(torch, device, serving, tts_stream, card)
         gc.collect()
         torch.cuda.empty_cache()
         training = drive_training_path(
@@ -1734,7 +2215,11 @@ def main() -> int:
     fwd["launches_by_path"] = {"serving": serving["launches"],
                                "batched": batched["launches"],
                                "multi": multi["launches"],
+                               "continuous": continuous["launches"],
+                               "stream": tts_stream["launches"],
+                               "http": http_path["launches"],
                                "training": training[fwd["name"]]}
+    fwd["paged_step"] = paged
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     # the top-level numbers are the serving prefill's; every path's shape here
     fwd["by_shape"] = {
@@ -1742,6 +2227,7 @@ def main() -> int:
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")},
         "multi": fwd.pop("multi_prefill"),
+        "server_prefill": fwd.pop("server_prefill"),
         "training": fwd_train}
     # the TPU package has two forward kernels (library flash and splash); one
     # Hopper kernel replaces both, so the report lists it once for each

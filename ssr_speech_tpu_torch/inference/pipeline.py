@@ -3,7 +3,8 @@
 
 Phonemize the target text, codec-encode the source audio, run the LM's span
 infilling (``decode.generate``; ``generate_batch`` for several seeds of one
-request, ``generate_multi`` for several requests), then either the watermark
+request, ``generate_multi`` for several requests, or the continuous-batching
+server of ``serve``), then either the watermark
 decode (original samples copied into the un-edited regions, the watermark
 embedded in the generated ones) or a plain codec decode, and crop the prompt
 for TTS. The host helpers are restated from the JAX module, which imports
@@ -219,26 +220,33 @@ def inference_multi(lm, cfg: SSRModelConfig, dec: DecodeConfig,
     mask_interval, tts?}. Up to ``n_slots`` jobs go in one batch; more go
     in static batches of neighbours by text length
     (``serve.sorted_static_batches``), each from a generator seeded with
-    ``seed``. Returns waveforms in job order;
-    ``stats`` receives the last batch's decode statistics."""
-    if continuous:
-        raise NotImplementedError(
-            "continuous=True (the continuous-batching server) is not ported "
-            "yet: ROADMAP item 8, serving and streaming")
+    ``seed``. ``continuous=True`` streams the jobs through the
+    slot-recycling server instead (``serve.serve_requests``): a finished
+    lane takes the next job at once. Returns waveforms in job order;
+    ``stats`` receives the last batch's decode statistics (the server's,
+    continuous) and each job's output frames and intervals."""
     prompts, metas = [], []
     for job in jobs:
         x = text_to_ids(text_tokenizer, phn2num, job["target_text"])
         codes, scale, _, wav = tokenize_audio(audio_tokenizer, job["audio_path"])
         prompts.append((x, codes[0], list(job["mask_interval"])))
         metas.append((wav, bool(job.get("tts", False)), scale))
-    batches = (serve.sorted_static_batches(prompts, n_slots)
-               if len(prompts) > n_slots else [list(range(len(prompts)))])
-    results = [None] * len(prompts)
-    for batch in batches:
-        outs = decode_mod.generate_multi(lm, cfg, dec,
-                                         [prompts[i] for i in batch],
-                                         _generator(lm, seed), stats=stats)
-        for i, r in zip(batch, outs):
-            results[i] = r
+    if continuous:
+        results = serve.serve_requests(lm, cfg, dec, prompts,
+                                       _generator(lm, seed), n_slots=n_slots,
+                                       stats=stats)
+    else:
+        batches = (serve.sorted_static_batches(prompts, n_slots)
+                   if len(prompts) > n_slots else [list(range(len(prompts)))])
+        results = [None] * len(prompts)
+        for batch in batches:
+            outs = decode_mod.generate_multi(lm, cfg, dec,
+                                             [prompts[i] for i in batch],
+                                             _generator(lm, seed), stats=stats)
+            for i, r in zip(batch, outs):
+                results[i] = r
+    if stats is not None:
+        stats["output_frames"] = [int(r[0].shape[2]) for r in results]
+        stats["out_intervals"] = [r[2] for r in results]
     return [_render_waveform(audio_tokenizer, r, wav, scale, use_watermark, tts)
             for (wav, tts, scale), r in zip(metas, results)]

@@ -334,3 +334,73 @@ def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
         h = _post_attention(lp, h, attn.reshape(b, 1, d), act, bias_last=True)
     out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
     return out[:, 0, :], KVCache(gen.k, gen.v, gpos + 1)
+
+
+def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
+                                  gen: KVCache, key_banned: torch.Tensor,
+                                  gen_len: torch.Tensor, cfg: SSRModelConfig,
+                                  *, dtype=torch.bfloat16, read_len=None,
+                                  layers=None) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode with a generated-cache write column per row (JAX
+    ``transformer_decode_step_paged``), for the continuous-batching server,
+    which refills a finished chain's row with a new request that restarts
+    at column 0 while the other rows are mid-flight.
+
+    h_t: [B, D], one row per chain (cond rows, then uncond rows). ``pfx``
+    [L, B, H, Tp, Dh] holds each row's prompt and ``key_banned`` [B, Tp]
+    (bool) its dead keys; ``gen`` [L, B, H, Tg, Dh] the generated K/V, whose
+    ``length`` is not used. Row r attends generated columns ``< gen_len[r]``
+    only (the strict mask), so a refilled row never reads the previous
+    occupant's K/V; the current token's score is one extra softmax column
+    over [prefix | generated | current] in fp32, and the probabilities are
+    cast to ``dtype`` before the three PV products. q is scaled (in
+    ``dtype``) before the products, the prefix bias is -1e9 on
+    ``key_banned`` and the last residual is ``(h + ff @ w2) + b2``.
+
+    Reads: keys [0, pfx.length) of the prefix and columns [0, ``read_len``)
+    of the generated cache, where ``read_len`` (default: all of Tg) must be
+    at least ``max(gen_len)``; the caller passes a bound it keeps on the
+    host. JAX reads both whole buffers; the columns left out are masked
+    there, exact zeros of the same softmax. All layers' K/V land in one
+    scatter after the layer loop, at column ``gen_len[r]`` of each row r
+    (clamped to the buffer, where JAX drops an out-of-range write; a caller
+    never lets a row reach it). Returns (out [B, D], gen), the cache
+    written in place."""
+    act = _ffn_act(cfg)
+    b, d = h_t.shape
+    nhead, dh = cfg.nhead, cfg.head_dim
+    tp, tg = pfx.length, gen.max_len
+    rl = tg if read_len is None else min(int(read_len), tg)
+    dev = h_t.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    pfx_bias = torch.where(key_banned[:, :tp], -1e9, zero)[:, None, None, :]
+    cols = torch.arange(rl, device=dev)[None, :]
+    gen_bias = torch.where(cols < gen_len[:, None], zero,
+                           -1e9)[:, None, None, :]  # [B, 1, 1, rl]
+    # JAX multiplies by the scale as a weakly typed constant: in ``dtype``
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=dtype, device=dev)
+    h = h_t.to(dtype)[:, None, :]
+    ks, vs = [], []
+    for l, lp in enumerate(layers or layer_params(params)):
+        hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
+        q, k, v = _qkv(lp, hn, nhead)  # [B, H, 1, Dh]
+        ks.append(k[:, :, 0])
+        vs.append(v[:, :, 0])
+        qs = q * scale
+        sp = torch.matmul(qs.float(), pfx.k[l, :, :, :tp].float()
+                          .transpose(-1, -2)) + pfx_bias  # [B, H, 1, Tp]
+        sg = torch.matmul(qs.float(), gen.k[l, :, :, :rl].float()
+                          .transpose(-1, -2)) + gen_bias  # [B, H, 1, rl]
+        sc = (qs.float() * k.float()).sum(-1, keepdim=True)  # [B, H, 1, 1]
+        p = torch.softmax(torch.cat([sp, sg, sc], dim=-1), dim=-1).to(dtype)
+        out = torch.matmul(p[..., :tp], pfx.v[l, :, :, :tp])
+        out = out + torch.matmul(p[..., tp:tp + rl], gen.v[l, :, :, :rl])
+        out = out + p[..., -1:] * v
+        h = _post_attention(lp, h, out.reshape(b, 1, d), act, bias_last=True)
+    # one scatter for all layers: row r writes column gen_len[r]
+    rows = torch.arange(b, device=dev)
+    col = gen_len.clamp(max=tg - 1)
+    gen.k[:, rows, :, col] = torch.stack(ks).to(gen.k.dtype).transpose(0, 1)
+    gen.v[:, rows, :, col] = torch.stack(vs).to(gen.v.dtype).transpose(0, 1)
+    out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
+    return out[:, 0, :], gen

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -51,6 +52,7 @@ from .cuda_build import check_layout, load
 # kernel launches since the last reset (plain integers; read by chip_smoke.py)
 launches = 0  # forward
 bwd_launches = 0  # backward (one per dq + dk/dv pair)
+launches_by_thread = {}  # forward launches by the launching thread's name
 
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
@@ -62,6 +64,7 @@ MAX_SEQ = 1 << 20  # the kernels keep one flag byte a tile in shared memory
 def reset_launches() -> None:
     global launches, bwd_launches
     launches = bwd_launches = 0
+    launches_by_thread.clear()
 
 
 def reference_attend(q, k, v, key_valid, sm_scale):
@@ -272,6 +275,8 @@ def flash_forward(q, k, v, seg, sm_scale, *, with_lse: bool):
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
                            f"{err} at q {tuple(q.shape)}")
     launches += 1
+    name = threading.current_thread().name
+    launches_by_thread[name] = launches_by_thread.get(name, 0) + 1
     return out, lse
 
 

@@ -214,11 +214,18 @@ def test_cli_refuses_what_it_does_not_run(artifacts, tmp_path):
         tcli.main(base)  # --device defaults to cuda: no silent CPU run
 
 
-def test_inference_multi_refuses_continuous():
-    """The continuous-batching server is not ported (ROADMAP item 8): asking
-    for it raises rather than running the static batches."""
+def test_inference_multi_refuses_continuous(monkeypatch):
+    """``continuous=True`` no longer raises (the continuous-batching server
+    is ported): it goes to ``serve.serve_requests`` and never to the static
+    batches of ``generate_multi``."""
     from ssr_speech_tpu_torch.inference import pipeline as tpipe
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpipe.inference_multi(None, port_config(CFG), None, {}, None, None, [],
-                              continuous=True)
+    calls = []
+    monkeypatch.setattr(tpipe.serve, "serve_requests",
+                        lambda *a, **kw: calls.append(kw) or [])
+    monkeypatch.setattr(tpipe.decode_mod, "generate_multi",
+                        lambda *a, **kw: pytest.fail("static batches ran"))
+    lm = {"text_emb": torch.zeros(1)}
+    assert tpipe.inference_multi(lm, port_config(CFG), None, {}, None, None,
+                                 [], continuous=True, n_slots=3) == []
+    assert len(calls) == 1 and calls[0]["n_slots"] == 3

@@ -736,3 +736,97 @@ def test_generate_on_card_is_deterministic(device, small_lm):
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
     assert outs[0][0].shape[1] == 4
+
+
+def test_flash_at_the_server_prefill_layout(device):
+    """K1 at the continuous server's prefill layout: one request's [cond,
+    uncond] rows over ``sx_pad + p_pad`` keys, the dead keys from
+    ``decode.multi_dead_keys`` (text padding, the prefix tail, the uncond
+    row's prompt): valid rows against the plain version, the skip rule
+    against the dense mask."""
+    from ssr_speech_tpu_torch.inference import decode as tdecode
+
+    sx, P, x_len, p_len = 128, 256, 68, 203
+    dead = tdecode.multi_dead_keys(torch.tensor([x_len, x_len]),
+                                   torch.tensor([p_len]), sx, P,
+                                   aug_text=True, cfg_pretrained=True)
+    seg = (~dead).to(device, torch.int32)
+    q, k, v = _qkv((2, 16, sx + P, 128), 31, device)
+    vis = fa.tile_visits(seg)
+    t = vis.shape[1]
+    pad = t * fa.TILE - (sx + P)
+    ok = torch.nn.functional.pad(
+        (seg[:, None, :] == seg[:, :, None])
+        & torch.ones((sx + P, sx + P), dtype=torch.bool, device=device).tril(),
+        (0, pad, 0, pad))
+    assert not (ok.view(2, t, fa.TILE, t, fa.TILE).any(4).any(2) & ~vis).any()
+    fa.reset_launches()
+    got = fa.flash_attend_xy(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert fa.launches == 1
+    want = fa.reference_attend(q, k, v, seg, 128 ** -0.5)
+    valid = (seg == 1)[:, None, :, None].expand_as(got)
+    assert (got.float() - want.float()).abs()[valid].max().item() <= ATOL
+
+
+def test_paged_step_on_card_matches_cpu(device, small_lm):
+    """The paged decode step in bf16 on the card against its fp32 CPU
+    result, on ragged write columns with a refilled row (column 0): the
+    outputs within 3e-2 of the max, the new K/V written at each row's own
+    column."""
+    from ssr_speech_tpu_torch.models import transformer as ttrf
+
+    cfg, cpu, gpu = small_lm
+    rng = np.random.default_rng(9)
+    L, H, Dh, D = cfg.num_layers, cfg.nhead, cfg.head_dim, cfg.d_model
+    B, tp, tg = 4, 96, 32
+    gen_len = torch.tensor([9, 0, 17, 4])
+    h = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    pk, pv, gk, gv = (torch.from_numpy(rng.standard_normal(
+        (L, B, H, n, Dh)).astype(np.float32)) for n in (tp, tp, tg, tg))
+    banned = torch.from_numpy(rng.random((B, tp)) < 0.3)
+    banned[:, 0] = False
+
+    def run(model, dev, dtype):
+        gen = ttrf.KVCache(gk.to(dev, dtype), gv.to(dev, dtype), 0)
+        out, gen = ttrf.transformer_decode_step_paged(
+            model["decoder"], h.to(dev),
+            ttrf.KVCache(pk.to(dev, dtype), pv.to(dev, dtype), tp), gen,
+            banned.to(dev), gen_len.to(dev), cfg, dtype=dtype,
+            read_len=int(gen_len.max()))
+        return out.float().cpu(), gen.k.float().cpu()
+
+    want, want_k = run(cpu, torch.device("cpu"), torch.float32)
+    got, got_k = run(gpu, device, torch.bfloat16)
+    assert (got - want).abs().max() <= 3e-2 * want.abs().max()
+    rows = torch.arange(B)
+    new_w, new_g = want_k[:, rows, :, gen_len], got_k[:, rows, :, gen_len]
+    assert (new_g - new_w).abs().max() <= 3e-2 * new_w.abs().max()
+
+
+def test_served_on_card_is_deterministic(device, small_lm):
+    """Three requests through a 2-slot ContinuousBatcher on the card (a
+    refilled lane): one flash launch a layer per admitted request, results
+    identical over two runs."""
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import serve as tserve
+
+    cfg, _, gpu = small_lm
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, cfg.text_vocab_size - 1, size=(sx,)),
+             rng.integers(0, 2048, size=(4, T)), mask)
+            for T, sx, mask in [(60, 30, [(20, 35)]), (48, 22, [(5, 15)]),
+                                (70, 26, [(10, 20), (40, 50)])]]
+    dec = DecodeConfig(top_k=1, stop_repetition=2, aug_text=True,
+                       cfg_pretrained=True, cfg_stride=5, max_gen_per_span=120)
+    runs = []
+    for _ in range(2):
+        fa.reset_launches()
+        runs.append(tserve.serve_requests(
+            gpu, cfg, dec, reqs, torch.Generator(device=device).manual_seed(0),
+            n_slots=2))
+        assert fa.launches == len(reqs) * cfg.num_layers
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        assert a[2] == b[2]

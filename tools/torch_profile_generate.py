@@ -2,7 +2,7 @@
 """Where the PyTorch port's decode spends its time, on one CUDA GPU.
 
     python3 tools/torch_profile_generate.py [--n_samples 1 8]
-        [--out chiprun_out/torch_profile]
+        [--continuous 4 8] [--out chiprun_out/torch_profile]
 
 Runs the smoke's edit request without the codec: the 830M LM (e830M
 geometry) with seeded random weights in bf16, 68 text tokens, 300 frames of
@@ -19,6 +19,12 @@ each other S of ``--n_samples``. For each S it reports:
   event after the prefill's last flash-attention launch. Reported: launches
   and device time per step by category, and the device busy share (union of
   the device intervals over the unprofiled decode wall).
+
+With ``--continuous S1 S2 ...`` (then ``--n_samples`` defaults to none):
+the continuous server's chunk loop (``serve.ContinuousBatcher``, S lanes of
+the same request, 2S rows, paged decode step) for one chunk of at most
+``--chunk_steps`` steps, unprofiled twice and then profiled, with the same
+report a step (the loop is every device event after the lanes' prefills).
 
 Then, once: the transformer step plus heads alone, without the sampling
 bookkeeping, and the flash kernel against its plain version at prefill
@@ -86,22 +92,19 @@ def decode_runner(torch, decode, lm, cfg, dec, x, y, n_samples, device):
     return run
 
 
-def profile_decode(torch, run, n_samples, n_layers, unprofiled_ms):
-    """``run`` under ``torch.profiler`` (device activity only). Returns
-    (report, the profiler)."""
+def loop_profile(prof, n_flash, steps, rows, unprofiled_ms):
+    """The decode loop's share of a profile: every device event after the
+    prefills' last flash-attention launch (``n_flash`` of them). Returns
+    launches and device time a step, by category, and the busy share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rep = {"profiled_generate": run()}
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     flash = [e for e in dev_events if category(e.name) == "flash"]
-    if len(flash) != n_layers:
+    if len(flash) != n_flash:
         raise RuntimeError(f"{len(flash)} flash launches in the profile "
-                           f"(expected {n_layers}); is CUPTI tracing?")
+                           f"(expected {n_flash}); is CUPTI tracing?")
     prefill_end = max(e.time_range.end for e in flash)
     loop = [e for e in dev_events if e.time_range.start >= prefill_end]
-    steps = rep["profiled_generate"]["decode_steps"]
     counts, dev_us = Counter(), Counter()
     for e in loop:
         counts[category(e.name)] += 1
@@ -110,9 +113,9 @@ def profile_decode(torch, run, n_samples, n_layers, unprofiled_ms):
     span_us = (max(e.time_range.end for e in loop)
                - min(e.time_range.start for e in loop))
     launches = len(loop) / steps
-    rep["decode_loop_profile"] = {
+    return {
         "steps": steps,
-        "rows": n_samples * 2,
+        "rows": rows,
         "launches_per_step": launches,
         "launches_per_step_by_category": {k: v / steps for k, v in
                                           counts.most_common()},
@@ -127,16 +130,58 @@ def profile_decode(torch, run, n_samples, n_layers, unprofiled_ms):
         "prefill_flash_device_ms": [(e.time_range.end - e.time_range.start)
                                     / 1e3 for e in flash],
     }
+
+
+def profile_decode(torch, run, n_samples, n_layers, unprofiled_ms):
+    """``run`` under ``torch.profiler`` (device activity only). Returns
+    (report, the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rep = {"profiled_generate": run()}
+    rep["decode_loop_profile"] = loop_profile(
+        prof, n_layers, rep["profiled_generate"]["decode_steps"],
+        n_samples * 2, unprofiled_ms)
     return rep, prof
+
+
+def chunk_runner(torch, serve, lm, cfg, dec, x, y, n_slots, steps):
+    """The continuous server's chunk loop at ``n_slots`` lanes: every lane
+    filled with the edit request (one prefill each), then one chunk of at
+    most ``steps`` steps; the lanes are parked after it."""
+    srv = serve.ContinuousBatcher(lm, cfg, dec, n_slots, sx_pad=128,
+                                  p_pad=256, num_task=1)
+
+    def run():
+        for slot in range(n_slots):
+            srv._fill_slot(slot, slot, x, y, [(54, 108)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv._run_chunk(steps)
+        torch.cuda.synchronize()
+        n = srv.state.steps
+        for slot in range(n_slots):
+            srv._slot_req[slot] = None
+            srv._park(slot)
+        return {"steps": n,
+                "chunk_ms_per_step": (time.perf_counter() - t0) * 1e3 / n}
+    return run
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n_samples", type=int, nargs="+", default=[1, 8],
+    ap.add_argument("--n_samples", type=int, nargs="*", default=None,
                     help="chains of the request: 1 runs generate, more "
-                         "generate_batch")
+                         "generate_batch (default 1 8 without --continuous)")
+    ap.add_argument("--continuous", type=int, nargs="*", default=[],
+                    help="lane counts of the continuous server's chunk loop "
+                         "to profile (S lanes, 2S rows)")
+    ap.add_argument("--chunk_steps", type=int, default=64,
+                    help="steps of the profiled chunk")
     ap.add_argument("--out", default="chiprun_out/torch_profile")
     args = ap.parse_args()
+    if args.n_samples is None:
+        args.n_samples = [] if args.continuous else [1, 8]
 
     import numpy as np
     import torch
@@ -144,16 +189,17 @@ def main() -> int:
     from chip_smoke import card_line, cuda_time_ms, prefill_segments
     from ssr_speech_tpu_torch.config import DecodeConfig, SSRModelConfig
     from ssr_speech_tpu_torch.device import resolve_device, set_precision_policy
-    from ssr_speech_tpu_torch.inference import decode
+    from ssr_speech_tpu_torch.inference import decode, serve
     from ssr_speech_tpu_torch.models import ssr as tssr
     from ssr_speech_tpu_torch.models import transformer as trf
     from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
     from ssr_speech_tpu_torch.ops import flash_attention as fa
+    from torch.profiler import ProfilerActivity, profile
 
     device = resolve_device("cuda")
     set_precision_policy()
     card = card_line()
-    rep = {"card": card, "by_n_samples": {}}
+    rep = {"card": card, "by_n_samples": {}, "continuous": {}}
     cfg = SSRModelConfig(d_model=2048, nhead=16, num_layers=16, n_codebooks=4,
                          text_vocab_size=120)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -173,6 +219,12 @@ def main() -> int:
     for n, run in runs.items():
         run()  # cuBLAS handles, kernel build
         plain[n] = [run(), run()]
+    chunks = {n: chunk_runner(torch, serve, lm, cfg, dec, x, y, n,
+                              args.chunk_steps) for n in args.continuous}
+    chunk_plain = {}
+    for n, run in chunks.items():
+        run()
+        chunk_plain[n] = [run(), run()]
     tables = []
     for n, run in runs.items():
         unprofiled_ms = min(g["decode_ms_per_step"] for g in plain[n])
@@ -187,6 +239,26 @@ def main() -> int:
               f"{p['device_ms_per_step']:.3f} ms of device time a step, "
               f"{p['unprofiled_decode_ms_per_step']:.2f} ms a step unprofiled, "
               f"busy {p['busy_share_of_unprofiled_wall']:.1%} [{card}]")
+
+    # the continuous server's chunk loop, one profiled chunk a lane count
+    for n, run in chunks.items():
+        unprofiled_ms = min(c["chunk_ms_per_step"] for c in chunk_plain[n])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = run()
+        p = loop_profile(prof, n * cfg.num_layers, got["steps"], 2 * n,
+                         unprofiled_ms)
+        rep["continuous"][n] = {"chunks": chunk_plain[n], "profiled_chunk": got,
+                                "chunk_loop_profile": p}
+        tables.append(f"=== continuous, {n} lanes ===\n"
+                      + prof.key_averages().table(
+                          sort_by="self_cuda_time_total", row_limit=60,
+                          max_name_column_width=90))
+        print(f"[profile] continuous, {n} lanes ({p['rows']} rows): "
+              f"{p['steps']} steps, {p['launches_per_step']:.0f} launches and "
+              f"{p['device_ms_per_step']:.3f} ms of device time a step, "
+              f"{p['unprofiled_decode_ms_per_step']:.2f} ms a step "
+              f"unprofiled, busy {p['busy_share_of_unprofiled_wall']:.1%} "
+              f"[{card}]")
 
     # the transformer step and heads alone, on a cache filled to the edit's
     # prefill length (the sampling state machine left out)
