@@ -66,7 +66,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    its kernel once per layer and call, the megakernel once per call, with
    finite outputs; each chain's CUDA graph is captured from 16 launches and
    its replay equals the eager chain.
-7. Print the kernel report (JSON; each kernel's launches are those of steps
+7. Codec training (no hand kernel runs here: convolutions, FFTs and
+   matrix products are PyTorch calls, as they are XLA ops in JAX): one TINY
+   watermark-codec step on the card against the port's fp32 CPU path
+   (metrics within 1e-4 relative, watermark-decoder gradients within 1e-3
+   of each leaf's largest) and against a second card run; then
+   ``ssr_speech_tpu_torch.train_codec.main`` from step 4's full-width codec
+   bundle over a seeded synthetic 16 kHz corpus, batch 16 x 2 s, all five
+   MS-STFT scales: 6 fp32 steps (finite metrics each step, the frozen
+   encoder, decoder and quantizer bit-identical to the bundle, the
+   watermark decoder moved, the balancer's count 6, the saved bundle loaded
+   by ``load_codec`` and read by ``detect_cli``, one decision per frame of
+   a stored sample), 2 bf16 steps (the first within 5% of fp32's), and a
+   profiled run; ms/step, peak GiB, eval SI-SNR and the device time by
+   kernel group are printed, and a ``{"codec_train": ...}`` line.
+8. Print the kernel report (JSON; each kernel's launches are those of steps
    4 to 6, counted from zero before each path, the flash forward's also by
    path; ``bound_ms`` is the least time the
    card could take for the same work, from the inputs' bytes and operations
@@ -1879,6 +1893,274 @@ def drive_training_path(torch, device, argv, card: str, checked) -> dict:
 
 INT8_SHAPE = (2048, 8192, 16)  # d_model, FFN width, layers of the 830M LM
 INT8_ROWS = (2, 8, 64)  # the TPU probes' own row counts, and a batch of 64
+CODEC_STEPS = 6  # --updates of the full-width fp32 run
+CODEC_BF16_STEPS = 2
+CODEC_PROFILE_STEPS = 2  # traced steps of the profile run (after its first)
+CODEC_BATCH = 16  # train_codec's default --batch_size
+CODEC_SEGMENT_S = 2.0  # train_codec's default --segment_duration
+CODEC_METRIC_REL = 1e-4  # card against the fp32 CPU path, TINY geometry
+# watermark-decoder gradients, card against CPU and run against run: 1e-3
+# of each leaf's largest, and never below 1e-4 of the step's largest (a leaf
+# that is zero in exact arithmetic holds only rounding)
+CODEC_GRAD_REL, CODEC_GRAD_FLOOR = 1e-3, 1e-4
+CODEC_BF16_REL = 0.05  # bf16 first step against the fp32 first step
+
+
+def codec_tiny_config():
+    """The TINY codec of tests/test_codec_training.py."""
+    from ssr_speech_tpu_torch.config import CodecConfig, RVQConfig, SEANetConfig
+
+    return CodecConfig(sample_rate=16000, seanet=SEANetConfig(
+        dimension=16, n_filters=2, n_residual_layers=1, ratios=(8, 5, 4, 2),
+        lstm=1, norm="weight_norm", pad_mode="constant"),
+        rvq=RVQConfig(dimension=16, n_q=2, bins=11))
+
+
+def write_codec_manifest(root: Path, n: int = 48, seed: int = 0) -> str:
+    """A seeded synthetic 16 kHz corpus for codec training: ``n`` wavs of
+    2-5 s (a few decaying partials and noise), listed in a jsonl manifest
+    of {path, duration, sample_rate}."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.utils import audio as audio_io
+
+    rng = np.random.default_rng(seed)
+    d = root / "codec_corpus"
+    d.mkdir(parents=True, exist_ok=True)
+    sr, lines = 16000, []
+    for i in range(n):
+        dur = float(rng.uniform(2.0, 5.0))
+        t = np.arange(int(sr * dur)) / sr
+        wav = 0.02 * rng.standard_normal(t.shape)
+        for f0 in rng.uniform(80.0, 2000.0, size=3):
+            wav += 0.1 * np.sin(2 * np.pi * f0 * t) * np.exp(-t * rng.uniform(0.1, 1.0))
+        path = d / f"w{i:03d}.wav"
+        audio_io.write_wav(str(path), wav.astype(np.float32)[None], sr)
+        lines.append(json.dumps({"path": str(path), "duration": dur,
+                                 "sample_rate": sr}))
+    (d / "data.jsonl").write_text("\n".join(lines))
+    return str(d / "data.jsonl")
+
+
+def _wm_grads(state):
+    """The gradient a first Adam step was fed, from its mu (b1 = 0.5)."""
+    from ssr_speech_tpu_torch.utils.tree import tree_leaves
+
+    return [m.detach().float().cpu() * 2.0 for m in tree_leaves(state.g_opt[1])]
+
+
+def _grads_close(got, want) -> float:
+    """The worst |got - want| over the allowed error, leaf by leaf (<= 1
+    passes)."""
+    top = max(float(w.abs().max()) for w in want)
+    return max(float((g - w).abs().max()) / max(
+        CODEC_GRAD_REL * float(w.abs().max()), CODEC_GRAD_FLOOR * top)
+        for g, w in zip(got, want))
+
+
+def check_small_codec_step(torch, device) -> dict:
+    """One TINY codec train step on the card against the port's fp32 CPU
+    path from the same state and batch (the state carried across with
+    ``codec_train_state_to_numpy`` / ``from_jax``), and two runs on the
+    card against each other."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.models.codec import wmencodec as twm
+    from ssr_speech_tpu_torch.models.from_jax import (
+        codec_train_state_from_jax, codec_train_state_to_numpy)
+    from ssr_speech_tpu_torch.training import codec_trainer as tct
+
+    cfg = codec_tiny_config()
+    cpu = torch.device("cpu")
+    init, _ = tct.init_codec_train_state(torch.Generator().manual_seed(0),
+                                         cfg, lr=1e-3, disc_scales=2)
+    init = codec_train_state_to_numpy(init)
+    rng = np.random.default_rng(0)
+    hop, frames = cfg.hop_length, 8
+    wav = (rng.standard_normal((2, frames * hop, 1)) * 0.1).astype(np.float32)
+    labels, keep = twm.sample_watermark_mask(rng, 2, frames, hop, min_regions=1)
+
+    def run(dev):
+        state = codec_train_state_from_jax(init, cfg, device=dev)
+        step = tct.make_codec_train_step(cfg, tct.make_optimizers(1e-3))
+        state, m = step(state, *(torch.from_numpy(a).to(dev)
+                                 for a in (wav, labels, keep)))
+        return {k: float(v) for k, v in m.items()}, _wm_grads(state)
+
+    m_cpu, g_cpu = run(cpu)
+    runs = [run(device) for _ in range(2)]
+    metric_err = max(abs(runs[0][0][k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    grad_err = _grads_close(runs[0][1], g_cpu)
+    rerun_err = _grads_close(runs[1][1], runs[0][1])
+    rerun_metric = max(abs(runs[1][0][k] - runs[0][0][k]) / abs(runs[0][0][k])
+                       for k in m_cpu)
+    print(f"[codec-train small] TINY step, card vs fp32 CPU: metrics worst "
+          f"rel {metric_err:.2e} (tol {CODEC_METRIC_REL}), watermark-decoder "
+          f"grads {grad_err:.3f} of the allowed error; two card runs: "
+          f"metrics {rerun_metric:.2e}, grads {rerun_err:.3f}")
+    if not (metric_err <= CODEC_METRIC_REL and rerun_metric <= CODEC_METRIC_REL
+            and grad_err <= 1.0 and rerun_err <= 1.0):
+        raise RuntimeError("codec train step on the card disagrees with the "
+                           "CPU path or with itself")
+    return dict(metric_rel=metric_err, grad_of_tol=grad_err,
+                rerun_grad_of_tol=rerun_err)
+
+
+def codec_train_argv(device, manifest: str, bundle: str, exp: Path, steps: int,
+                     *extra, batch: int = CODEC_BATCH,
+                     segment: float = CODEC_SEGMENT_S) -> list:
+    return ["--device", str(device), "--manifest", manifest,
+            "--codec_path", bundle, "--exp_dir", str(exp),
+            "--batch_size", str(batch), "--segment_duration", str(segment),
+            "--updates", str(steps), "--epochs", "1", "--wm_min_regions", "1",
+            "--seed", "0", *extra]
+
+
+def _ms_per_step(run) -> list:
+    return [row["wall_s"] * 1e3 for row in run["history"]]
+
+
+def drive_codec_train_path(torch, device, bundle: str, work: Path, card: str,
+                           extra=(), batch: int = CODEC_BATCH,
+                           segment: float = CODEC_SEGMENT_S) -> dict:
+    """``train_codec.main`` from the serving phase's full-width codec bundle
+    (the default encodec_large_nq4_s320: n_filters 64, dimension 128, 4 x
+    2048 RVQ, 2 LSTM layers; all 5 MS-STFT scales) over a seeded synthetic
+    16 kHz corpus: 6 fp32 steps (bundle and eval every 3), then 2 bf16
+    steps, then a profiled fp32 run. ``extra`` adds flags (a CPU rehearsal
+    passes ``--config_json`` of a tiny codec)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from ssr_speech_tpu_torch import train_codec
+    from ssr_speech_tpu_torch.inference import detect_cli
+    from ssr_speech_tpu_torch.models.pretrained import load_bundle, load_codec
+    from ssr_speech_tpu_torch.utils.tree import tree_leaves
+
+    manifest = write_codec_manifest(work)
+    cuda = device.type == "cuda"
+
+    def peak():
+        return (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                else float("nan"))
+
+    runs = {}
+    for name, steps, flags in (
+            ("fp32", CODEC_STEPS, ["--save_every", "3", "--eval_every", "3"]),
+            ("bf16", CODEC_BF16_STEPS, ["--save_every", "100", "--eval_every",
+                                        "2", "--precision", "bfloat16"])):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train_codec.main(codec_train_argv(
+            device, manifest, bundle, work / f"codec_{name}", steps, *flags,
+            *extra, batch=batch, segment=segment))
+        run["total_s"] = time.perf_counter() - t0
+        run["peak_gib"] = peak()
+        runs[name] = run
+        ms = _ms_per_step(run)
+        print(f"[codec-train] {name}: {steps} steps of [{batch}, "
+              f"{int(segment * 16000)}, 1] in {run['total_s']:.1f} s; first "
+              f"step {ms[0]:.1f} ms, then {np.mean(ms[1:]):.1f} ms/step (min "
+              f"{min(ms[1:]):.1f}, max {max(ms[1:]):.1f}); peak "
+              f"{run['peak_gib']:.2f} GiB; eval SI-SNR "
+              + ", ".join(f"step {s}: {v:.2f} dB" for s, v in run["eval_sisnr"])
+              + f" [{card}]")
+        for i, row in enumerate(run["history"]):
+            if not all(np.isfinite(v) for v in row.values()):
+                raise RuntimeError(f"codec-train {name}: step {i + 1} metrics "
+                                   f"not finite: {row}")
+    fp32, bf16 = runs["fp32"], runs["bf16"]
+    print("[codec-train] fp32 metrics by step: " + "; ".join(
+        " ".join(f"{k} {v:.4g}" for k, v in row.items() if k != "wall_s")
+        for row in fp32["history"]))
+
+    # gates of the fp32 run
+    state = fp32["state"]
+    start = load_bundle(bundle)["params"]
+    for part in ("encoder", "decoder", "quantizer"):
+        for a, b in zip(tree_leaves(state.frozen[part]), tree_leaves(start[part])):
+            if not np.array_equal(a.detach().cpu().numpy(), b):
+                raise RuntimeError(f"codec-train: frozen {part} changed")
+    boot = train_codec.bootstrap_wm_from_codec(load_bundle(bundle)["params"])
+    moved = [not np.array_equal(a.detach().cpu().numpy(), b) for a, b in zip(
+        tree_leaves(state.wm_params), tree_leaves(boot["wmdecoder"]))]
+    if sum(moved) < 0.9 * len(moved):
+        raise RuntimeError(f"codec-train: only {sum(moved)} of {len(moved)} "
+                           f"watermark leaves moved")
+    if float(state.balancer.count) != CODEC_STEPS or int(state.step) != CODEC_STEPS:
+        raise RuntimeError(f"codec-train: balancer count "
+                           f"{float(state.balancer.count)}, step "
+                           f"{int(state.step)}, expected {CODEC_STEPS}")
+    tok = load_codec(fp32["bundle"], device)
+    sample_dir = Path(fp32["samples_dir"]) / "epoch_0"
+    sample = sorted(p for p in sample_dir.glob("*.wav")
+                    if not p.name.endswith("_prompt.wav"))[0]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        detect_cli.main(["--codec_path", fp32["bundle"], "--audio", str(sample),
+                         "--frames", "--device", str(device)])
+    row = json.loads(out.getvalue().strip().splitlines()[-1])
+    want_frames = int(segment * tok.sample_rate) // tok.cfg.hop_length
+    if not (row["frames"] == len(row["per_frame"]) == want_frames):
+        raise RuntimeError(f"detect_cli: {row['frames']} frames, "
+                           f"{len(row['per_frame'])} decisions, expected "
+                           f"{want_frames}")
+    print(f"[codec-train] frozen encoder/decoder/quantizer bit-identical to the "
+          f"bundle; {sum(moved)}/{len(moved)} watermark leaves moved; balancer "
+          f"count {float(state.balancer.count):.0f}; the saved bundle loads "
+          f"(load_codec) and detect_cli gives {row['frames']} decisions on a "
+          f"stored sample (watermarked fraction "
+          f"{row['watermarked_fraction']})")
+    worst = 0.0
+    for k, a in fp32["history"][0].items():
+        if k == "wall_s":
+            continue
+        b = bf16["history"][0][k]
+        err = abs(a - b) / (CODEC_BF16_REL * abs(a) + 1e-4)
+        worst = max(worst, err)
+    print(f"[codec-train] bf16 first step against fp32: worst metric at "
+          f"{worst:.3f} of the allowed {CODEC_BF16_REL:.0%}")
+    if worst > 1.0:
+        raise RuntimeError("codec-train: bf16 first step not within 5% of fp32")
+    del state, fp32["state"], bf16["state"]
+    gc.collect()
+
+    # where the step's time goes: a separate fp32 run, traced after step 1
+    prof_run = train_codec.main(codec_train_argv(
+        device, manifest, bundle, work / "codec_profile",
+        CODEC_PROFILE_STEPS + 1, "--save_every", "100", "--eval_every", "100",
+        "--profile_steps", str(CODEC_PROFILE_STEPS), *extra, batch=batch,
+        segment=segment))
+    del prof_run["state"]
+    with open(work / "codec_profile" / "profile" / "summary.json") as f:
+        prof = json.load(f)
+    groups = prof["device_ms_per_step"]
+    busy = prof["busy_ms_per_step"]
+    print(f"[codec-train] profile of {prof['steps']} fp32 steps: "
+          f"{prof['kernels_per_step']:.0f} kernels and {busy:.1f} ms device "
+          f"busy a step, idle share {prof['idle_share'] or float('nan'):.3f}; "
+          "by group (ms/step): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(groups.items(),
+                                                key=lambda kv: -kv[1]) if v)
+          + f" [{card}]")
+    print("[codec-train] top kernels: " + "; ".join(
+        f"{t['name'][:60]} {t['ms_per_step']:.2f} ms" for t in prof["top"][:8]))
+    summary = {name: dict(
+        steps=len(r["history"]), first_step_ms=_ms_per_step(r)[0],
+        ms_per_step=float(np.mean(_ms_per_step(r)[1:])),
+        peak_gib=r["peak_gib"], eval_sisnr=r["eval_sisnr"]) for name, r in
+        runs.items()}
+    summary.update(profile=dict(device_ms_per_step=groups, busy_ms_per_step=busy,
+                                idle_share=prof["idle_share"],
+                                kernels_per_step=prof["kernels_per_step"]),
+                   batch=[batch, int(segment * 16000), 1], card=card)
+    return summary
+
+
 MEGA_ROWS = (2, 8)  # the megakernel carries at most 8
 CHAIN_REL = 5e-2  # 16 layers: a bf16 rounding flip in h feeds every later layer
 INT8_SRC = "ssr_speech_tpu_torch/csrc/int8_matmul.cu"
@@ -2207,6 +2489,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         streaming = drive_int8_probe(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        codec_train = dict(small=check_small_codec_step(torch, device),
+                           **drive_codec_train_path(
+                               torch, device, serving["inputs"]["codec"], work,
+                               card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for entry in kernels:
@@ -2235,6 +2523,7 @@ def main() -> int:
                        "replaces": "ssr_speech_tpu/ops/flash_attention.py:103",
                        "same_kernel_as": fwd["name"]})
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"codec_train": codec_train}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -134,13 +134,16 @@ def init_lstm(gen, dim: int, num_layers: int, device="cpu"):
 def lstm_skip(p, x: torch.Tensor) -> torch.Tensor:
     """StreamableLSTM with residual skip: y = LSTM(x) + x on [B, T, C].
     The JAX weights are torch's own layout and gate order (i, f, g, o), so
-    they feed ``torch.lstm`` (cuDNN on the card) as they are."""
+    they feed ``torch.lstm`` (cuDNN on the card) as they are, cast to the
+    activations' dtype as JAX casts them. Under autograd the call runs in
+    train mode (the dropout is 0, so the numbers are the same), which
+    cuDNN's backward requires."""
     layers = list(p["layers"])
     weights = []
     for lp in layers:
-        weights += [lp["wih"], lp["whh"], lp["bih"], lp["bhh"]]
+        weights += [lp[k].to(x.dtype) for k in ("wih", "whh", "bih", "bhh")]
     hidden = layers[0]["whh"].shape[1]
     h0 = x.new_zeros((len(layers), x.shape[0], hidden))
-    y, _, _ = torch.lstm(x, (h0, h0), weights, True, len(layers), 0.0, False,
-                         False, True)
+    y, _, _ = torch.lstm(x, (h0, h0), weights, True, len(layers), 0.0,
+                         torch.is_grad_enabled(), False, True)
     return y + x

@@ -51,3 +51,32 @@ def rvq_decode(p, codes: torch.Tensor) -> torch.Tensor:
     for k in range(1, codes.shape[1]):
         out = out + embed[k][idx[:, k]]
     return out
+
+
+def rvq_quantize(p, emb: torch.Tensor, n_q: Optional[int] = None):
+    """Forward pass: (quantized [B, F, D], codes [B, K, F])."""
+    codes = rvq_encode(p, emb, n_q)
+    return rvq_decode(p, codes), codes
+
+
+def rvq_quantize_dropout(p, emb: torch.Tensor, generator: torch.Generator,
+                         max_q: Optional[int] = None, n_q: Optional[int] = None):
+    """Quantizer dropout for training: ``n_q ~ U[1, max_q]`` residual stages
+    are active this step, drawn from ``generator`` (JAX draws it from a PRNG
+    key; a caller may fix it with ``n_q``). Every stage's code is returned,
+    and the inactive stages add nothing. Returns (quantized, codes)."""
+    embed = p["embed"]
+    max_q = max_q if max_q is not None else embed.shape[0]
+    if n_q is None:
+        n_q = int(torch.randint(1, max_q + 1, (), generator=generator))
+    residual = emb
+    out = torch.zeros_like(emb)
+    codes = []
+    for k in range(max_q):
+        idx = nearest_code(embed[k], residual)
+        quant = embed[k][idx]
+        active = float(k < n_q)
+        out = out + active * quant
+        residual = residual - active * quant
+        codes.append(idx)
+    return out, torch.stack(codes, dim=1)

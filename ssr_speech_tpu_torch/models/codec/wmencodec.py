@@ -1,12 +1,14 @@
 """Watermarked EnCodec: encode / decode / wmdecode / detect_watermark (port of
 ``ssr_speech_tpu/models/codec/wmencodec.py``). Waveforms are [B, T, C]; the
 codec runs in fp32, as in JAX. ``params`` is a :class:`from_jax.WMEncodec`
-(or any tree indexed like the JAX params)."""
+(or any tree indexed like the JAX params). The four entry points run without
+autograd; the codec trainer calls the ``seanet`` functions beneath them."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...config import CodecConfig
@@ -80,3 +82,35 @@ def detect_watermark(params, wav: torch.Tensor, cfg: CodecConfig) -> torch.Tenso
     """wav [B, T, C] -> per-frame watermark decision [B, F]."""
     logits = seanet.detect_watermark_logits(params["wmdecoder"], wav, cfg.seanet)
     return torch.argmax(logits, dim=-1)
+
+
+def sample_watermark_mask(
+    rng: np.random.Generator,
+    batch: int,
+    n_frames: int,
+    hop: int,
+    min_regions: int = 0,
+    max_regions: int = 2,
+    max_fraction: float = 0.8,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side random watermark spans for codec training (a copy of the
+    JAX package's numpy function): returns (labels [B, F] 0/1, audio keep
+    [B, F*hop], 1 outside the masked regions and 0 inside)."""
+    labels = np.zeros((batch, n_frames), np.int32)
+    keep = np.ones((batch, n_frames * hop), np.float32)
+    for b in range(batch):
+        n_regions = int(rng.integers(min_regions, max_regions + 1))
+        total = 0
+        for _ in range(n_regions):
+            if total >= int(max_fraction * n_frames):
+                break
+            mask_len = int(rng.integers(1, int(n_frames * max_fraction) + 1))
+            if total + mask_len > max_fraction * n_frames:
+                mask_len = int(max_fraction * n_frames) - total
+            if mask_len <= 0:
+                break
+            start = int(rng.integers(0, n_frames - mask_len + 1))
+            labels[b, start:start + mask_len] = 1
+            keep[b, start * hop:(start + mask_len) * hop] = 0.0
+            total += mask_len
+    return labels, keep

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..config import CodecConfig, SSRModelConfig
-from ..utils.tree import to_numpy_tree
+from ..utils.tree import to_numpy_tree, tree_map
 
 
 class ParamTree(nn.Module):
@@ -150,3 +150,67 @@ def int8_ffn_from_jax(params: Dict[str, Any], device="cpu"):
     pairs = [quantize_weight(w1[layer].to(device)) for layer in range(w1.shape[0])]
     return (torch.stack([q for q, _ in pairs]).contiguous(),
             torch.stack([s for _, s in pairs])[:, None, :].contiguous())
+
+
+
+def _tensor_tree(tree, device, trainable=False):
+    """numpy / jax leaves -> tensors on ``device`` (copies)."""
+    def leaf(a):
+        t = torch.as_tensor(np.array(a)).to(device)
+        return t.requires_grad_(True) if trainable else t
+    return tree_map(leaf, tree)
+
+
+def codec_train_state_from_jax(state, cfg: CodecConfig, device="cpu"):
+    """JAX ``codec_trainer.CodecTrainState`` (or the tuple
+    :func:`codec_train_state_to_numpy` returns) -> the port's
+    ``CodecTrainState`` on ``device``: the watermark, frozen and
+    discriminator parameters (the discriminator's convs moved to the port's
+    OIHW layout), both optax Adam states as ``(count, mu, nu)``, the
+    balancer, the EMA and the step. The watermark and discriminator
+    parameters require grad."""
+    from ..training import losses as L
+    from ..training.codec_trainer import CodecTrainState
+    from ..training.discriminators import conv_from_jax
+
+    wm_params, frozen, disc, g_opt, d_opt, balancer, ema, step = state
+    _check_shape(torch.as_tensor(np.asarray(frozen["quantizer"]["embed"])),
+                 (cfg.rvq.n_q, cfg.rvq.bins, cfg.rvq.dimension), "embed")
+    as_disc = lambda t: conv_from_jax(tree_map(np.array, t), device)  # noqa: E731
+
+    def adam(opt, layout=lambda t: _tensor_tree(t, device)):
+        count, mu, nu = opt[0]
+        return (torch.tensor(int(np.asarray(count)), dtype=torch.int32),
+                layout(mu), layout(nu))
+
+    ema_norms, count = balancer
+    return CodecTrainState(
+        wm_params=_tensor_tree(wm_params, device, trainable=True),
+        frozen=_tensor_tree(frozen, device),
+        disc_params=tree_map(lambda t: t.requires_grad_(True), as_disc(disc)),
+        g_opt=adam(g_opt), d_opt=adam(d_opt, as_disc),
+        balancer=L.BalancerState(ema=_tensor_tree(dict(ema_norms), device),
+                                 count=_tensor_tree(count, device)),
+        ema_params=_tensor_tree(ema, device),
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32))
+
+
+def codec_train_state_to_numpy(state) -> tuple:
+    """Inverse of :func:`codec_train_state_from_jax`: the fields of JAX's
+    ``CodecTrainState`` in its order, as numpy trees in JAX's layout, with
+    each Adam state as ``((count, mu, nu), ())`` (optax's chain) and the
+    balancer as ``(ema, count)``. The arrays are copies."""
+    from ..training.discriminators import conv_to_jax
+
+    def copies(tree):  # .numpy() of a CPU tensor would alias it
+        return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+    def adam(opt, layout=copies):
+        count, mu, nu = opt
+        return ((np.asarray(int(count), np.int32), layout(mu), layout(nu)), ())
+
+    return (copies(state.wm_params), copies(state.frozen),
+            conv_to_jax(state.disc_params), adam(state.g_opt),
+            adam(state.d_opt, conv_to_jax),
+            (copies(state.balancer.ema), copies(state.balancer.count)),
+            copies(state.ema_params), np.asarray(int(state.step), np.int32))

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..config import SSRModelConfig
 
+from ..ops import scaling
 from ..ops.flash_attention import flash_attend_xy
 
 LAYER_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b", "ln2_w",
@@ -115,12 +116,18 @@ def _attend(q, k, v, bias):
     return torch.matmul(probs, v)
 
 
-def _ffn_act(cfg: SSRModelConfig):
-    if cfg.activation != "relu":
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported (the shipped SSR "
-            "config uses relu)")
-    return F.relu
+def _ffn_act(cfg: SSRModelConfig, deterministic: bool):
+    """The FFN activation of ``cfg.activation``: relu (the shipped SSR
+    config) or the icefall double-swish variants of ``ops.scaling``; the
+    balancer's backward is active unless ``deterministic``."""
+    if cfg.activation == "relu":
+        return F.relu
+    if cfg.activation == "double_swish":
+        return scaling.double_swish
+    if cfg.activation == "balanced_double_swish":
+        return lambda x: scaling.balanced_double_swish(
+            x, deterministic=deterministic)
+    raise ValueError(cfg.activation)
 
 
 def layer_params(params) -> List[Dict[str, torch.Tensor]]:
@@ -168,7 +175,7 @@ def transformer_forward(params, h: torch.Tensor, cfg: SSRModelConfig, *,
     attention is the fused kernel over ``key_valid`` [B, S]; with "einsum" it
     is ``_attend`` over the additive ``bias`` [B, 1, S, S]. Unless
     ``deterministic``, ``cfg.trm_dropout`` is drawn from ``generator``."""
-    act = _ffn_act(cfg)
+    act = _ffn_act(cfg, deterministic)
     use_flash = cfg.attn_impl in ("flash", "splash")
     if use_flash and key_valid is None:
         raise ValueError(f"attn_impl={cfg.attn_impl!r} needs key_valid")
@@ -223,7 +230,7 @@ def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
     segment 1 attends exactly the causal prefix minus the banned keys, which
     is the JAX prefill's additive mask for every row whose output is read.
     Returns (hidden [B, S, D], cache)."""
-    act = _ffn_act(cfg)
+    act = _ffn_act(cfg, deterministic=True)
     h = h.to(dtype)
     start, s = cache.length, h.shape[1]
     for l, lp in enumerate(layer_params(params)):
@@ -257,7 +264,7 @@ def transformer_decode_step(params, h_t: torch.Tensor, cache: KVCache,
     which adds exact zeros to the same softmax. Returns (out [B, D], cache
     advanced by one); the new K/V are written into the cache in place.
     ``layers`` may pass ``layer_params(params)`` precomputed."""
-    act = _ffn_act(cfg)
+    act = _ffn_act(cfg, deterministic=True)
     pos = cache.length
     if pos >= cache.max_len:
         raise ValueError(f"KV cache full ({cache.max_len} positions)")
@@ -296,7 +303,7 @@ def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
     products, fp32 scores and one softmax over [prefix ; generated],
     probabilities in ``dtype``, the last residual ``(h + ff @ w2) + b2``.
     Returns (out [B, D], gen advanced by one)."""
-    act = _ffn_act(cfg)
+    act = _ffn_act(cfg, deterministic=True)
     b, d = h_t.shape
     s = b // n_groups
     nhead, dh = cfg.nhead, cfg.head_dim
@@ -366,7 +373,7 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
     (clamped to the buffer, where JAX drops an out-of-range write; a caller
     never lets a row reach it). Returns (out [B, D], gen), the cache
     written in place."""
-    act = _ffn_act(cfg)
+    act = _ffn_act(cfg, deterministic=True)
     b, d = h_t.shape
     nhead, dh = cfg.nhead, cfg.head_dim
     tp, tg = pfx.length, gen.max_len

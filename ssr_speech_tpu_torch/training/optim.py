@@ -1,6 +1,6 @@
 """Optimizers and LR schedules (port of ``ssr_speech_tpu/training/optim.py``):
 ScaledAdam + Eden, Eve, and AdamW (clip by global norm, then AdamW) with the
-linear warmup.
+linear warmup; and ``optax.adam``, which the codec trainer uses.
 
 Each optimizer is an object with ``init(params) -> state`` and
 ``update_(grads, state, params)``, over a tree of tensors (the nesting of
@@ -265,6 +265,45 @@ class AdamW:
                 p.add_((float(step_size) * update).to(p.dtype))
         count += 1
         sched_count += 1
+
+
+class Adam:
+    """``optax.adam(lr, b1, b2, eps)`` at a constant rate: bias correction
+    at the incremented count, ``eps`` outside the square root. State:
+    ``(count, mu, nu)``, the leaves of optax's ``(ScaleByAdamState(count,
+    mu, nu), EmptyState())``; ``count`` is an int32 CPU tensor. The moments
+    and parameters are updated in place with ``torch._foreach`` ops."""
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params):
+        zeros = lambda p: torch.zeros_like(p.detach())
+        return (torch.zeros((), dtype=torch.int32), tree_map(zeros, params),
+                tree_map(zeros, params))
+
+    def update_(self, grads, state, params) -> None:
+        b1, b2 = self.b1, self.b2
+        count, mu, nu = state
+        n = F32(int(count) + 1)
+        bc1 = float(F32(1.0) - F32(b1) ** n)
+        bc2 = float(F32(1.0) - F32(b2) ** n)
+        gs = [g.float() for g in tree_leaves(grads)]
+        ms, vs = tree_leaves(mu), tree_leaves(nu)
+        with torch.no_grad():
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - b1))
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_add_(vs, torch._foreach_mul(
+                torch._foreach_mul(gs, gs), 1 - b2))
+            denom = torch._foreach_div(vs, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            upd = torch._foreach_div(torch._foreach_div(ms, bc1), denom)
+            torch._foreach_mul_(upd, -self.lr)
+            torch._foreach_add_(tree_leaves(params), upd)
+        count += 1
 
 
 def build_optimizer(cfg: OptimConfig, total_steps: int = 100000

@@ -1,8 +1,8 @@
-"""Running meters and the metrics log of the trainer.
+"""Running meters, the metrics log of the trainer, and SI-SNR.
 
-``AverageMeter`` is the one of ``ssr_speech_tpu/utils/metrics.py`` (whose
-module imports ``jax.numpy``). ``MetricsWriter`` writes the same
-``metrics.jsonl`` rows as ``ssr_speech_tpu/utils/logging_utils.py`` without
+``AverageMeter`` and :func:`si_snr` are the ones of
+``ssr_speech_tpu/utils/metrics.py`` (whose module imports ``jax.numpy``).
+``MetricsWriter`` writes the same ``metrics.jsonl`` rows as ``ssr_speech_tpu/utils/logging_utils.py`` without
 its TensorBoard mirror: ``torch.utils.tensorboard`` imports TensorFlow where
 it is installed, and TensorFlow imports JAX.
 """
@@ -13,6 +13,8 @@ import json
 import os
 import time
 from typing import Dict
+
+import torch
 
 
 class AverageMeter:
@@ -47,3 +49,19 @@ class MetricsWriter:
 
     def close(self):
         self._f.close()
+
+
+def si_snr(est, ref, eps: float = 1e-8):
+    """Scale-invariant SNR in dB over the last axis ([B, T] or [B, T, C]:
+    the first channel), per row."""
+    if est.dim() == 3:
+        est = est[..., 0]
+        ref = ref[..., 0]
+    est = est - est.mean(dim=-1, keepdim=True)
+    ref = ref - ref.mean(dim=-1, keepdim=True)
+    dot = (est * ref).sum(dim=-1, keepdim=True)
+    energy = (ref * ref).sum(dim=-1, keepdim=True) + eps
+    target = dot / energy * ref
+    noise = est - target
+    ratio = ((target ** 2).sum(dim=-1) + eps) / ((noise ** 2).sum(dim=-1) + eps)
+    return 10.0 * torch.log10(ratio)

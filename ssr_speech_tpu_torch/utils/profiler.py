@@ -15,12 +15,21 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-# kernel name fragments -> the group a device-time summary reports them under
+# kernel name fragments (lower case) -> the group a device-time summary
+# reports them under; the first group with a matching fragment takes a
+# kernel, so cuDNN's convolutions (xmma, implicit-GEMM) come before gemm
 KERNEL_GROUPS = (
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_",)),
     ("fused_ce", ("ce_fwd_kernel", "ce_dhidden_kernel", "ce_dw2_kernel")),
+    ("rnn", ("rnn", "lstm")),
+    ("convolution", ("fprop", "dgrad", "wgrad", "implicit_gemm", "cudnn",
+                     "conv1d", "conv2d", "convolve", "winograd")),
+    ("fft", ("fft",)),
+    ("optimizer", ("multi_tensor_apply",)),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("elementwise", ("elementwise",)),
+    ("reduction", ("reduce_kernel",)),
 )
 
 

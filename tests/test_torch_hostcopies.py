@@ -4,7 +4,9 @@ with it.
 ``ssr_speech_tpu_torch`` imports nothing of ``ssr_speech_tpu`` (and no JAX):
 it keeps its own copy of the host modules it needs (config, token patterns,
 edit spans, the static request scheduler, audio and text helpers,
-checkpoints, the dataset, the batcher, the prefetcher, the native helper).
+checkpoints, the dataset, the batcher, the prefetcher, the native helper,
+the codec trainer's audio dataset, sample manager, ViSQOL hook and
+watermark-span sampler).
 Three guards:
 
 (a) a fresh interpreter imports every module of the port, ``chip_smoke`` and
@@ -31,27 +33,35 @@ import torch
 
 from ssr_speech_tpu import config as jconfig
 from ssr_speech_tpu import native as jnative
+from ssr_speech_tpu.data import audio_dataset as jaudio_dataset
 from ssr_speech_tpu.data import batching as jbatching
 from ssr_speech_tpu.data import dataset as jdataset
 from ssr_speech_tpu.data import prefetch as jprefetch
 from ssr_speech_tpu.inference import edit as jedit
 from ssr_speech_tpu.inference import serve as jserve
+from ssr_speech_tpu.models.codec import wmencodec as jwm
 from ssr_speech_tpu.ops import patterns as jpatterns
 from ssr_speech_tpu.utils import audio as jaudio
 from ssr_speech_tpu.utils import checkpoint as jckpt
+from ssr_speech_tpu.utils import sample_manager as jsamples
 from ssr_speech_tpu.utils import text_norm as jtext
+from ssr_speech_tpu.utils import visqol as jvisqol
 from ssr_speech_tpu.utils import watchdog as jwatchdog
 from ssr_speech_tpu_torch import config as tconfig
 from ssr_speech_tpu_torch import native as tnative
+from ssr_speech_tpu_torch.data import audio_dataset as taudio_dataset
 from ssr_speech_tpu_torch.data import batching as tbatching
 from ssr_speech_tpu_torch.data import dataset as tdataset
 from ssr_speech_tpu_torch.data import prefetch as tprefetch
 from ssr_speech_tpu_torch.inference import edit as tedit
 from ssr_speech_tpu_torch.inference import serve as tserve
+from ssr_speech_tpu_torch.models.codec import wmencodec as twm
 from ssr_speech_tpu_torch.ops import patterns as tpatterns
 from ssr_speech_tpu_torch.utils import audio as taudio
 from ssr_speech_tpu_torch.utils import checkpoint as tckpt
+from ssr_speech_tpu_torch.utils import sample_manager as tsamples
 from ssr_speech_tpu_torch.utils import text_norm as ttext
+from ssr_speech_tpu_torch.utils import visqol as tvisqol
 from ssr_speech_tpu_torch.utils import watchdog as twatchdog
 
 REPO = Path(__file__).resolve().parent.parent
@@ -102,6 +112,8 @@ def port_modules():
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = port_modules()
     assert len(mods) > 40 and "ssr_speech_tpu_torch.int8_probe" in mods
+    assert {"ssr_speech_tpu_torch.train_codec",
+            "ssr_speech_tpu_torch.inference.detect_cli"} <= set(mods)
     code = ("import importlib, sys; sys.path.insert(0, 'tools'); "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "import chip_smoke, torch_profile_generate; " + NO_JAX_PACKAGE)
@@ -378,7 +390,8 @@ def test_port_modules_are_the_ports_own():
 
     root = str(REPO / "ssr_speech_tpu_torch")
     for mod in (tconfig, tnative, tbatching, tdataset, tprefetch, tedit,
-                tserve, tpatterns, taudio, tckpt, ttext, twatchdog):
+                tserve, tpatterns, taudio, tckpt, ttext, twatchdog,
+                taudio_dataset, tsamples, tvisqol, twm):
         assert importlib.import_module(mod.__name__).__file__.startswith(root)
     assert tdecode.patterns is tpatterns
     assert tpretrained.save_bundle is tckpt.save_bundle
@@ -386,3 +399,99 @@ def test_port_modules_are_the_ports_own():
     assert ttrainer.DeadlockDetect is twatchdog.DeadlockDetect
     assert not hasattr(tckpt, "save_sharded") and not hasattr(tpatterns,
                                                               "revert_delay_jnp")
+
+
+# ------------------------------------------- the codec trainer's host copies
+
+
+@pytest.mark.parametrize("loader_threads", [0, 2], ids=["python", "native"])
+def test_audio_dataset_gives_the_same_batches(tmp_path, loader_threads):
+    """The same manifest and seed through both copies: the same sampling
+    probabilities, file picks, seeks and padded segments, batch by batch,
+    over a corpus with weights, a short file and a file needing a
+    resample."""
+    rng = np.random.default_rng(4)
+    lines = []
+    for i, (dur, sr, w) in enumerate([(1.0, 16000, 2.0), (0.3, 16000, None),
+                                      (0.8, 8000, 0.5)]):
+        path = str(tmp_path / f"w{i}.wav")
+        jaudio.write_wav(path, (rng.standard_normal((1, int(dur * sr))) * 0.1
+                                ).astype(np.float32), sr)
+        meta = dict(path=path, duration=dur, sample_rate=sr)
+        if w is not None:
+            meta["weight"] = w
+        lines.append(json.dumps(meta))
+    mf = tmp_path / "m.jsonl"
+    mf.write_text("\n".join(lines))
+    jcfg = jconfig.tiny_codec_config()
+    kw = dict(segment_duration=0.5, seed=9, loader_threads=loader_threads,
+              min_segment_ratio=0.7)
+    jds = jaudio_dataset.AudioSegmentDataset(str(mf), jcfg, **kw)
+    tds = taudio_dataset.AudioSegmentDataset(str(mf), port_config(jcfg), **kw)
+    np.testing.assert_array_equal(tds.sampling_probabilities,
+                                  jds.sampling_probabilities)
+    assert tds.segment_samples == jds.segment_samples
+    for a, b in zip(tds.batches(3, 4), jds.batches(3, 4)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sample_manager_stores_the_same_files(tmp_path):
+    rng = np.random.default_rng(5)
+    wavs = [(rng.standard_normal((1, 800)) * 0.1).astype(np.float32)
+            for _ in range(3)]
+    roots = {}
+    for name, mod in (("jax", jsamples), ("port", tsamples)):
+        sm = mod.SampleManager(str(tmp_path / name))
+        ids = [sm.add_sample(wavs[0], 16000, epoch=1, conditioning={"i": 0}),
+               sm.add_sample(wavs[0], 16000, epoch=1),
+               sm.add_sample(wavs[1][0], 16000, epoch=2, prompt_wav=wavs[2][0])]
+        metas = [{k: v for k, v in m.items() if k != "time"}
+                 for m in sm.get_samples()]
+        roots[name] = (ids, metas, sorted(
+            str(p.relative_to(tmp_path / name))
+            for p in (tmp_path / name).rglob("*")))
+    assert roots["port"] == roots["jax"]
+
+
+def test_visqol_hook_drives_the_same_protocol(tmp_path):
+    """Both hooks against one stub binary that records its command line and
+    inputs: the same flags, the same resampled PCM files, the same score."""
+    import stat
+
+    from tests.test_visqol import STUB
+
+    log = tmp_path / "calls.txt"
+    stub = STUB.replace("rows = list(", f"open({str(log)!r}, 'a').write("
+                        "repr(sorted(a for a in sys.argv[1:] if a.startswith("
+                        "'--'))) + chr(10))\nrows = list(")
+    (tmp_path / "bazel-bin").mkdir()
+    (tmp_path / "model").mkdir()
+    exe = tmp_path / "bazel-bin" / "visqol"
+    exe.write_text(stub)
+    exe.chmod(exe.stat().st_mode | stat.S_IEXEC)
+    rng = np.random.default_rng(6)
+    ref = [rng.standard_normal(8000) * 0.1 for _ in range(2)]
+    deg = [r + rng.standard_normal(8000) * 0.01 for r in ref]
+    scores = [mod.ViSQOL(tmp_path, mode="speech")(ref, deg, sr=8000,
+                                                  pad_with_silence=True)
+              for mod in (jvisqol, tvisqol)]
+    assert scores[0] == scores[1] == pytest.approx(4.25)
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2 and calls[0] == calls[1]
+    for x in (ref[0], deg[1]):
+        np.testing.assert_array_equal(tvisqol._resample(x, 8000, 16000),
+                                      jvisqol._resample(x, 8000, 16000))
+    with pytest.raises(FileNotFoundError):
+        tvisqol.ViSQOL(tmp_path / "nope")
+
+
+@pytest.mark.parametrize("min_regions,max_regions", [(0, 2), (1, 3)])
+def test_watermark_mask_sampler_is_the_same(min_regions, max_regions):
+    for seed in range(6):
+        got = twm.sample_watermark_mask(np.random.default_rng(seed), 4, 30, 40,
+                                        min_regions, max_regions)
+        want = jwm.sample_watermark_mask(np.random.default_rng(seed), 4, 30, 40,
+                                         min_regions, max_regions)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)

@@ -284,7 +284,9 @@ def test_profile_summary_groups_kernels_and_counts_idle_time(tmp_path):
     assert s["kernels_per_step"] == 2.5
     assert s["device_ms_per_step"] == {
         "flash_attention_fwd": 0.05, "flash_attention_bwd": 0.05,
-        "fused_ce": 0.05, "gemm": 0.1, "other": 0.05}
+        "fused_ce": 0.05, "rnn": 0.0, "convolution": 0.0, "fft": 0.0,
+        "optimizer": 0.0, "gemm": 0.1, "elementwise": 0.05, "reduction": 0.0,
+        "other": 0.0}
     assert s["busy_ms_per_step"] == pytest.approx(0.275)  # 550 us of 1000
     assert s["span_ms_per_step"] == pytest.approx(0.5)
     assert s["idle_share"] == pytest.approx(0.45)
