@@ -56,11 +56,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    per call, at the layout K1 was held at in step 3.
 5. Training: over the seeded synthetic corpus (600 utterances of 2-20 s),
    drive ``ssr_speech_tpu_torch.train_lm.main`` on the e830M geometry with
-   the flash and fused-CE kernels, ScaledAdam and the CLI's dropouts for 6
-   steps: finite losses, no skipped step, moved parameters, a bundle the
-   serving loader reads, each kernel launched exactly as often as the steps
-   and layers require, and every step on the batch shape the kernels were
-   checked at.
+   the flash and fused-CE kernels, ScaledAdam, the CLI's dropouts and its
+   default activation checkpointing (``dots_masks``) for 6 steps: finite
+   losses, no skipped step, moved parameters, a bundle the serving loader
+   reads, each kernel launched exactly as often as the steps and layers
+   require (the attention forward again in each layer's recompute), and
+   every step on the batch shape the kernels were checked at.
 6. The int8 probe: ``ssr_speech_tpu_torch.int8_probe.main`` at its full width
    (d_model 2048, FFN 8192, 16 layers, 2 and 8 rows): every chain must launch
    its kernel once per layer and call, the megakernel once per call, with
@@ -80,8 +81,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    a stored sample), 2 bf16 steps (the first within 5% of fp32's), and a
    profiled run; ms/step, peak GiB, eval SI-SNR and the device time by
    kernel group are printed, and a ``{"codec_train": ...}`` line.
-8. Print the kernel report (JSON; each kernel's launches are those of steps
-   4 to 6, counted from zero before each path, the flash forward's also by
+8. The model's lifecycle. ``[prep]``: ``prep encode`` on the
+   card over a seeded corpus of 48 wavs of 2-10 s with step 4's codec
+   (batch 16, buckets of 128 frames; files/s, audio s/s, wall, peak), held
+   code by code against the port's fp32 CPU encode of the same files (run
+   in a subprocess meanwhile): a code that differs must be a near-tie, its
+   two centroids within twice the measured fp32 distance error; then
+   ``phonemize``, ``filemaker``, ``vocab`` and two 830M ``train_lm`` steps
+   on the prepped dataset. ``[remat]``: one 830M step on step 5's batch
+   under ``none``, ``full`` and ``dots_masks`` (step 5 itself runs JAX's
+   default, ``dots_masks``): losses bit for bit, gradients within 1e-3 of
+   each leaf's max, the dropout generator's state the same; peak GiB,
+   ms/step and K1's launches (twice a layer under checkpointing).
+   ``[endurance]``: the continuous server at full width over 24 edits
+   through 4 lanes, twice: device memory may grow by one request's K/V at
+   most from the 8th request to the end, host RSS by 128 MB, and the codes
+   repeat. ``[decode vs cpu]``: the edit's decode loop greedy in fp32 on
+   the card and on the CPU from the same fp32 prefill: codes identical up
+   to the first step where the card's top two logits lie within twice the
+   step's measured logit error (steps held and the first tie printed), and
+   a ``{"lifecycle": ...}`` line.
+9. Print the kernel report (JSON; each kernel's launches are those of steps
+   4 to 8, counted from zero before each path, the flash forward's also by
    path; ``bound_ms`` is the least time the
    card could take for the same work, from the inputs' bytes and operations
    and the published peaks below), the card line, and as the last line
@@ -1851,7 +1872,8 @@ def drive_training_path(torch, device, argv, card: str, checked) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
     b, sx, sy = hist[0]["batch_shape"]
     step_s = sum(h["seconds"] for h in hist[1:]) / max(steps - 1, 1)
-    print(f"[train-830M] {steps} steps of [B={b}, S={sx}+{sy}] ({b * (sx + sy)} "
+    print(f"[train-830M] remat {cfg.remat}: {steps} steps of [B={b}, "
+          f"S={sx}+{sy}] ({b * (sx + sy)} "
           f"positions, {hist[0]['real_tokens']} unpadded), "
           f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f}M "
           f"params; first step {hist[0]['seconds']:.2f} s, then "
@@ -1868,7 +1890,9 @@ def drive_training_path(torch, device, argv, card: str, checked) -> dict:
                            f"the kernel checks took {tuple(checked)}")
     if not all(math.isfinite(h["loss"]) and h["skipped"] == 0.0 for h in hist):
         raise RuntimeError(f"non-finite or skipped training steps: {hist}")
-    want = {"flash_attention_fwd": cfg.num_layers * steps,
+    # a checkpointed layer runs its attention again in the recompute
+    fwd_per_layer = 1 if cfg.remat == "none" else 2
+    want = {"flash_attention_fwd": fwd_per_layer * cfg.num_layers * steps,
             "flash_attention_bwd": cfg.num_layers * steps,
             "fused_ce_fwd": steps, "fused_ce_bwd_dhidden": steps,
             "fused_ce_bwd_dw2": steps}
@@ -1887,6 +1911,636 @@ def drive_training_path(torch, device, argv, card: str, checked) -> dict:
     print(f"[train-830M] finite losses, no skipped step, parameters moved, "
           f"bundle loads for serving; launches {launches}")
     return launches
+
+
+# ---------------------------------------------------- the model's lifecycle
+
+PREP_FILES = 48  # the [prep] corpus: wavs of 2-10 s at 16 kHz
+PREP_BATCH, PREP_BUCKET = 16, 128  # prep encode's defaults
+PREP_TRAIN_STEPS = 1  # --num_steps on the prepped data: steps 0..1
+REMAT_MODES = ("none", "full", "dots_masks")
+REMAT_GRAD_TOL = 1e-3  # each leaf, of its largest |gradient|: a bf16 step
+ENDURANCE_JOBS, ENDURANCE_WARM = 24, 8  # edits, and requests before the mark
+ENDURANCE_RSS_MB = 128  # host RSS growth from the mark to the end
+# frames a request may generate in [endurance] and [decode vs cpu]: the
+# random-weight LM runs every request to its cap (432 frames by default),
+# and the lanes should turn over often, the CPU's 830M decode stay short
+LIFECYCLE_GEN_CAP = 128
+PREP_WORDS = ("the", "card", "speaks", "a", "quiet", "line", "of", "text",
+              "morning", "light", "near", "them", "codec", "frames", "model",
+              "today", "slowly", "every", "sentence", "here")
+
+
+def _sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _allocated(torch, device) -> int:
+    return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+
+
+def _peak(torch, device) -> int:
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
+def write_prep_corpus(root: Path, n: int = PREP_FILES, seed: int = 3) -> dict:
+    """A seeded 16 kHz corpus: ``n`` wavs of 2-10 s (partials and noise), a
+    jsonl manifest of their paths by length and a TSV of seeded
+    transcripts."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.utils import audio as audio_io
+
+    rng = np.random.default_rng(seed)
+    d = root / "prep_corpus"
+    (d / "wavs").mkdir(parents=True, exist_ok=True)
+    sr, rows, tsv, total = 16000, [], [], 0.0
+    # listed by length, as a manifest is for bucketed batching
+    for i, dur in enumerate(sorted(rng.uniform(2.0, 10.0, size=n))):
+        dur = float(dur)
+        t = np.arange(int(sr * dur)) / sr
+        wav = 0.02 * rng.standard_normal(t.shape)
+        for f0 in rng.uniform(80.0, 1500.0, size=3):
+            wav += 0.1 * np.sin(2 * np.pi * f0 * t) * np.exp(-t * rng.uniform(0.05, 0.5))
+        path = d / "wavs" / f"p{i:03d}.wav"
+        audio_io.write_wav(str(path), wav.astype(np.float32)[None], sr)
+        rows.append(json.dumps({"path": str(path)}))
+        words = rng.choice(PREP_WORDS, size=int(rng.integers(6, 16)))
+        tsv.append(f"p{i:03d}\t{' '.join(words)}")
+        total += dur
+    (d / "wavs.jsonl").write_text("\n".join(rows))
+    (d / "text.tsv").write_text("\n".join(tsv))
+    return dict(dir=d, manifest=str(d / "wavs.jsonl"), tsv=str(d / "text.tsv"),
+                audio_s=total)
+
+
+TOP_CENTROIDS = 8  # the CPU reference keeps each code's nearest centroids
+
+
+def rvq_distances(torch, quantizer, emb, codes):
+    """Squared distances [B, F, K, bins] of each stage's residual to every
+    centroid, the residual taken along ``codes`` [B, K, F] (the formula of
+    ``quantize.nearest_code``)."""
+    embed = quantizer["embed"]
+    residual = emb
+    out = []
+    for k in range(embed.shape[0]):
+        e = embed[k]
+        out.append(residual.square().sum(-1, keepdim=True)
+                   - 2.0 * residual @ e.T + e.square().sum(-1))
+        residual = residual - e[codes[:, k]]
+    return torch.stack(out, dim=2)
+
+
+def cpu_encode_reference(manifest: str, codec: str, save_dir: str) -> None:
+    """The port's own fp32 CPU encode of a corpus: ``prep encode --device
+    cpu`` with the same batching as on the card, its code files under
+    ``save_dir``, and beside them ``nearest.npz``: per file, the
+    ``TOP_CENTROIDS`` nearest centroids of every code (indices and squared
+    distances [F, K, n]), taken from the latents of each batch. Run in a
+    subprocess (``start_cpu_encode``)."""
+    import numpy as np
+    import torch
+
+    from ssr_speech_tpu_torch.data import prep
+    from ssr_speech_tpu_torch.models.codec import wmencodec as wm
+
+    rows = []
+    real = wm.encode
+
+    def recording(params, wav, cfg):
+        codes, scale, emb = real(params, wav, cfg)
+        d = rvq_distances(torch, params["quantizer"], emb, codes)
+        top = torch.topk(-d, TOP_CENTROIDS, dim=-1)
+        rows.extend(zip((-top.values).numpy(), top.indices.numpy()))
+        return codes, scale, emb
+
+    wm.encode = recording
+    prep.main(["encode", "--manifest", manifest, "--codec_path", codec,
+               "--save_dir", save_dir, "--batch_size", str(PREP_BATCH),
+               "--bucket_frames", str(PREP_BUCKET), "--device", "cpu"])
+    with open(manifest) as f:  # every file encodes: rows in manifest order
+        names = [Path(json.loads(line)["path"]).stem for line in f if line.strip()]
+    out = {}
+    for name, (dist, idx) in zip(names, rows):
+        n = len((Path(save_dir) / f"{name}.txt").read_text().split("\n")[0].split())
+        out[name + ".d"], out[name + ".i"] = dist[:n], idx[:n]
+    np.savez(Path(save_dir) / "nearest.npz", **out)
+
+
+def start_cpu_encode(corpus: dict, codec: str) -> tuple:
+    """``cpu_encode_reference`` in a subprocess, which runs while the card's
+    phases go on."""
+    out = corpus["dir"] / "codes_cpu"
+    log = open(corpus["dir"] / "cpu_encode.log", "w")
+    code = (f"import chip_smoke; chip_smoke.cpu_encode_reference("
+            f"{corpus['manifest']!r}, {codec!r}, {str(out)!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=log, stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def read_codes(d: Path) -> dict:
+    import numpy as np
+
+    return {f.stem: np.array([[int(v) for v in row.split()] for row in
+                              f.read_text().strip().split("\n")])
+            for f in sorted(d.glob("*.txt"))}
+
+
+def check_prep_codes(torch, device, corpus: dict, codec: str, card_dir: Path,
+                     cpu_dir: Path, card: str) -> dict:
+    """The card's codes against the CPU's, file by file. A code that differs
+    must be a near-tie: at the first stage where a frame differs, the card's
+    pick is among the CPU's nearest centroids and its CPU distance lies
+    within twice the measured fp32 distance error of the CPU's pick. The
+    error is measured on that file: the card encodes it alone at its
+    bucket's padding, and its distances to the CPU's nearest centroids
+    (along the CPU's codes) are held against the CPU's, max over the file.
+    Later stages of such a frame follow from the tie and are counted
+    apart."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.models.codec import seanet
+    from ssr_speech_tpu_torch.models.from_jax import codec_from_jax
+    from ssr_speech_tpu_torch.utils import audio as audio_io
+
+    got, want = read_codes(card_dir), read_codes(cpu_dir)
+    nearest = np.load(cpu_dir / "nearest.npz")
+    if sorted(got) != sorted(want) or len(got) != PREP_FILES:
+        raise RuntimeError(f"prep wrote {len(got)} card and {len(want)} CPU "
+                           f"files, expected {PREP_FILES}")
+    params, cfg = pretrained.load_codec_params(codec)
+    hop = cfg.hop_length
+    n_codes = n_diff = n_follow = 0
+    worst_ratio, worst_err, ties, c = 0.0, 0.0, [], None
+    for name in sorted(got):
+        a, b = got[name], want[name]
+        if a.shape != b.shape:
+            raise RuntimeError(f"{name}: codes {a.shape} on the card, "
+                               f"{b.shape} on the CPU")
+        n_codes += a.size
+        diff = a != b
+        if not diff.any():
+            continue
+        dist_cpu, idx = nearest[name + ".d"], nearest[name + ".i"]
+        wav = audio_io.load_for_codec(
+            str(corpus["dir"] / "wavs" / f"{name}.wav"), cfg.sample_rate, hop)
+        frames = wav.shape[1] // hop
+        pad = -(-frames // PREP_BUCKET) * PREP_BUCKET
+        x = np.zeros((1, pad * hop, 1), np.float32)
+        x[0, :wav.shape[1]] = wav[0]
+        codes = np.zeros((1, b.shape[0], pad), np.int64)
+        codes[0, :, :frames] = b
+        if c is None:
+            c = codec_from_jax(params, cfg, device=device)
+        with torch.no_grad():
+            emb = seanet.encode(c["encoder"], torch.from_numpy(x).to(device),
+                                cfg.seanet)
+            d = rvq_distances(torch, c["quantizer"], emb,
+                              torch.from_numpy(codes).to(device))[0, :frames]
+            dist_card = torch.gather(d, -1, torch.from_numpy(idx).to(
+                device)).cpu().numpy()
+        err = float(np.abs(dist_card - dist_cpu).max())
+        worst_err = max(worst_err, err)
+        for f in np.nonzero(diff.any(axis=0))[0]:
+            k = int(np.nonzero(diff[:, f])[0][0])
+            n_diff += 1
+            n_follow += int(diff[k + 1:, f].sum())
+            where = np.nonzero(idx[f, k] == a[k, f])[0]
+            if idx[f, k, 0] != b[k, f] or not where.size:
+                raise RuntimeError(
+                    f"{name} frame {f} stage {k}: the card picked centroid "
+                    f"{a[k, f]}, not among the CPU's {TOP_CENTROIDS} nearest "
+                    f"{idx[f, k].tolist()}")
+            gap = float(dist_cpu[f, k, where[0]] - dist_cpu[f, k, 0])
+            worst_ratio = max(worst_ratio, gap / max(2 * err, 1e-30))
+            ties.append((name, int(f), k, gap, err))
+            if gap > 2 * err:
+                raise RuntimeError(
+                    f"{name} frame {f} stage {k}: the card picked centroid "
+                    f"{a[k, f]}, the CPU {b[k, f]}, {gap:.3e} apart in CPU "
+                    f"distance, beyond twice the measured error {err:.3e}")
+    print(f"[prep] codes card vs fp32 CPU over {len(got)} files: "
+          f"{n_codes - n_diff - n_follow} of {n_codes} equal; {n_diff} frames "
+          f"part at a near-tie (worst gap / (2 x measured distance error) "
+          f"{worst_ratio:.3f}, worst error {worst_err:.3e}), {n_follow} "
+          f"later-stage codes follow them; ties (file, frame, stage, gap, "
+          f"err) {[(n, f, k, f'{g:.2e}', f'{e:.2e}') for n, f, k, g, e in ties[:6]]} "
+          f"[{card}]")
+    return dict(codes=n_codes, tie_frames=n_diff, following=n_follow,
+                worst_tie_ratio=worst_ratio, worst_distance_err=worst_err)
+
+
+def drive_prep_path(torch, device, main: dict, work: Path, card: str,
+                    geometry=()) -> dict:
+    """``prep encode`` on the card over a seeded corpus of 48 wavs of 2-10 s
+    with the serving phase's full-width codec bundle (batch 16, buckets of
+    128 frames), the port's fp32 CPU encode of the same files started beside
+    it; then ``phonemize``, ``filemaker`` and ``vocab`` over the corpus, and
+    two steps of ``train_lm`` at the 830M geometry on the prepped dataset,
+    which reads it back. Returns what ``finish_prep_path`` needs and the
+    flash launches of the training steps."""
+    from ssr_speech_tpu_torch import train_lm
+    from ssr_speech_tpu_torch.data import prep
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    corpus = write_prep_corpus(work)
+    codec = main["inputs"]["codec"]
+    ds = work / "prep_dataset"
+    card_dir = ds / "codes"
+    enc = prep.main(["encode", "--manifest", corpus["manifest"],
+                     "--codec_path", codec, "--save_dir", str(card_dir),
+                     "--batch_size", str(PREP_BATCH), "--bucket_frames",
+                     str(PREP_BUCKET), "--device", str(device)])
+    print(f"[prep] encode on the card: {enc['files']} files, "
+          f"{enc['audio_s']:.1f} s of audio in {enc['batches']} batches, "
+          f"{enc['seconds']:.2f} s wall (codec load included): "
+          f"{enc['files'] / enc['seconds']:.2f} files/s, "
+          f"{enc['audio_s'] / enc['seconds']:.1f} audio s/s; peak "
+          f"{enc['peak_gib'] or float('nan'):.2f} GiB [{card}]")
+    if enc["files"] != PREP_FILES:
+        raise RuntimeError(f"prep encoded {enc['files']} of {PREP_FILES} files")
+    cpu = start_cpu_encode(corpus, codec)
+    try:
+        t0 = time.perf_counter()
+        prep.main(["phonemize", "--manifest", corpus["tsv"], "--save_dir",
+                   str(ds / "phonemes"), "--num_workers", "4"])
+        prep.main(["filemaker", "--manifest", corpus["tsv"], "--phn_dir",
+                   str(ds / "phonemes"), "--codes_dir", str(card_dir),
+                   "--output", str(ds / "manifest" / "train.txt")])
+        prep.main(["vocab", "--phn_dir", str(ds / "phonemes"), "--output",
+                   str(ds / "vocab.txt")])
+        kept = (ds / "manifest" / "train.txt").read_text().strip().split("\n")
+        vocab = (ds / "vocab.txt").read_text().strip().split("\n")
+        print(f"[prep] phonemize, filemaker, vocab: {len(kept)} utterances "
+              f"kept, {len(vocab)} phones, "
+              f"{time.perf_counter() - t0:.2f} s")
+        if len(kept) != PREP_FILES:
+            raise RuntimeError(f"filemaker kept {len(kept)} of {PREP_FILES}")
+        argv = ["--device", str(device), "--exp_dir", str(work / "prep_exp"),
+                "--dataset_dir", str(ds), "--encodec_folder_name", "codes",
+                "--num_steps", str(PREP_TRAIN_STEPS), "--print_every_n_steps",
+                "1", "--val_every_n_steps", "1000000", "--max_num_tokens",
+                str(TRAIN_TOKENS), "--text_vocab_size", "100",
+                "--codebook_weight", ",".join(str(w) for w in CW),
+                "--attn_impl", "flash", "--ce_impl", "fused", *geometry]
+        fa.reset_launches()  # count only this path's launches
+        t0 = time.perf_counter()
+        trainer = train_lm.main(argv)
+        launches = fa.launches
+        hist = trainer.history
+        print(f"[prep] train_lm on the prepped data ({trainer.cfg.num_layers}"
+              f" layers, d_model {trainer.cfg.d_model}, remat "
+              f"{trainer.cfg.remat}): {len(hist)} steps on batch shapes "
+              f"{[tuple(h['batch_shape']) for h in hist]}, losses "
+              f"{[round(h['loss'] / max(h['ntokens'], 1), 4) for h in hist]}, "
+              f"{time.perf_counter() - t0:.1f} s; flash launches {launches}")
+        if len(hist) != PREP_TRAIN_STEPS + 1 or not all(
+                math.isfinite(h["loss"]) and h["skipped"] == 0.0 for h in hist):
+            raise RuntimeError(f"training on the prepped data: {hist}")
+        if not geometry and (trainer.cfg.d_model, trainer.cfg.num_layers) != (
+                2048, 16):
+            raise RuntimeError("training on the prepped data not at 830M")
+        del trainer
+    except BaseException:
+        cpu[0].kill()
+        cpu[0].wait()
+        raise
+    return dict(corpus=corpus, codec=codec, card_dir=card_dir, cpu=cpu,
+                encode=enc, launches=launches)
+
+
+def finish_prep_path(torch, device, prep_run: dict, card: str) -> dict:
+    """Wait for the CPU encode, then hold the card's codes against it."""
+    proc, cpu_dir, log = prep_run["cpu"]
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    log.close()
+    if rc != 0:
+        raise RuntimeError(f"the CPU encode failed ({rc}): "
+                           f"{(cpu_dir.parent / 'cpu_encode.log').read_text()[-2000:]}")
+    print(f"[prep] fp32 CPU encode done ({time.perf_counter() - t0:.1f} s "
+          f"waited for it)")
+    return dict(encode=prep_run["encode"], **check_prep_codes(
+        torch, device, prep_run["corpus"], prep_run["codec"],
+        prep_run["card_dir"], cpu_dir, card))
+
+
+def check_remat(torch, device, cfg, batch, card: str) -> dict:
+    """One 830M training step (forward and backward, dropout on, the fused
+    attention and CE head) under each of ``none``, ``full`` and
+    ``dots_masks`` on ``train_lm``'s first batch, each mode once to warm and
+    once timed, with the same dropout generator seed: the losses equal bit
+    for bit, every gradient leaf within ``REMAT_GRAD_TOL`` of its largest
+    magnitude of ``none``'s, the generator's state after the step the same,
+    and the CE kernels' launches the same; K1 launches once a layer under
+    ``none`` and twice under the others. Prints each mode's peak GiB (the
+    step's, over the model's fp32 weights and gradients), ms/step and K1
+    launches."""
+    import dataclasses
+
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models.from_jax import trainable_lm_from_jax
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+    from ssr_speech_tpu_torch.ops import fused_ce as fce
+    from ssr_speech_tpu_torch.utils.tree import tree_leaves
+
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = trainable_lm_from_jax(tssr.init_ssr(
+        torch.Generator(device=device).manual_seed(2), cfg, device), cfg,
+        device=device)
+    leaves = tree_leaves(model.tree())
+    b = {k: torch.as_tensor(batch[k]).to(device)
+         for k in ("x", "x_lens", "y", "y_lens")}
+    res, ref, total = {}, None, 0
+    for mode in REMAT_MODES:
+        mcfg = dataclasses.replace(cfg, remat=mode)
+        for timed in (False, True):
+            for p in leaves:
+                p.grad = None
+            gen = torch.Generator(device=device).manual_seed(5)
+            _sync(torch, device)
+            base = _allocated(torch, device)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            fa.reset_launches()
+            fce.reset_launches()
+            t0 = time.perf_counter()
+            out = tssr.ssr_forward(model, mcfg, b, deterministic=False,
+                                   generator=gen, compute_dtype=dtype,
+                                   codebook_weight=CW, remat=mode)
+            out["loss"].backward()
+            _sync(torch, device)
+            ms = (time.perf_counter() - t0) * 1e3
+            total += fa.launches
+        res[mode] = dict(
+            ms=ms, loss=out["loss"].item(),
+            peak_gib=_peak(torch, device) / 2 ** 30,
+            step_gib=(_peak(torch, device) - base) / 2 ** 30,
+            k1=fa.launches, k3=fa.bwd_launches,
+            ce=(fce.fwd_launches, fce.dhidden_launches, fce.dw2_launches),
+            gen_state=gen.get_state())
+        del out
+        if ref is None:
+            ref = [p.grad.detach().cpu() for p in leaves]
+            res[mode]["grad_err"] = 0.0
+        else:
+            res[mode]["grad_err"] = max(
+                ((p.grad - r.to(device)).abs().max()
+                 / r.abs().max().clamp_min(1e-30)).item()
+                for p, r in zip(leaves, ref))
+        print(f"[remat] {mode}: loss {res[mode]['loss']!r}, "
+              f"{res[mode]['ms']:.1f} ms/step (forward+backward), peak "
+              f"{res[mode]['peak_gib']:.2f} GiB ({res[mode]['step_gib']:.2f} "
+              f"over the weights), K1 {res[mode]['k1']} launches a step, K3 "
+              f"{res[mode]['k3']}, CE {res[mode]['ce']}, worst gradient leaf "
+              f"vs none {res[mode]['grad_err']:.2e} of its max [{card}]")
+    for p in leaves:
+        p.grad = None
+    del model, leaves, ref
+    L = cfg.num_layers
+    none = res["none"]
+    for mode in REMAT_MODES[1:]:
+        r = res[mode]
+        if r["loss"] != none["loss"]:
+            raise RuntimeError(f"remat {mode}: loss {r['loss']!r} vs "
+                               f"{none['loss']!r} without")
+        if not r["grad_err"] <= REMAT_GRAD_TOL:
+            raise RuntimeError(f"remat {mode}: gradients {r['grad_err']:.2e} "
+                               f"from none's (tol {REMAT_GRAD_TOL})")
+        if not torch.equal(r["gen_state"], none["gen_state"]):
+            raise RuntimeError(f"remat {mode}: the dropout generator ends "
+                               f"elsewhere than without remat")
+        if (r["k1"], r["k3"], r["ce"]) != (2 * L, L, none["ce"]):
+            raise RuntimeError(f"remat {mode}: launches K1 {r['k1']}, K3 "
+                               f"{r['k3']}, CE {r['ce']}")
+    if (none["k1"], none["k3"], none["ce"]) != (L, L, (1, 1, 1)):
+        raise RuntimeError(f"remat none: launches K1 {none['k1']}, K3 "
+                           f"{none['k3']}, CE {none['ce']}")
+    print(f"[remat] losses bit-identical, gradients within "
+          f"{REMAT_GRAD_TOL} of each leaf's max, the generator's state the "
+          f"same under {', '.join(REMAT_MODES)}")
+    return dict(launches=total, modes={
+        mode: {k: v for k, v in r.items() if k != "gen_state"}
+        for mode, r in res.items()})
+
+
+def process_rss_mb() -> float:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2 ** 20
+
+
+def drive_endurance_path(torch, device, main: dict, card: str) -> dict:
+    """The continuous server at full width (the 830M bundle, bf16) over 24
+    greedy edit jobs through 4 lanes, each lane refilled five times, each
+    request capped at ``LIFECYCLE_GEN_CAP`` frames; the same stream twice.
+    After the first 8 requests are done and after all 24: device memory
+    allocated may grow by at most one request's K/V (a staged eager
+    prefill), host RSS by at most ``ENDURANCE_RSS_MB``. The two runs give
+    the same codes. Returns the flash launches of this phase."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.data.tokenizer import tokenize_audio
+    from ssr_speech_tpu_torch.inference import serve
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    inputs = main["inputs"]
+    lm, cfg, _ = pretrained.load_lm(inputs["lm"], device)
+    audio_tok = pretrained.load_codec(inputs["codec"], device)
+    y = tokenize_audio(audio_tok, inputs["wav"])[0][0]
+    targets = [SERVE_TARGETS[i % len(SERVE_TARGETS)]
+               + " " + PREP_WORDS[i // len(SERVE_TARGETS)]
+               for i in range(ENDURANCE_JOBS)]
+    requests = [(x, y, mask) for x, _, mask in serve_prompts(cfg, targets)]
+    dec = DecodeConfig(top_k=1, aug_text=True, cfg_pretrained=True,
+                       cfg_stride=5,  # SERVE_FLAGS
+                       max_gen_per_span=LIFECYCLE_GEN_CAP)
+    sx, P, nt = serve.serve_geometry(cfg, dec, requests)
+    fa.reset_launches()  # count only this path's launches
+    runs = []
+    for rep in (1, 2):
+        server = serve.ContinuousBatcher(lm, cfg, dec, SERVE_SLOTS, sx_pad=sx,
+                                         p_pad=P, num_task=nt)
+        marks = {}
+
+        def progress(done, total, _):
+            if done >= ENDURANCE_WARM and "mid" not in marks:
+                _sync(torch, device)
+                marks["mid"] = (done, _allocated(torch, device),
+                                process_rss_mb())
+
+        st = {}
+        t0 = time.perf_counter()
+        results = server.run(requests, torch.Generator(
+            device=device).manual_seed(1), progress=progress, stats=st)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        mem1, rss1 = _allocated(torch, device), process_rss_mb()
+        done0, mem0, rss0 = marks["mid"]
+        row = server.state.cache.k
+        # one request: its [cond, uncond] rows of the prefix and generated K/V
+        kv = 2 * 2 * cfg.num_layers * cfg.nhead * cfg.head_dim * (
+            server.tmax + row.shape[3]) * row.element_size()
+        codes = [r[0] for r in results]
+        frames = sum(c.shape[-1] for c in codes)
+        print(f"[endurance] run {rep}: {ENDURANCE_JOBS} edits through "
+              f"{SERVE_SLOTS} lanes in {wall:.1f} s ({st['decode_steps']} "
+              f"decode steps, {st['decode_s'] / st['decode_steps'] * 1e3:.2f} "
+              f"ms/step, {frames / 50 / wall:.2f}x realtime of codes); after "
+              f"{done0} requests {mem0 / 2 ** 20:.1f} MiB allocated, RSS "
+              f"{rss0:.0f} MB; after all {mem1 / 2 ** 20:.1f} MiB "
+              f"({(mem1 - mem0) / 2 ** 20:+.1f}, bound one request's K/V "
+              f"{kv / 2 ** 20:.1f}), RSS {rss1:.0f} MB ({rss1 - rss0:+.0f}, "
+              f"bound {ENDURANCE_RSS_MB}) [{card}]")
+        if mem1 - mem0 > kv:
+            raise RuntimeError(f"endurance run {rep}: device memory grew "
+                               f"{(mem1 - mem0) / 2 ** 20:.1f} MiB")
+        if rss1 - rss0 > ENDURANCE_RSS_MB:
+            raise RuntimeError(f"endurance run {rep}: RSS grew "
+                               f"{rss1 - rss0:.0f} MB")
+        if any(r is not None for r in server._slot_req) or bool(
+                server.state.active.any()):
+            raise RuntimeError("endurance: a lane is still occupied")
+        runs.append(codes)
+        del server, results
+    for i, (a, b) in enumerate(zip(*runs)):
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"endurance: request {i} differs between runs")
+    launches = fa.launches
+    if launches != 2 * ENDURANCE_JOBS * cfg.num_layers:
+        raise RuntimeError(f"endurance: {launches} flash launches, expected "
+                           f"{cfg.num_layers} a request")
+    print(f"[endurance] the stream's codes identical over two runs; flash "
+          f"launches {launches}")
+    del lm, audio_tok
+    return dict(launches=launches)
+
+
+class _StopDecode(Exception):
+    pass
+
+
+def drive_decode_vs_cpu(torch, device, main: dict, card: str) -> dict:
+    """The edit request's decode loop (capped at ``LIFECYCLE_GEN_CAP``
+    frames), greedy in fp32, on the card and on the CPU from the same fp32
+    prefill (on the CPU: K1 takes bf16 only, and the
+    card's prefill is held to the CPU's in ``[reference]``), the 830M
+    bundle's weights. Each step's logits (after the constraint masks, as
+    sampling reads them) are recorded on the card; the CPU run compares
+    each of its steps as it goes. The codes must be the same up to the
+    first step where a codebook's argmax differs, and there the card's top
+    two logits of that codebook must lie within twice the step's measured
+    logit error (max |card - CPU| over the step's logits); a difference
+    outside such a tie fails. Prints the steps held and the first tie."""
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.data.tokenizer import tokenize_audio
+    from ssr_speech_tpu_torch.inference import decode
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.models import transformer as trf
+    from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
+
+    cpu = torch.device("cpu")
+    inputs = main["inputs"]
+    params, cfg, _ = pretrained.load_lm_params(inputs["lm"])
+    y = tokenize_audio(pretrained.load_codec(inputs["codec"], device),
+                       inputs["wav"])[0][0]
+    x, _, mask = serve_prompts(cfg, (EDIT_TARGET,))[0]
+    dec = DecodeConfig(top_k=1, aug_text=True, cfg_pretrained=True,
+                       cfg_stride=5,  # the smoke's edit request, CLI defaults
+                       max_gen_per_span=LIFECYCLE_GEN_CAP)
+    lms = {name: lm_from_jax(params, cfg, device=dev, dtype=torch.float32)
+           for name, dev in (("cpu", cpu), ("cuda", device))}
+    del params
+    t0 = time.perf_counter()
+    p = decode._one_prompt(lms["cpu"], cfg, dec, x, y, mask,
+                           torch.Generator().manual_seed(1), None, None, None,
+                           "generate")
+    tmax = decode._bucket(p["sx_pad"] + p["p_pad"] + p["cap_total"]
+                          + p["num_task"] + 8, decode.TMAX_BUCKET)
+    cache, banned = decode._prefill_impl(
+        lms["cpu"], p["xb"], p["prefix"], p["x_len"], p["p_len"], cfg=cfg,
+        tmax=tmax, dtype=torch.float32, cfg_pretrained=True, aug_text=True)
+    t_prefill = time.perf_counter() - t0
+    real_filter = decode.top_k_top_p_filter
+    card_steps, state = [], dict(step=0, held=0, tie=None, err=0.0)
+
+    def record(lgt, **kw):
+        card_steps.append(lgt[0].float().cpu())
+        return real_filter(lgt, **kw)
+
+    def compare(lgt, **kw):
+        i = state["step"]
+        got = lgt[0].float()
+        if i >= len(card_steps):
+            raise RuntimeError(f"the CPU decode ran past the card's "
+                               f"{len(card_steps)} steps")
+        want = card_steps[i]
+        err = (want - got).abs().max().item()
+        state["err"] = max(state["err"], err)
+        a, b = want.argmax(-1), got.argmax(-1)
+        if not torch.equal(a, b):
+            for k in torch.nonzero(a != b)[:, 0].tolist():
+                top2 = torch.topk(want[k], 2).values
+                gap = (top2[0] - top2[1]).item()
+                if gap > 2 * err:
+                    raise RuntimeError(
+                        f"decode step {i} codebook {k}: card picks "
+                        f"{int(a[k])}, CPU {int(b[k])}, the card's top two "
+                        f"{gap:.3e} apart, beyond twice the step's logit "
+                        f"error {err:.3e}")
+                state["tie"] = dict(step=i, codebook=k, gap=gap, err=err)
+            raise _StopDecode
+        state["step"] += 1
+        state["held"] = state["step"]
+        return real_filter(lgt, **kw)
+
+    runs = {}
+    try:
+        for name, dev, hook in (("cuda", device, record), ("cpu", cpu, compare)):
+            decode.top_k_top_p_filter = hook
+            c = trf.KVCache(cache.k.to(dev), cache.v.to(dev), cache.length)
+            st = {}
+            t0 = time.perf_counter()
+            try:
+                out = decode._generate_impl(
+                    lms[name], c, banned.to(dev),
+                    torch.Generator(device=dev).manual_seed(1),
+                    p["sentinels"].to(dev), p["x_len"], p["p_len"], cfg=cfg,
+                    dec=dec, num_task=p["num_task"], cap_total=p["cap_total"],
+                    aug_text=True, dtype=torch.float32, stats=st)
+                runs[name] = (out[0].cpu(), int(out[2]), st["decode_steps"])
+            except _StopDecode:
+                runs[name] = None
+            runs[name + "_s"] = time.perf_counter() - t0
+            del c
+    finally:
+        decode.top_k_top_p_filter = real_filter
+    n_card = runs["cuda"][2]
+    if runs["cpu"] is not None:
+        out_card, len_card, _ = runs["cuda"]
+        out_cpu, len_cpu, _ = runs["cpu"]
+        if len_card != len_cpu or not torch.equal(out_card[:, :len_card],
+                                                  out_cpu[:, :len_cpu]):
+            raise RuntimeError("decode vs cpu: the codes differ without a "
+                               "differing step")
+    tie = state["tie"]
+    print(f"[decode vs cpu] 830M edit, greedy fp32 (TF32 off), from the CPU's "
+          f"fp32 prefill ({t_prefill:.1f} s): the card ran {n_card} steps in "
+          f"{runs['cuda_s']:.2f} s, the CPU {state['held']} in "
+          f"{runs['cpu_s']:.1f} s; codes identical for {state['held']} steps"
+          + (f", then the first tie at step {tie['step']} (codebook "
+             f"{tie['codebook']}: the card's top two {tie['gap']:.3e} apart, "
+             f"logit error {tie['err']:.3e})" if tie else
+             " (all of them, no tie)")
+          + f"; worst logit error {state['err']:.3e} [{card}]")
+    del lms
+    return dict(card_steps=n_card, held=state["held"], first_tie=tie,
+                max_logit_err=state["err"])
 
 
 # ------------------------------------------------------ int8 weight streaming
@@ -2454,6 +3108,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build_kernels()
     work = REPO / ".smoke_work"
+    prep_run = None
     try:
         argv = train_argv(device, work, write_corpus(work))
         cfg, batch = first_train_batch(device, argv)
@@ -2495,7 +3150,25 @@ def main() -> int:
                            **drive_codec_train_path(
                                torch, device, serving["inputs"]["codec"], work,
                                card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        prep_run = drive_prep_path(torch, device, serving, work, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        remat = check_remat(torch, device, cfg, batch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        endurance = drive_endurance_path(torch, device, serving, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lifecycle = dict(prep=finish_prep_path(torch, device, prep_run, card),
+                         remat=remat["modes"],
+                         decode_vs_cpu=drive_decode_vs_cpu(torch, device,
+                                                           serving, card))
     finally:
+        if prep_run is not None and prep_run["cpu"][0].poll() is None:
+            prep_run["cpu"][0].kill()
+            prep_run["cpu"][0].wait()
         shutil.rmtree(work, ignore_errors=True)
     for entry in kernels:
         entry["launches"] = {**training, **streaming}[entry["name"]]
@@ -2506,7 +3179,10 @@ def main() -> int:
                                "continuous": continuous["launches"],
                                "stream": tts_stream["launches"],
                                "http": http_path["launches"],
-                               "training": training[fwd["name"]]}
+                               "training": training[fwd["name"]],
+                               "prep_training": prep_run["launches"],
+                               "remat": remat["launches"],
+                               "endurance": endurance["launches"]}
     fwd["paged_step"] = paged
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     # the top-level numbers are the serving prefill's; every path's shape here
@@ -2524,6 +3200,7 @@ def main() -> int:
                        "same_kernel_as": fwd["name"]})
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"codec_train": codec_train}))
+    print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 presets and JSON helpers, so a config dict stored in a bundle by either
 package loads in the other).
 
-Fields that only XLA or the TPU read (``TrainConfig.rng_impl``, the remat
-mode strings, the mesh and compile-cache options) stay as inert fields: the
-port ignores them, and a bundle's config dict round-trips unchanged.
+Fields that only XLA or the TPU read (``TrainConfig.rng_impl``, the mesh and
+compile-cache options) stay as inert fields: the port ignores them, and a
+bundle's config dict round-trips unchanged. ``SSRModelConfig.remat`` is read
+by the port's trainer (``models.transformer.checkpoint_layer``).
 
 This replaces the reference's two disjoint config systems — the flat argparse
 namespace of the LM trainer (reference ``config.py:4-92``) and audiocraft's

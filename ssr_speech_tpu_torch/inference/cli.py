@@ -6,8 +6,12 @@
 
 The flags are those of ``ssr_speech_tpu.inference.cli`` plus ``--device``
 (default ``cuda``; asking for it without a card is an error, never a silent
-CPU run). The word alignment comes from ``--alignment_file`` (CSV rows
-``word,start,end``); the whisper / wav2vec2 aligners are not ported yet.
+CPU run). The word alignment comes, as in JAX, from ``--alignment_file``
+(CSV rows ``word,start,end``), from a wav2vec2 forced aligner over the known
+transcript (``--align_model`` with ``--orig_transcript``), or from Whisper
+ASR (``--whisper_model``, optionally re-aligned by ``--align_model``); the
+aligners run on ``--device`` and need ``transformers``. With ``--tts
+--whisper_model`` the output is trimmed by re-transcribing it.
 ``--sample_batch_size N`` > 1 decodes N seeds of the request in one loop and
 writes ``{savename}_seed{seed + i}.wav`` for i < N.
 """
@@ -50,9 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tts", action="store_true")
     p.add_argument("--language", type=str, default="en", choices=["en", "zh"])
     p.add_argument("--model_path", type=str, required=True,
-                   help="LM bundle (.pkl)")
+                   help="LM bundle (.pkl ours or .pth reference bundle)")
     p.add_argument("--codec_path", type=str, required=True,
-                   help="wmencodec bundle (.pkl)")
+                   help="wmencodec checkpoint (.pkl ours or .th reference)")
     p.add_argument("--orig_audio", type=str, required=True)
     p.add_argument("--orig_transcript", type=str, default=None)
     p.add_argument("--target_transcript", type=str, required=True)
@@ -63,12 +67,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, default="./out")
     p.add_argument("--savename", type=str, default="output")
     p.add_argument("--whisper_model", type=str, default=None,
-                   help="not ported: use --alignment_file")
+                   help="HF whisper id for on-host ASR+alignment")
     p.add_argument("--whisper_model_name", type=str, default=None,
                    choices=["base.en", "base"],
-                   help="not ported: use --alignment_file")
+                   help="reference-CLI spelling (inference_v2.py:186): "
+                        "short OpenAI model name, mapped to the HF id "
+                        "openai/whisper-<name>")
     p.add_argument("--align_model", type=str, default=None,
-                   help="not ported: use --alignment_file")
+                   help="HF wav2vec2-CTC id for forced alignment of the "
+                        "transcript (the whisperx-style pass, reference "
+                        "inference_v2.py:56-94)")
     p.add_argument("--prompt_length", type=float, default=3.0)
     p.add_argument("--sample_batch_size", type=int, default=1)
     return p
@@ -82,6 +90,33 @@ def read_alignment(path: str) -> List[Tuple[str, float, float]]:
                 continue
             words.append((row[0], float(row[1]), float(row[2])))
     return words
+
+
+def resolve_alignment(orig_audio, orig_transcript, *, device,
+                      alignment_file=None, align_model=None,
+                      whisper_model=None):
+    """Word alignment [(word, start, end)] from one of: a precomputed CSV, a
+    wav2vec2 forced aligner over the known transcript (whisperx-equivalent),
+    or transformers-Whisper ASR (optionally re-aligned). The models run on
+    ``device``."""
+    if alignment_file:
+        return read_alignment(alignment_file)
+    if align_model and orig_transcript:
+        from ..utils import forced_align
+
+        return forced_align.Wav2Vec2Aligner(align_model, device).align(
+            orig_audio, orig_transcript)
+    if whisper_model:
+        from ..utils import asr, forced_align
+
+        words = asr.WhisperAligner(whisper_model, device).transcribe(
+            orig_audio)
+        if align_model:  # re-align the ASR transcript with wav2vec2
+            words = forced_align.Wav2Vec2Aligner(align_model, device).align(
+                orig_audio, " ".join(w for w, _, _ in words))
+        return words
+    raise SystemExit("need --alignment_file, --align_model with "
+                     "--orig_transcript, or --whisper_model")
 
 
 def prepare_job(words, orig_transcript, target_transcript, audio_dur, *,
@@ -153,21 +188,17 @@ def main(argv=None) -> Optional[Dict]:
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    if args.whisper_model or args.whisper_model_name or args.align_model:
-        raise NotImplementedError("the whisper / wav2vec2 aligners are not "
-                                  "yet ported: pass --alignment_file")
-    if not args.alignment_file:
-        raise SystemExit("need --alignment_file (the whisper / wav2vec2 "
-                         "aligners are not yet ported)")
-    if not os.path.isfile(args.orig_audio):
-        raise SystemExit(f"--orig_audio not found: {args.orig_audio}")
-
     lm, cfg, phn2num = pretrained.load_lm(args.model_path, device)
     audio_tok = pretrained.load_codec(args.codec_path, device)
     text_tok = TextTokenizer(language="cmn" if args.language == "zh" else "en-us")
+    if not os.path.isfile(args.orig_audio):
+        raise SystemExit(f"--orig_audio not found: {args.orig_audio}")
     t_loaded = time.perf_counter()
 
-    words = read_alignment(args.alignment_file)
+    words = resolve_alignment(
+        args.orig_audio, args.orig_transcript, device=device,
+        alignment_file=args.alignment_file, align_model=args.align_model,
+        whisper_model=args.whisper_model)
     wav, sr = audio_io.read_wav(args.orig_audio)
     audio_dur = wav.shape[-1] / sr
     orig_transcript, args.target_transcript, target_text, mask_intervals = \
@@ -185,6 +216,10 @@ def main(argv=None) -> Optional[Dict]:
         aug_context=args.aug_context, cfg_pretrained=args.cfg_pretrained,
         codec_sr=args.codec_sr, seed=args.seed)
     os.makedirs(args.output_dir, exist_ok=True)
+    # the reference CLI's alias, applied where JAX applies it: after the
+    # alignment, so it names the model of the TTS trim below
+    if args.whisper_model_name and not args.whisper_model:
+        args.whisper_model = f"openai/whisper-{args.whisper_model_name}"
     out_sr = args.codec_audio_sr or audio_tok.sample_rate
     if out_sr != audio_tok.sample_rate:
         logging.warning("--codec_audio_sr %d != codec sample rate %d: the "
@@ -210,6 +245,21 @@ def main(argv=None) -> Optional[Dict]:
         paths = [os.path.join(args.output_dir, f"{args.savename}.wav")]
     for path, out in zip(paths, outs):
         audio_io.write_wav(path, out[0, :, 0], out_sr)
+    if args.sample_batch_size == 1 and args.tts and args.whisper_model:
+        # trim residual prompt audio via re-transcription
+        # (reference inference_v2.py:338-354)
+        from ..utils import asr
+
+        gen_words = asr.WhisperAligner(args.whisper_model, device).transcribe(
+            paths[0])
+        first_target = ((args.target_transcript.split() or [""])[0]
+                        if args.language == "en" else args.target_transcript[:1])
+        offset = pipeline.tts_trim_offset(gen_words, first_target,
+                                          args.language)
+        if offset > 0:
+            cut = int(offset * audio_tok.sample_rate)
+            audio_io.write_wav(paths[0], outs[0][0, cut:, 0], out_sr)
+            stats["trimmed_samples"] = cut
     if cuda:
         torch.cuda.synchronize(device)
     t_end = time.perf_counter()

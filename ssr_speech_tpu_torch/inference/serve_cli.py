@@ -18,8 +18,9 @@ job:
 
 The flags are the JAX CLI's plus ``--device`` (default ``cuda``; asking for
 it without a card is an error). Each job's word alignment comes from its
-``alignment_file`` (CSV ``word,start,end``); the whisper / wav2vec2 aligners
-are not ported and their flags raise.
+``alignment_file`` (CSV ``word,start,end``); a job without one is aligned on
+the host by ``--align_model`` / ``--whisper_model`` (``cli.resolve_alignment``
+per job, on ``--device``), as in the single-request CLI.
 """
 
 from __future__ import annotations
@@ -75,9 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cfg_pretrained", action="store_true")
     p.add_argument("--use_watermark", action="store_true")
     p.add_argument("--whisper_model", default=None,
-                   help="not ported: give each job an alignment_file")
+                   help="HF whisper id: per-job ASR alignment for jobs "
+                        "without an alignment_file")
     p.add_argument("--align_model", default=None,
-                   help="not ported: give each job an alignment_file")
+                   help="HF wav2vec2-CTC id: per-job forced alignment for "
+                        "jobs without an alignment_file")
     return p
 
 
@@ -182,18 +185,13 @@ def main(argv=None) -> Optional[Dict]:
     from ..models import pretrained
     from ..utils import audio as audio_io
     from . import pipeline
-    from .cli import prepare_job, read_alignment
+    from .cli import prepare_job, resolve_alignment
 
     device = resolve_device(args.device)
     set_precision_policy()
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    if args.whisper_model or args.align_model:
-        raise NotImplementedError("the whisper / wav2vec2 aligners are not "
-                                  "yet ported: give each job an "
-                                  "alignment_file")
-
     jobs = []
     with open(args.jobs) as f:
         for line in f:
@@ -210,10 +208,10 @@ def main(argv=None) -> Optional[Dict]:
 
     prepared = []
     for i, job in enumerate(jobs):
-        if not job.get("alignment_file"):
-            raise SystemExit(f"job {i}: needs an alignment_file (the whisper "
-                             "/ wav2vec2 aligners are not yet ported)")
-        words = read_alignment(job["alignment_file"])
+        words = resolve_alignment(
+            job["orig_audio"], job.get("orig_transcript"), device=device,
+            alignment_file=job.get("alignment_file"),
+            align_model=args.align_model, whisper_model=args.whisper_model)
         wav, sr = audio_io.read_wav(job["orig_audio"])
         dur = wav.shape[-1] / sr
         tts = bool(job.get("tts", False))

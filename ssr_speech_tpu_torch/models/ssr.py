@@ -178,15 +178,16 @@ def ssr_forward(params, cfg: SSRModelConfig, batch: Dict[str, torch.Tensor], *,
                 generator: Optional[torch.Generator] = None,
                 compute_dtype=None, predict_mask_token: bool = True,
                 predict_all: bool = False,
-                codebook_weight: Optional[Tuple[float, ...]] = None
-                ) -> Dict[str, torch.Tensor]:
+                codebook_weight: Optional[Tuple[float, ...]] = None,
+                remat: str = "none") -> Dict[str, torch.Tensor]:
     """Training/eval loss. batch: x [B,Sx], x_lens [B], y [B,Sy,K], y_lens
     [B]. With ``cfg.attn_impl`` "flash" the attention is the fused kernel
     over the key-validity mask derived here; "einsum" builds the additive
     [B, 1, S, S] bias instead. Unless ``deterministic``, the positional and
     transformer dropouts draw from ``generator`` in JAX's order.
     ``compute_dtype`` (also the heads' dtype) defaults to the dtype of the
-    decoder's matmul weights."""
+    decoder's matmul weights. ``remat`` checkpoints each decoder layer
+    (``transformer.REMAT_MODES``)."""
     if compute_dtype is None:
         compute_dtype = params["decoder"]["layers"]["qkv_w"].dtype
     sx, sy = batch["x"].shape[1], batch["y"].shape[1]
@@ -201,7 +202,7 @@ def ssr_forward(params, cfg: SSRModelConfig, batch: Dict[str, torch.Tensor], *,
     out = trf.transformer_forward(params["decoder"], h, cfg, bias=bias,
                                   key_valid=key_valid, dtype=compute_dtype,
                                   deterministic=deterministic,
-                                  generator=generator)
+                                  generator=generator, remat=remat)
     return ssr_loss_from_hidden(
         params, cfg, out[:, sx:], batch, predict_mask_token=predict_mask_token,
         predict_all=predict_all, codebook_weight=codebook_weight,

@@ -16,16 +16,28 @@ Matmul weights are cast to the activations' dtype at each use, as JAX casts
 them: a no-op for the serving path's stored bf16 (or fp32) weights, and the
 bf16 compute copy of the trainer's fp32 master weights. The training forward
 draws its inverted dropout from an explicit ``torch.Generator``.
+
+Activation checkpointing of the training forward (``remat``) wraps each layer
+of the loop, with what each mode of JAX's ``wrap_remat`` keeps and none of
+XLA's policy objects: ``full`` recomputes the whole layer in the backward,
+``dots`` keeps the outputs of the matrix products (a selective checkpoint)
+and recomputes the rest, ``dots_masks`` also keeps the dropout masks,
+``mixed`` is ``dots`` (JAX's own ``mixed`` degrades to it under a layer
+loop), ``none`` keeps everything. The attention kernel is no matrix product
+of PyTorch's, so every mode but ``none`` launches it again in the recompute.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from ..config import SSRModelConfig
 
@@ -82,6 +94,11 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y * w + b).to(x.dtype)
 
 
+# set while a dropout mask is computed: the dots_masks policy keeps what is
+# made then (thread-local, as the policy runs on the forward's thread)
+_in_mask = threading.local()
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             deterministic: bool) -> torch.Tensor:
     """Inverted dropout (JAX ``transformer._dropout``): keep each element with
@@ -91,7 +108,12 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
         return x
     if generator is None:
         raise ValueError("dropout needs a torch.Generator when not deterministic")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    _in_mask.on = True
+    try:
+        keep = u < 1.0 - rate
+    finally:
+        _in_mask.on = False
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     return torch.where(keep, x / (1.0 - rate), zero)
 
@@ -163,18 +185,79 @@ def _post_attention(lp, h, attn, act, *, bias_last: bool, drop=None):
     return h + drop(_linear(ff, lp["ffn2_w"], lp["ffn2_b"]))
 
 
+REMAT_MODES = ("full", "dots", "dots_masks", "mixed", "none")
+_MATMUL_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                         torch.ops.aten.bmm.default,
+                         torch.ops.aten.baddbmm.default))
+
+
+def _keep_policy(keep_masks: bool):
+    """The selective checkpoint's choice per op: keep matrix products (and,
+    with ``keep_masks``, the dropout masks), recompute everything else."""
+    save = ckpt.CheckpointPolicy.MUST_SAVE
+    recompute = ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+    def policy(ctx, func, *args, **kwargs):
+        if func in _MATMUL_OPS:
+            return save
+        if keep_masks and getattr(_in_mask, "on", False):
+            return save
+        return recompute
+
+    return policy
+
+
+def default_remat(attn_impl: str) -> str:
+    """JAX ``train_lm``'s default: ``dots_masks`` with the fused attention,
+    else ``full``."""
+    return "dots_masks" if attn_impl in ("flash", "splash") else "full"
+
+
+def checkpoint_layer(body, mode: str, generator: Optional[torch.Generator]):
+    """``body(h) -> h`` under the remat ``mode``. A recompute draws its
+    dropout from a copy of ``generator``'s state taken before the layer ran,
+    and leaves ``generator`` where it was, so the masks are the forward's
+    and the next step's draws are those of an un-checkpointed step."""
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat mode {mode!r}")
+    if mode == "none":
+        return body
+    snap = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def replayed(h):
+        calls[0] += 1
+        if calls[0] == 1 or snap is None:
+            return body(h)
+        now = generator.get_state()
+        generator.set_state(snap)
+        try:
+            return body(h)
+        finally:
+            generator.set_state(now)
+
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if mode != "full":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts,
+            _keep_policy(mode == "dots_masks"))
+    return lambda h: ckpt.checkpoint(replayed, h, **kw)
+
+
 def transformer_forward(params, h: torch.Tensor, cfg: SSRModelConfig, *,
                         bias: Optional[torch.Tensor] = None,
                         key_valid: Optional[torch.Tensor] = None,
                         dtype: torch.dtype = torch.float32,
                         deterministic: bool = True,
-                        generator: Optional[torch.Generator] = None
-                        ) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None,
+                        remat: str = "none") -> torch.Tensor:
     """Full-sequence forward (training and eval). h: [B, S, D] -> [B, S, D]
     after the final LayerNorm. With ``cfg.attn_impl`` "flash"/"splash" the
     attention is the fused kernel over ``key_valid`` [B, S]; with "einsum" it
     is ``_attend`` over the additive ``bias`` [B, 1, S, S]. Unless
-    ``deterministic``, ``cfg.trm_dropout`` is drawn from ``generator``."""
+    ``deterministic``, ``cfg.trm_dropout`` is drawn from ``generator``.
+    ``remat`` (one of :data:`REMAT_MODES`) checkpoints each layer when
+    autograd records."""
     act = _ffn_act(cfg, deterministic)
     use_flash = cfg.attn_impl in ("flash", "splash")
     if use_flash and key_valid is None:
@@ -185,8 +268,7 @@ def transformer_forward(params, h: torch.Tensor, cfg: SSRModelConfig, *,
     def drop(x):
         return dropout(x, cfg.trm_dropout, generator, deterministic)
 
-    h = h.to(dtype)
-    for lp in layer_params(params):
+    def layer(lp, h):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
         q, k, v = _qkv(lp, hn, cfg.nhead)
         if use_flash:
@@ -194,8 +276,15 @@ def transformer_forward(params, h: torch.Tensor, cfg: SSRModelConfig, *,
                                    v.contiguous(), key_valid)
         else:
             attn = _attend(q, k, v, bias.float())
-        h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=False,
-                            drop=drop)
+        return _post_attention(lp, h, _merge_heads(attn), act,
+                               bias_last=False, drop=drop)
+
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat mode {remat!r}")
+    mode = remat if torch.is_grad_enabled() else "none"
+    h = h.to(dtype)
+    for lp in layer_params(params):
+        h = checkpoint_layer(functools.partial(layer, lp), mode, generator)(h)
     return layer_norm(h, params["final_ln_w"], params["final_ln_b"])
 
 

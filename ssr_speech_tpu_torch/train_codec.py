@@ -10,8 +10,8 @@ run the GAN + watermark-CE loop of ``training.codec_trainer``.
 
 The JAX CLI's flags plus ``--device`` (default ``cuda``, which raises without
 a card). ``--precision`` defaults to float32 on every device (JAX picks
-bfloat16 on a TPU only). Published ``.th`` / ``.pth`` / ``.pt`` checkpoints
-are refused: converting them waits for ``models/convert.py``. The bundle is
+bfloat16 on a TPU only). A reference ``.th`` / ``.pth`` / ``.pt`` checkpoint
+converts through ``models/convert.py`` at the run's geometry. The bundle is
 written as ``codec_bundle.pkl`` with ``params = {encoder, decoder,
 quantizer, wmdecoder = the EMA}`` and the config, which both packages'
 ``load_bundle`` and both ``detect_cli``s read.
@@ -38,6 +38,19 @@ def bootstrap_wm_from_codec(params):
     wmd["wm_encoder"] = copy_tree(params["encoder"])
     wmd["skip_encoder"] = copy_tree(params["encoder"])
     return params
+
+
+def load_start_params(path: str, cfg):
+    """The starting codec's JAX-layout parameters: a reference torch
+    checkpoint converted at the run's geometry ``cfg``, or a bundle's
+    ``params``."""
+    from .models import convert as cvt
+    from .models import pretrained
+    from .utils import checkpoint as ckpt
+
+    if path.endswith(pretrained.TORCH_SUFFIXES):
+        return cvt.convert_wmencodec(pretrained.torch_state_dict(path), cfg)
+    return ckpt.load_bundle(path)["params"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -125,7 +138,6 @@ def main(argv=None):
     from .data.prefetch import PrefetchIterator
     from .device import resolve_device, set_precision_policy
     from .models.codec import wmencodec as wm
-    from .models.pretrained import _bundle_path
     from .training import codec_trainer
     from .utils import checkpoint as ckpt
     from .utils.profiler import Profiler
@@ -148,7 +160,7 @@ def main(argv=None):
     pretrained = None
     if args.codec_path:
         pretrained = bootstrap_wm_from_codec(
-            ckpt.load_bundle(_bundle_path(args.codec_path))["params"])
+            load_start_params(args.codec_path, cfg))
 
     bw = None
     if args.loss_weights:

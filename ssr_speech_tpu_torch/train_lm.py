@@ -2,10 +2,12 @@
 on one device).
 
 The flags are the JAX CLI's, without the parallelism and XLA knobs (``--tp
---pp --n_micro --sequence_parallel --unroll_layers --remat --rng_impl``), plus
+--pp --n_micro --sequence_parallel --unroll_layers --rng_impl``), plus
 ``--device`` (default ``cuda``; asking for it without a card is an error,
-never a silent CPU run). The dataset, batcher and prefetcher are the JAX
-package's own jax-free modules.
+never a silent CPU run). The dataset, batcher and prefetcher are the port's
+own copies of the JAX package's modules. ``--remat`` checkpoints each decoder
+layer as JAX's modes describe (``models.transformer.checkpoint_layer``), with
+JAX's default: ``dots_masks`` with the fused attention, else ``full``.
 
 Example (the 830M e830M geometry on one H100):
   python -m ssr_speech_tpu_torch.train_lm --device cuda --exp_dir exp/e830M \\
@@ -112,6 +114,13 @@ def build_parser():
                    help="training attention: flash (the hand-written kernels; "
                         "splash is the same) or einsum; default: flash on "
                         "CUDA when head_dim == 128 and precision is bfloat16")
+    p.add_argument("--remat", default=None,
+                   choices=["full", "dots", "dots_masks", "mixed", "none"],
+                   help="activation checkpointing of each decoder layer: "
+                        "full recomputes it in the backward, dots keeps the "
+                        "matrix products, dots_masks also the dropout masks, "
+                        "mixed is dots, none keeps everything; default: "
+                        "dots_masks with flash attention, else full")
     p.add_argument("--ce_impl", default="unfused",
                    choices=["unfused", "fused"],
                    help="CE head: fused = the hand-written kernels (second "
@@ -128,6 +137,8 @@ def configs_from_args(args, device):
     from .config import (DataConfig, MaskingConfig, OptimConfig,
                                        SSRModelConfig, TokenSpace, TrainConfig)
 
+    from .models.transformer import default_remat
+
     attn_impl = args.attn_impl or (
         "flash" if device.type == "cuda" and args.d_model // args.nhead == 128
         and args.precision == "bfloat16" else "einsum")
@@ -138,7 +149,8 @@ def configs_from_args(args, device):
         text_vocab_size=args.text_vocab_size,
         tokens=TokenSpace(audio_vocab_size=args.audio_vocab_size,
                           max_n_spans=args.max_n_spans),
-        attn_impl=attn_impl, ce_impl=args.ce_impl,
+        attn_impl=attn_impl, remat=args.remat or default_remat(attn_impl),
+        ce_impl=args.ce_impl,
         trm_dropout=args.trm_dropout,
         text_embedding_dropout=args.text_embedding_dropout,
         audio_embedding_dropout=args.audio_embedding_dropout,

@@ -16,8 +16,10 @@ step and the host training loop, on one device.
 
 The dropout stream is a ``torch.Generator`` on the device seeded from
 ``tcfg.seed``; its state travels in the bundle as ``torch_rng_state`` (JAX's
-key is ``rng_state``, so each package ignores the other's stream). Not ported:
-the mesh, pipeline and sequence parallelism, ``unroll``, remat, ``rng_impl``.
+key is ``rng_state``, so each package ignores the other's stream). Each
+decoder layer is checkpointed as ``cfg.remat`` says (``models.transformer``).
+Not ported: the mesh, pipeline and sequence parallelism, ``unroll``,
+``rng_impl``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from ..config import SSRModelConfig, TrainConfig
 from ..models import ssr as ssr_model
 from ..models.from_jax import lm_to_numpy, trainable_lm_from_jax
 from ..utils.checkpoint import load_bundle, save_bundle, save_step_checkpoint
-from ..utils.metrics import AverageMeter, MetricsWriter
+from ..utils.logging_utils import MetricsWriter
+from ..utils.metrics import AverageMeter
 from ..utils.profiler import Profiler, annotate
 from ..utils.tree import to_numpy_tree, tree_leaves, tree_map
 from ..utils.watchdog import DeadlockDetect
@@ -85,7 +88,7 @@ def make_train_step(cfg: SSRModelConfig, tcfg: TrainConfig, optimizer,
             compute_dtype=dtype,
             predict_mask_token=tcfg.masking.predict_mask_token,
             predict_all=tcfg.masking.predict_all,
-            codebook_weight=tcfg.codebook_weight)
+            codebook_weight=tcfg.codebook_weight, remat=cfg.remat)
         loss = out["loss"]
         if normalize:
             loss = loss / torch.clamp(out["effective_ntoken"], min=1.0)

@@ -1,7 +1,8 @@
 """Profiling hooks of the trainer (``ssr_speech_tpu/utils/profiler.py`` with
 ``torch.profiler`` in place of ``jax.profiler``): trace N steps of a loop,
 CPU and CUDA activity, to a Chrome trace under ``logdir``, and summarise the
-device kernels of the window in ``summary.json`` (:func:`summarize_trace`)."""
+device kernels of the window in ``summary.json`` (:func:`summarize_trace`);
+and the wall-clock data/train meters of the LM trainer (:class:`StepTimer`)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import contextlib
 import json
 import logging
 import os
+import time
 from typing import Dict
 
 import torch
@@ -124,3 +126,22 @@ def annotate(name: str):
     """Named region in the profiler timeline."""
     with torch.profiler.record_function(name):
         yield
+
+
+class StepTimer:
+    """data_time / train_time meters (reference steps/trainer.py:164-168)."""
+
+    def __init__(self):
+        self.data_time = 0.0
+        self.train_time = 0.0
+        self._mark = time.time()
+
+    def data_done(self):
+        now = time.time()
+        self.data_time = now - self._mark
+        self._mark = now
+
+    def step_done(self):
+        now = time.time()
+        self.train_time = now - self._mark
+        self._mark = now

@@ -3,7 +3,7 @@ recipe of tests/test_cli_integration.py): the same edit and TTS requests,
 greedy, with the JAX decode pinned to fp32, must write the same wav, and so
 must ``--sample_batch_size 3``'s three. Also: the port's bundles load in the
 JAX package, its init matches the JAX init's structure, its CLI imports no
-JAX, and it refuses what it does not run."""
+JAX, and it refuses what it cannot run (no alignment source, no card)."""
 
 import csv
 import dataclasses
@@ -204,10 +204,17 @@ def test_cli_sample_batch_size_matches_jax_cli(artifacts, monkeypatch):
 
 def test_cli_refuses_what_it_does_not_run(artifacts, tmp_path):
     base = _argv(artifacts, tmp_path, "x", "--target_transcript", "so near")
-    stats = tcli.main(base + ["--device", "cpu", "--sample_batch_size", "2"])
+    # the aligner flags are ported: with an alignment file none is consulted
+    # (tests/test_torch_aligners.py drives them through fakes)
+    stats = tcli.main(base + ["--device", "cpu", "--sample_batch_size", "2",
+                              "--whisper_model", "w", "--align_model", "a"])
     assert stats["n_samples"] == 2 and stats["out_finite"]
-    with pytest.raises(NotImplementedError):
-        tcli.main(base + ["--device", "cpu", "--whisper_model", "w"])
+    no_align = [a for a in base if a != base[base.index("--alignment_file") + 1]
+                and a != "--alignment_file"]
+    no_align.remove("--orig_transcript")
+    no_align.remove(" ".join(WORDS))
+    with pytest.raises(SystemExit, match="alignment_file"):
+        tcli.main(no_align + ["--device", "cpu"])
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="cuda"):

@@ -32,6 +32,12 @@ import pytest
 import torch
 
 from ssr_speech_tpu import config as jconfig
+from ssr_speech_tpu.data import prep as jprep
+from ssr_speech_tpu.data import tokenizer as jtokenizer
+from ssr_speech_tpu.models import convert as jconvert
+from ssr_speech_tpu.utils import asr as jasr
+from ssr_speech_tpu.utils import forced_align as jforced_align
+from ssr_speech_tpu.utils import quality as jquality
 from ssr_speech_tpu import native as jnative
 from ssr_speech_tpu.data import audio_dataset as jaudio_dataset
 from ssr_speech_tpu.data import batching as jbatching
@@ -48,6 +54,12 @@ from ssr_speech_tpu.utils import text_norm as jtext
 from ssr_speech_tpu.utils import visqol as jvisqol
 from ssr_speech_tpu.utils import watchdog as jwatchdog
 from ssr_speech_tpu_torch import config as tconfig
+from ssr_speech_tpu_torch.data import prep as tprep
+from ssr_speech_tpu_torch.data import tokenizer as ttokenizer
+from ssr_speech_tpu_torch.models import convert as tconvert
+from ssr_speech_tpu_torch.utils import asr as tasr
+from ssr_speech_tpu_torch.utils import forced_align as tforced_align
+from ssr_speech_tpu_torch.utils import quality as tquality
 from ssr_speech_tpu_torch import native as tnative
 from ssr_speech_tpu_torch.data import audio_dataset as taudio_dataset
 from ssr_speech_tpu_torch.data import batching as tbatching
@@ -109,11 +121,23 @@ def port_modules():
     return names
 
 
+# the lifecycle modules (checkpoint conversion, aligners, data prep,
+# activation checkpointing, the library modules): each is imported below
+LIFECYCLE_MODULES = {
+    "ssr_speech_tpu_torch." + m for m in (
+        "models.convert", "models.pretrained", "utils.forced_align",
+        "utils.asr", "inference.cli", "inference.serve_cli", "data.prep",
+        "training.optim_extras", "models.transformer", "training.trainer",
+        "train_lm", "utils.profiler", "utils.logging_utils", "utils.quality",
+        "models.codec.external", "train_codec")}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = port_modules()
     assert len(mods) > 40 and "ssr_speech_tpu_torch.int8_probe" in mods
     assert {"ssr_speech_tpu_torch.train_codec",
             "ssr_speech_tpu_torch.inference.detect_cli"} <= set(mods)
+    assert LIFECYCLE_MODULES <= set(mods)
     code = ("import importlib, sys; sys.path.insert(0, 'tools'); "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "import chip_smoke, torch_profile_generate; " + NO_JAX_PACKAGE)
@@ -391,7 +415,8 @@ def test_port_modules_are_the_ports_own():
     root = str(REPO / "ssr_speech_tpu_torch")
     for mod in (tconfig, tnative, tbatching, tdataset, tprefetch, tedit,
                 tserve, tpatterns, taudio, tckpt, ttext, twatchdog,
-                taudio_dataset, tsamples, tvisqol, twm):
+                taudio_dataset, tsamples, tvisqol, twm, tconvert, tprep,
+                tasr, tforced_align, tquality):
         assert importlib.import_module(mod.__name__).__file__.startswith(root)
     assert tdecode.patterns is tpatterns
     assert tpretrained.save_bundle is tckpt.save_bundle
@@ -495,3 +520,126 @@ def test_watermark_mask_sampler_is_the_same(min_regions, max_regions):
         for a, b in zip(got, want):
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------- the lifecycle's host copies
+
+
+def test_convert_helpers_give_the_same_leaves():
+    """The converter's layout helpers on one seeded state dict: weight-norm
+    and plain convs, a transposed conv, a resblock and a 2-layer LSTM."""
+    import jax
+
+    rng = np.random.default_rng(12)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    sd = {"c.conv.conv.bias": r(4), "c.conv.conv.weight_v": r(4, 3, 5),
+          "c.conv.conv.weight_g": r(4, 1, 1), "p.conv.conv.bias": r(2),
+          "p.conv.conv.weight": r(2, 4, 1), "t.convtr.convtr.bias": r(3),
+          "t.convtr.convtr.weight_v": r(4, 3, 6),
+          "t.convtr.convtr.weight_g": r(4, 1, 1)}
+    for blk, (co, ci, k) in (("block.1", (2, 4, 3)), ("block.3", (4, 2, 1))):
+        sd[f"r.{blk}.conv.conv.bias"] = r(co)
+        sd[f"r.{blk}.conv.conv.weight"] = r(co, ci, k)
+    for i in range(2):
+        sd.update({f"l.lstm.weight_ih_l{i}": r(16, 4),
+                   f"l.lstm.weight_hh_l{i}": r(16, 4),
+                   f"l.lstm.bias_ih_l{i}": r(16),
+                   f"l.lstm.bias_hh_l{i}": r(16)})
+    calls = [("_conv_params", "c"), ("_conv_params", "p"),
+             ("_convtr_params", "t"), ("_resblock_params", "r"),
+             ("_lstm_params", "l", 2)]
+    for name, *args in calls:
+        got = getattr(tconvert, name)(sd, *args)
+        want = getattr(jconvert, name)(sd, *args)
+        assert jax.tree.structure(got) == jax.tree.structure(want), name
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_forced_align_outputs_equal():
+    rng = np.random.default_rng(13)
+    for trial in range(6):
+        T, V = int(rng.integers(20, 60)), int(rng.integers(4, 9))
+        lp = rng.normal(size=(T, V))
+        lp = lp - np.log(np.exp(lp).sum(axis=1, keepdims=True))
+        tokens = [int(t) for t in rng.integers(1, V, size=int(rng.integers(1, 8)))]
+        spans = tforced_align.ctc_forced_align(lp, tokens, blank=0)
+        assert spans == jforced_align.ctc_forced_align(lp, tokens, blank=0)
+        strings = [("|" if t == V - 1 else chr(97 + t)) for t in tokens]
+        assert (tforced_align.tokens_to_word_times(spans, strings, 0.02)
+                == jforced_align.tokens_to_word_times(spans, strings, 0.02))
+
+
+def test_numeral_suppress_ids_equal():
+    rng = np.random.default_rng(14)
+    pieces = ["".join(rng.choice(list(" 0123456789ab"), size=int(n)))
+              for n in rng.integers(0, 5, size=60)]
+
+    class Tok:
+        eos_token_id = len(pieces)
+
+        def decode(self, ids):
+            return "".join(pieces[i] for i in ids)
+
+        def __len__(self):
+            return len(pieces)
+
+    got = tasr.numeral_suppress_ids(Tok())
+    assert got == jasr.numeral_suppress_ids(Tok()) and got
+    assert tasr.numeral_suppress_ids(Tok(), upto=20) == \
+        jasr.numeral_suppress_ids(Tok(), upto=20)
+
+
+def test_quality_text_metrics_equal():
+    rng = np.random.default_rng(15)
+    words = ["the", "Cat", "sat,", "on", "42", "mats!", "today", "7th"]
+    for _ in range(20):
+        ref = " ".join(rng.choice(words, size=int(rng.integers(0, 8))))
+        hyp = " ".join(rng.choice(words, size=int(rng.integers(0, 8))))
+        for lang in ("en", "zh"):
+            assert (tquality.normalize_text(ref, lang)
+                    == jquality.normalize_text(ref, lang))
+            assert tquality.wer(ref, hyp, lang) == jquality.wer(ref, hyp, lang)
+            assert tquality.cer(ref, hyp, lang) == jquality.cer(ref, hyp, lang)
+
+
+def test_prep_helpers_write_the_same(tmp_path):
+    """GigaSpeech tag round trip (each package on its own tokenizer),
+    ``filemaker`` and ``vocab`` on one seeded corpus."""
+    import argparse
+
+    rng = np.random.default_rng(16)
+    tags = ["<COMMA>", "<PERIOD>", "<SIL>", "<MUSIC>", "<NOISE>", "<OTHER>",
+            "<QUESTIONMARK>", "#%#"]
+    toks = (jtokenizer.TextTokenizer(), ttokenizer.TextTokenizer())
+    segs = []
+    for i in range(12):
+        words = list(rng.choice(["a", "bit", "of", "text", "here"],
+                                size=int(rng.integers(2, 7))))
+        words.insert(int(rng.integers(0, len(words))), str(rng.choice(tags)))
+        text = " ".join(words)
+        want = jprep.gs_phonemize_text(toks[0], text)
+        assert tprep.gs_phonemize_text(toks[1], text) == want
+        assert tprep.gs_word2sym(toks[1]) == jprep.gs_word2sym(toks[0])
+        seg = f"s{i}"
+        if want is not None:
+            (tmp_path / "phn").mkdir(exist_ok=True)
+            (tmp_path / "phn" / f"{seg}.txt").write_text(want)
+        if i % 3:
+            (tmp_path / "codes").mkdir(exist_ok=True)
+            n = int(rng.integers(5, 40))
+            (tmp_path / "codes" / f"{seg}.txt").write_text(
+                " ".join(["1"] * n) + "\n" + " ".join(["2"] * n))
+        segs.append(f"{seg}\t{text}")
+    (tmp_path / "m.tsv").write_text("\n".join(segs))
+    for name, mod in (("j", jprep), ("t", tprep)):
+        mod.cmd_filemaker(argparse.Namespace(
+            manifest=str(tmp_path / "m.tsv"), phn_dir=str(tmp_path / "phn"),
+            codes_dir=str(tmp_path / "codes"), min_frames=10,
+            output=str(tmp_path / name / "train.txt")))
+        mod.cmd_vocab(argparse.Namespace(phn_dir=str(tmp_path / "phn"),
+                                         output=str(tmp_path / f"{name}.txt")))
+    assert ((tmp_path / "t" / "train.txt").read_bytes()
+            == (tmp_path / "j" / "train.txt").read_bytes())
+    assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
+

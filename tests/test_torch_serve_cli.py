@@ -133,15 +133,23 @@ def test_serve_cli_stream_rejects_edit_jobs(artifacts, tmp_path):
 
 
 def test_serve_cli_refuses_what_it_does_not_run(artifacts, tmp_path):
-    """The aligner flags raise (only per-job alignment files are ported),
-    and the default device is the card: no silent CPU run."""
+    """A job with neither an alignment file nor an aligner flag exits, and
+    the default device is the card: no silent CPU run. (The aligner flags
+    are ported: tests/test_torch_aligners.py drives them through fakes.)"""
     import torch
 
     base = ["--model_path", artifacts["lm"], "--codec_path",
             artifacts["codec"], "--jobs", artifacts["jobs"], "--output_dir",
             str(tmp_path / "refused")]
-    with pytest.raises(NotImplementedError, match="aligners"):
-        tserve_cli.main(base + ["--device", "cpu", "--whisper_model", "x"])
+    bare = str(tmp_path / "bare.jsonl")
+    with open(artifacts["jobs"]) as f, open(bare, "w") as g:
+        for line in f:
+            job = json.loads(line)
+            del job["alignment_file"]
+            g.write(json.dumps(job) + "\n")
+    argv = [bare if a == artifacts["jobs"] else a for a in base]
+    with pytest.raises(SystemExit, match="alignment_file"):
+        tserve_cli.main(argv + ["--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tserve_cli.main(base)

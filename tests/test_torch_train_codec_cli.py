@@ -133,7 +133,8 @@ def test_bootstrap_equals_jax():
 def test_refusals(trained):
     tmp = trained["tmp"]
     argv = _argv(tmp, trained["mf"], trained["cfg_json"], str(tmp / "x"))
-    with pytest.raises(NotImplementedError, match="pkl"):
+    # a .th converts (tests/test_torch_convert.py); a missing one is an error
+    with pytest.raises(FileNotFoundError):
         train_codec.main(argv + ["--codec_path", str(tmp / "wmencodec.th")])
     cuda = list(argv)
     cuda[1] = "cuda"
