@@ -101,8 +101,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    to the first step where the card's top two logits lie within twice the
    step's measured logit error (steps held and the first tie printed), and
    a ``{"lifecycle": ...}`` line.
-9. Print the kernel report (JSON; each kernel's launches are those of steps
-   4 to 8, counted from zero before each path, the flash forward's also by
+9. ``[parallel]``: two ranks on the one card, joined over gloo
+   (NCCL refuses two ranks on one device, so the ranks exchange through
+   host memory), at the e830M width on the first 4 rows of step 5's first
+   batch. One-rank references first, in this process: the bf16 step's loss
+   and gradients (dropout off), the same at gradient accumulation 4, the
+   fp32 step's gradients (the bf16 step's own rounding, leaf by leaf) and
+   the greedy decode of the edit with its logits. Then the ranks: the tp=2
+   step's loss and gathered gradients, and the same with sequence
+   parallelism, against the one-rank step (loss within 2e-3; each leaf
+   within 3 times the bf16 step's own distance from fp32, plus 1e-3 of its
+   max), K1/K3 on local heads [4, 8, S, 128] and K4-K6 on each rank; two
+   dropout-on tp steps with the update, every tp-replicated leaf bit for bit
+   on both ranks; the pp=2 step over 4 microbatches against the
+   accumulation step; the tp=2 greedy decode of the edit against the
+   one-rank decode under ``[decode vs cpu]``'s rule; a tp=2 ``save_sharded``
+   read back by ``load_sharded`` in one process bit for bit. Prints ms and
+   each rank's peak (the transport's times, not scaling numbers) and a
+   ``{"parallel": ...}`` line.
+10. Print the kernel report (JSON; each kernel's launches are those of steps
+   4 to 9, counted from zero before each path, the flash forward's also by
    path; ``bound_ms`` is the least time the
    card could take for the same work, from the inputs' bytes and operations
    and the published peaks below), the card line, and as the last line
@@ -115,6 +133,7 @@ kernels against their plain versions without the main paths.
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import math
 import os
@@ -2543,6 +2562,474 @@ def drive_decode_vs_cpu(torch, device, main: dict, card: str) -> dict:
                 max_logit_err=state["err"])
 
 
+# ------------------------------------------------------------ parallelism
+
+PARALLEL_ROWS = 4  # rows of train-830M's first batch that [parallel] trains on
+PARALLEL_SEED = 2  # init_ssr seed of the [parallel] weights
+PARALLEL_N_MICRO = 4  # the pp=2 step's microbatches (one row each)
+# tp=2 (and SP) against the one-rank bf16 step on the same weights and rows,
+# dropout off: the loss within PARALLEL_LOSS_REL; each gradient leaf's max
+# |err| over its max |g| at most PARALLEL_NOISE_MULT times as far as the
+# one-rank bf16 step's leaf lies from the one-rank fp32 step's (the step's
+# own bf16 rounding: tp rounds at other points), plus PARALLEL_GRAD_FLOOR
+PARALLEL_LOSS_REL, PARALLEL_NOISE_MULT, PARALLEL_GRAD_FLOOR = 2e-3, 3.0, 1e-3
+# pp=2 against the one-rank step at gradient accumulation 4: the same
+# per-microbatch products (the loss equal up to PP_LOSS_REL); the gradients
+# under the same rule as tp (a received activation's gradient sums its two
+# uses in another order, in bf16)
+PP_LOSS_REL = 1e-6
+PARALLEL_TIMED_STEPS = 2  # dropout-on tp steps with the update: warm, timed
+
+
+def _no_dropout(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, trm_dropout=0.0, text_embedding_dropout=0.0,
+                               text_positional_embedding_dropout=0.0,
+                               audio_positional_embedding_dropout=0.0)
+
+
+def _parallel_tcfg(accum: int = 1, precision: str = "bfloat16"):
+    from ssr_speech_tpu_torch.config import OptimConfig, TrainConfig
+
+    return TrainConfig(precision=precision, codebook_weight=CW,
+                       gradient_accumulation_steps=accum,
+                       optim=OptimConfig(optimizer_name="scaledadam", lr=0.05))
+
+
+def _leaf_errors(torch, got_leaves, ref_leaves) -> list:
+    """Per leaf: max |got - ref| over max |ref| (the absolute error where
+    the reference is all zero)."""
+    out = []
+    for g, r in zip(got_leaves, ref_leaves):
+        r = r.to(g.device).float()
+        scale = r.abs().max().item()
+        err = (g.float() - r).abs().max().item()
+        out.append(err / scale if scale > 0 else err)
+    return out
+
+
+def _worst_leaves(names, errs, n: int = 3) -> str:
+    top = sorted(zip(errs, names), reverse=True)[:n]
+    return ", ".join(f"{name} {err:.2e}" for err, name in top)
+
+
+def _edit_prompt(torch, device, serving):
+    from ssr_speech_tpu_torch.data.tokenizer import tokenize_audio
+    from ssr_speech_tpu_torch.models import pretrained
+
+    inputs = serving["inputs"]
+    _, cfg, _ = pretrained.load_lm_params(inputs["lm"])
+    y = tokenize_audio(pretrained.load_codec(inputs["codec"], device),
+                       inputs["wav"])[0][0]
+    x, _, mask = serve_prompts(cfg, (EDIT_TARGET,))[0]
+    return x, y, mask
+
+
+def _decode_config():
+    from ssr_speech_tpu_torch.config import DecodeConfig
+
+    return DecodeConfig(top_k=1, aug_text=True, cfg_pretrained=True,
+                        cfg_stride=5, max_gen_per_span=LIFECYCLE_GEN_CAP)
+
+
+def _decode_with_logits(torch, lm, cfg, prompt, device, hook):
+    """Greedy ``decode.generate`` of the edit with ``hook(step, logits)``
+    on every step's logits (after the constraint masks, as sampling reads
+    them)."""
+    from ssr_speech_tpu_torch.inference import decode
+
+    real = decode.top_k_top_p_filter
+    step = [0]
+
+    def filt(lgt, **kw):
+        hook(step[0], lgt[0].float())
+        step[0] += 1
+        return real(lgt, **kw)
+
+    decode.top_k_top_p_filter = filt
+    try:
+        x, y, mask = prompt
+        return decode.generate(lm, cfg, _decode_config(), x, y, mask,
+                               torch.Generator(device=device).manual_seed(1))
+    finally:
+        decode.top_k_top_p_filter = real
+
+
+def parallel_rank(spec: dict) -> dict:
+    """One rank of ``[parallel]`` (spawned twice on the one card, gloo):
+    the tp=2 gradients against the one-rank step (dropout off, then with
+    sequence parallelism), a sharded checkpoint of the starting weights,
+    two timed dropout-on tp steps with the update and the replicated leaves
+    compared bit for bit across the ranks, the pp=2 step's gradients
+    against the accumulation step, and the tp=2 greedy decode of the edit
+    against the one-rank decode's logits. Returns what the parent gates and
+    prints."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ssr_speech_tpu_torch.device import set_precision_policy
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models.pretrained import load_lm
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+    from ssr_speech_tpu_torch.ops import fused_ce as fce
+    from ssr_speech_tpu_torch.parallel import collectives as col
+    from ssr_speech_tpu_torch.parallel import mesh as meshlib
+    from ssr_speech_tpu_torch.parallel import pipeline as pl
+    from ssr_speech_tpu_torch.training.optim import build_optimizer
+    from ssr_speech_tpu_torch.training.trainer import make_train_step
+    from ssr_speech_tpu_torch.utils import checkpoint as ck
+    from ssr_speech_tpu_torch.utils.tree import tree_leaves
+
+    set_precision_policy()
+    device = torch.device(spec["device"])
+    cuda = device.type == "cuda"
+    rank = dist.get_rank()
+    cfg, batch = spec["cfg"], spec["batch"]
+    cfg0 = _no_dropout(cfg)
+    tcfg = _parallel_tcfg()
+    out = dict(rank=rank, launches={}, shapes={}, ms={})
+    seen = []
+    real_fwd = fa.flash_forward
+
+    def spy(q, *a, **kw):  # the attention kernel's shapes on this rank
+        seen.append(tuple(q.shape))
+        return real_fwd(q, *a, **kw)
+
+    fa.flash_forward = spy
+
+    def counts():
+        return dict(flash_attention_fwd=fa.launches,
+                    flash_attention_bwd=fa.bwd_launches,
+                    fused_ce_fwd=fce.fwd_launches,
+                    fused_ce_bwd_dhidden=fce.dhidden_launches,
+                    fused_ce_bwd_dw2=fce.dw2_launches)
+
+    def measure(name, fn):
+        fa.reset_launches()
+        fce.reset_launches()
+        seen.clear()
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        try:  # recorded also when the decode stops at a tie
+            return fn()
+        finally:
+            _sync(torch, device)
+            out["ms"][name] = (time.perf_counter() - t0) * 1e3
+            out["launches"][name] = counts()
+            out["shapes"][name] = sorted(set(seen))
+
+    def init():
+        return tssr.init_ssr(torch.Generator(device=device).manual_seed(
+            PARALLEL_SEED), cfg, device)
+
+    # ---- tp=2: gradients against the one-rank step, then under SP
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mesh = meshlib.make_mesh(tp=2)
+    model = meshlib.shard_model(mesh, init(), meshlib.ssr_param_specs(),
+                                mesh.parallel(), cfg=cfg)
+    ck.save_sharded(spec["ckpt"], model.tree(), mesh, model.specs)
+    opt, _ = build_optimizer(tcfg.optim)
+    opt.set_sharding(meshlib.shard_groups(mesh, model.specs))
+    state = opt.init(model.tree())
+    ref = torch.load(spec["tp_ref"], mmap=True)
+    gens = lambda: (torch.Generator(device=device).manual_seed(5),  # noqa: E731
+                    torch.Generator(device=device).manual_seed(6 + rank))
+    for name, sp in (("tp", False), ("tp_sp", True)):
+        step = make_train_step(cfg0, tcfg, opt, device, mesh=mesh,
+                               sequence_parallel=sp)
+        grads, m = measure(name, lambda: step.gradients(model, batch, *gens()))
+        whole = [meshlib.full_tensor(mesh, g, s) for g, (_, s) in
+                 zip(tree_leaves(grads), meshlib.spec_items(model.specs))]
+        out[name] = dict(loss=float(m["loss"]),
+                         grad_err=_leaf_errors(torch, whole, ref["grads"]))
+        del whole, grads
+        for p in tree_leaves(model.tree()):
+            p.grad = None
+    out["ref_loss"] = float(ref["loss"])
+    out["leaf_names"] = ["/".join(p) for p, _ in meshlib.spec_items(model.specs)]
+    del ref
+    # ---- dropout on, the update: replicated leaves bit-identical over tp
+    step = make_train_step(cfg, tcfg, opt, device, mesh=mesh)
+    g, h = gens()
+    for i in range(PARALLEL_TIMED_STEPS):
+        m = measure(f"tp_step{i}", lambda: step(model, state, batch, g, h))
+        out[f"tp_step{i}_loss"] = float(m["loss"])
+        out[f"tp_step{i}_skipped"] = m["skipped"]
+    differ = []
+    for (path, s), t in zip(meshlib.spec_items(model.specs),
+                            tree_leaves(model.tree())):
+        if "tp" in [meshlib._axis(e) for e in s if e is not None]:
+            continue
+        if not torch.equal(col.broadcast(t.detach(), 0, mesh.group("tp")),
+                           t.detach()):
+            differ.append("/".join(path))
+    out["replicated_differ"] = differ
+    out["peak_gib_tp"] = _peak(torch, device) / 2 ** 30
+    del model, state, opt, step
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # ---- pp=2, 4 microbatches: gradients against the accumulation step
+    ppm = pl.make_pp_mesh(pp=2)
+    model = pl.shard_params_pp(ppm, init(), cfg0)
+    opt, _ = build_optimizer(tcfg.optim)
+    opt.set_sharding(meshlib.shard_groups(ppm, model.specs))
+    step = pl.make_pp_train_step(cfg0, tcfg, opt, ppm, device,
+                                 n_micro=PARALLEL_N_MICRO)
+    grads, m = measure("pp", lambda: step.gradients(model, batch, gens()[0]))
+    ref = torch.load(spec["pp_ref"], mmap=True)
+    whole = [meshlib.full_tensor(ppm, g, s) for g, (_, s) in
+             zip(tree_leaves(grads), meshlib.spec_items(model.specs))]
+    out["pp"] = dict(loss=float(m["loss"]), ref_loss=float(ref["loss"]),
+                     grad_err=_leaf_errors(torch, whole, ref["grads"]))
+    out["peak_gib_pp"] = _peak(torch, device) / 2 ** 30
+    del model, opt, step, grads, whole, ref
+    if cuda:
+        torch.cuda.empty_cache()
+    # ---- tp=2 greedy decode of the edit against the one-rank logits
+    lm, lcfg, _ = load_lm(spec["lm"], device)
+    lm = meshlib.shard_params_for_serving(mesh, lm)
+    want = torch.load(spec["decode_ref"])
+    st = dict(held=0, tie=None, err=0.0)
+
+    def compare(i, got):
+        ref_l = want["logits"][i].to(got.device)
+        err = (ref_l - got).abs().max().item()
+        st["err"] = max(st["err"], err)
+        a, b = ref_l.argmax(-1), got.argmax(-1)
+        if not torch.equal(a, b):
+            for k in torch.nonzero(a != b)[:, 0].tolist():
+                top2 = torch.topk(ref_l[k], 2).values
+                gap = (top2[0] - top2[1]).item()
+                if gap > 2 * err:
+                    raise RuntimeError(
+                        f"tp decode step {i} codebook {k}: tp picks {int(b[k])}"
+                        f", one rank {int(a[k])}, the one-rank top two "
+                        f"{gap:.3e} apart, beyond twice the step's logit error "
+                        f"{err:.3e}")
+                st["tie"] = dict(step=i, codebook=k, gap=gap, err=err)
+            raise _StopDecode
+        st["held"] = i + 1
+
+    try:
+        codes = measure("decode", lambda: _decode_with_logits(
+            torch, lm, lcfg, spec["prompt"], device, compare))[0]
+        if not np.array_equal(codes, want["codes"].numpy()):
+            raise RuntimeError("tp decode: the codes differ without a "
+                               "differing step")
+    except _StopDecode:
+        pass
+    out["decode"] = st
+    out["decode_steps"] = len(want["logits"])
+    fa.flash_forward = real_fwd
+    return out
+
+
+def check_parallel(torch, device, cfg, batch, serving, work: Path,
+                   card: str) -> dict:
+    """``[parallel]``: 2 ranks on the one card (gloo, so the two processes
+    exchange through host memory) at the e830M width (d_model 2048, 16 heads
+    -> 8 a rank, 16 layers) on the first PARALLEL_ROWS rows of train-830M's
+    first batch. The one-rank references run here first: the bf16 step's
+    loss and gradients (dropout off), the same at gradient accumulation 4,
+    the fp32 step's gradients (the bf16 step's own rounding, leaf by leaf),
+    and the greedy decode of the edit with each step's logits. Gates: tp=2
+    and tp=2 + sequence parallelism within PARALLEL_LOSS_REL and the
+    noise-scaled gradient bound, pp=2 within PP_LOSS_REL and the same bound,
+    every
+    tp-replicated leaf bit-identical across the ranks after two dropout-on
+    updates, the tp decode's codes the one-rank decode's up to the first
+    near-tie (the ``[decode vs cpu]`` rule), the tp=2 checkpoint read back in
+    this process bit for bit, and K1/K3 on local heads [B, 8, S, 128] and
+    K4-K6 on every rank of the tp step."""
+    import dataclasses
+
+    import numpy as np
+
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models.from_jax import trainable_lm_from_jax
+    from ssr_speech_tpu_torch.models.pretrained import load_lm
+    from ssr_speech_tpu_torch.parallel.dist import spawn
+    from ssr_speech_tpu_torch.training.optim import build_optimizer
+    from ssr_speech_tpu_torch.training.trainer import make_train_step
+    from ssr_speech_tpu_torch.utils import checkpoint as ck
+    from ssr_speech_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    d = work / "parallel"
+    d.mkdir(parents=True, exist_ok=True)
+    rows = {k: np.ascontiguousarray(v[:PARALLEL_ROWS]) for k, v in batch.items()}
+    b, sx = rows["x"].shape
+    sy = rows["y"].shape[1]
+    cfg0 = _no_dropout(cfg)
+    init = lambda: tssr.init_ssr(torch.Generator(device=device).manual_seed(  # noqa: E731
+        PARALLEL_SEED), cfg, device)
+    t0 = time.perf_counter()
+    refs = {}
+    kept = {}
+    for name, accum, prec in (("tp_ref", 1, "bfloat16"),
+                              ("pp_ref", PARALLEL_N_MICRO, "bfloat16"),
+                              ("fp32_ref", 1, "float32")):
+        tcfg = _parallel_tcfg(accum, prec)
+        # the kernels take bf16: the fp32 step is the plain attention and head
+        mcfg = (cfg0 if prec == "bfloat16" else dataclasses.replace(
+            cfg0, attn_impl="einsum", ce_impl="unfused"))
+        model = trainable_lm_from_jax(init(), mcfg, device=device)
+        opt, _ = build_optimizer(tcfg.optim)
+        step = make_train_step(mcfg, tcfg, opt, device)
+        feed = rows if accum == 1 else {  # contiguous one-row microbatches
+            k: v.reshape((accum, b // accum) + v.shape[1:]) for k, v in rows.items()}
+        _sync(torch, device)
+        ts = time.perf_counter()
+        grads, m = step.gradients(model, feed,
+                                  torch.Generator(device=device).manual_seed(5))
+        _sync(torch, device)
+        refs[name + "_ms"] = (time.perf_counter() - ts) * 1e3
+        refs[name + "_loss"] = float(m["loss"])
+        leaves = [g.detach().float().cpu() for g in tree_leaves(grads)]
+        if name == "fp32_ref":  # the bf16 step's own rounding, leaf by leaf
+            refs["noise"] = _leaf_errors(torch, kept["tp_ref"], leaves)
+        else:
+            torch.save(dict(loss=float(m["loss"]), grads=leaves), d / f"{name}.pt")
+            kept[name] = leaves
+        del model, grads, step, opt, leaves
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    del kept
+    prompt = _edit_prompt(torch, device, serving)
+    lm, lcfg, _ = load_lm(serving["inputs"]["lm"], device)
+    logits = []
+    codes = _decode_with_logits(torch, lm, lcfg, prompt, device,
+                                lambda i, lg: logits.append(lg.cpu()))[0]
+    torch.save(dict(logits=logits, codes=torch.from_numpy(np.asarray(codes))),
+               d / "decode_ref.pt")
+    del lm
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    refs_s = time.perf_counter() - t0
+    spec = dict(cfg=cfg, batch=rows, tp_ref=str(d / "tp_ref.pt"),
+                pp_ref=str(d / "pp_ref.pt"), decode_ref=str(d / "decode_ref.pt"),
+                ckpt=str(d / "ckpt_tp2"), lm=serving["inputs"]["lm"],
+                prompt=prompt, device=str(device))
+    t1 = time.perf_counter()
+    # the ranks import the body by module path, never as __main__
+    rank_body = importlib.import_module("chip_smoke").parallel_rank
+    res = spawn(rank_body, 2, backend="gloo", device=str(device),
+                store_dir=str(d / "spawn"), args=(spec,), threads=4,
+                timeout=900)
+    ranks_s = time.perf_counter() - t1
+    # the tp=2 checkpoint read back in one process, no process group
+    whole = tree_map(lambda t: t.to(device), ck.load_sharded(
+        spec["ckpt"], tree_map(lambda t: torch.empty_like(t, device="cpu"),
+                               init())))
+    ck_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(whole),
+                                                     tree_leaves(init())))
+    del whole
+    L, nh = cfg.num_layers, cfg.nhead // 2
+    local = (b, nh, sx + sy, cfg.d_model // cfg.nhead)
+    noise = refs["noise"]
+    bound = [PARALLEL_NOISE_MULT * n + PARALLEL_GRAD_FLOOR for n in noise]
+    names = res[0]["leaf_names"]
+    print(f"[parallel] one-rank bf16 step against fp32, worst leaves: "
+          f"{_worst_leaves(names, noise)} of their max (the bound of a leaf "
+          f"is {PARALLEL_NOISE_MULT} x its value + {PARALLEL_GRAD_FLOOR})")
+
+    def over(errs):  # leaves beyond their bound, worst first
+        return sorted(((e / bd, n, e) for e, bd, n in zip(errs, bound, names)
+                       if e > bd), reverse=True)
+    fails = []
+    for r in res:
+        for name in ("tp", "tp_sp"):
+            loss_rel = abs(r[name]["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+            bad = over(r[name]["grad_err"])
+            print(f"[parallel] rank {r['rank']} {name}: loss {r[name]['loss']!r} "
+                  f"vs one rank {r['ref_loss']!r} (rel {loss_rel:.2e}, tol "
+                  f"{PARALLEL_LOSS_REL}); worst gradient leaves "
+                  f"{_worst_leaves(r['leaf_names'], r[name]['grad_err'])} of "
+                  f"their max, {len(bad)} beyond their bound; "
+                  f"{r['ms'][name]:.0f} ms "
+                  f"(forward+backward); launches {r['launches'][name]}; K1 "
+                  f"shapes {r['shapes'][name]}")
+            if loss_rel > PARALLEL_LOSS_REL or bad:
+                fails.append(f"rank {r['rank']} {name}: loss rel {loss_rel:.2e}"
+                             f", leaves beyond their bound {bad[:3]}")
+            want = dict(flash_attention_fwd=2 * L, flash_attention_bwd=L,
+                        fused_ce_fwd=1, fused_ce_bwd_dhidden=1,
+                        fused_ce_bwd_dw2=1)
+            if r["launches"][name] != want:
+                fails.append(f"rank {r['rank']} {name} launches "
+                             f"{r['launches'][name]}, expected {want}")
+            if r["shapes"][name] != [local]:
+                fails.append(f"rank {r['rank']} {name}: K1 at {r['shapes'][name]}"
+                             f", expected the local heads {local}")
+        pp_rel = abs(r["pp"]["loss"] - r["pp"]["ref_loss"]) / abs(r["pp"]["ref_loss"])
+        pp_bad = over(r["pp"]["grad_err"])
+        print(f"[parallel] rank {r['rank']} pp=2 x {PARALLEL_N_MICRO} "
+              f"microbatches: loss {r['pp']['loss']!r} vs accumulation "
+              f"{r['pp']['ref_loss']!r} (rel {pp_rel:.2e}, tol {PP_LOSS_REL}); "
+              f"worst gradient leaves "
+              f"{_worst_leaves(r['leaf_names'], r['pp']['grad_err'])}, "
+              f"{len(pp_bad)} beyond their bound; "
+              f"{r['ms']['pp']:.0f} ms; launches {r['launches']['pp']}; peak "
+              f"{r['peak_gib_pp']:.2f} GiB")
+        if pp_rel > PP_LOSS_REL or pp_bad:
+            fails.append(f"rank {r['rank']} pp: loss rel {pp_rel:.2e}, "
+                         f"leaves beyond their bound {pp_bad[:3]}")
+        if r["launches"]["pp"]["flash_attention_bwd"] != \
+                PARALLEL_N_MICRO * L // 2:
+            fails.append(f"rank {r['rank']} pp launches {r['launches']['pp']}")
+        steps = [r[f"tp_step{i}_loss"] for i in range(PARALLEL_TIMED_STEPS)]
+        print(f"[parallel] rank {r['rank']} tp=2 steps with dropout and the "
+              f"update: losses {steps}, "
+              f"{r['ms'][f'tp_step{PARALLEL_TIMED_STEPS - 1}']:.0f} ms/step "
+              f"(after a first of {r['ms']['tp_step0']:.0f} ms); peak "
+              f"{r['peak_gib_tp']:.2f} GiB; tp-replicated leaves that differ "
+              f"from rank 0's: {r['replicated_differ'] or 'none'}")
+        if r["replicated_differ"] or any(
+                r[f"tp_step{i}_skipped"] for i in range(PARALLEL_TIMED_STEPS)) \
+                or not all(math.isfinite(x) for x in steps):
+            fails.append(f"rank {r['rank']} tp steps: {steps}, differ "
+                         f"{r['replicated_differ']}")
+        st = r["decode"]
+        tie = st["tie"]
+        print(f"[parallel] rank {r['rank']} tp=2 greedy edit decode: codes "
+              f"identical to one rank's for {st['held']} of "
+              f"{r['decode_steps']} steps" + (
+                  f", then the first tie at step {tie['step']} (codebook "
+                  f"{tie['codebook']}: the top two {tie['gap']:.3e} apart, "
+                  f"logit error {tie['err']:.3e})" if tie else "")
+              + f"; worst logit error {st['err']:.3e}; {r['ms']['decode']:.0f} "
+              f"ms; launches {r['launches']['decode']}")
+    if not ck_equal:
+        fails.append("the tp=2 sharded checkpoint does not read back bit for bit")
+    print(f"[parallel] tp=2 save_sharded read back by one process: "
+          f"{'bit-identical' if ck_equal else 'DIFFERENT'}")
+    print(f"[parallel] one rank (this process, the card alone): step "
+          f"{refs['tp_ref_ms']:.0f} ms, accumulation 4 {refs['pp_ref_ms']:.0f} "
+          f"ms; references {refs_s:.1f} s, the 2 ranks {ranks_s:.1f} s. The two "
+          f"ranks share one card and exchange through host memory (gloo): "
+          f"these times are not scaling numbers [{card}]")
+    if fails:
+        raise RuntimeError("[parallel] " + "; ".join(fails))
+    launches = {k: sum(r["launches"][p][k] for r in res
+                       for p in r["launches"])
+                for k in res[0]["launches"]["tp"]}
+    return dict(launches=launches, ranks=[{k: r[k] for k in (
+        "rank", "ms", "launches", "peak_gib_tp", "peak_gib_pp")} | dict(
+            tp_grad_err=max(r["tp"]["grad_err"]),
+            tp_sp_grad_err=max(r["tp_sp"]["grad_err"]),
+            pp_grad_err=max(r["pp"]["grad_err"]), decode=r["decode"])
+        for r in res], bf16_noise=max(noise),
+        reference_ms=dict(step=refs["tp_ref_ms"],
+                          accumulation=refs["pp_ref_ms"],
+                          fp32_step=refs["fp32_ref_ms"]),
+        rows=b, seq=sx + sy, card=card)
+
+
 # ------------------------------------------------------ int8 weight streaming
 
 INT8_SHAPE = (2048, 8192, 16)  # d_model, FFN width, layers of the 830M LM
@@ -3165,6 +3652,10 @@ def main() -> int:
                          remat=remat["modes"],
                          decode_vs_cpu=drive_decode_vs_cpu(torch, device,
                                                            serving, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        parallel = check_parallel(torch, device, cfg, batch, serving, work,
+                                  card)
     finally:
         if prep_run is not None and prep_run["cpu"][0].poll() is None:
             prep_run["cpu"][0].kill()
@@ -3172,6 +3663,11 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     for entry in kernels:
         entry["launches"] = {**training, **streaming}[entry["name"]]
+        if entry["name"] in parallel["launches"] and entry is not kernels[0]:
+            entry["launches_by_path"] = {
+                "training": entry["launches"],
+                "parallel": parallel["launches"][entry["name"]]}
+            entry["launches"] += parallel["launches"][entry["name"]]
     fwd = kernels[0]
     fwd["launches_by_path"] = {"serving": serving["launches"],
                                "batched": batched["launches"],
@@ -3182,7 +3678,8 @@ def main() -> int:
                                "training": training[fwd["name"]],
                                "prep_training": prep_run["launches"],
                                "remat": remat["launches"],
-                               "endurance": endurance["launches"]}
+                               "endurance": endurance["launches"],
+                               "parallel": parallel["launches"][fwd["name"]]}
     fwd["paged_step"] = paged
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     # the top-level numbers are the serving prefill's; every path's shape here
@@ -3201,6 +3698,7 @@ def main() -> int:
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"codec_train": codec_train}))
     print(json.dumps({"lifecycle": lifecycle}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ fixed per-bucket length instead of the reference's lognormal-warped variable
 boundaries (trainer_utils.py:408-437).
 
 Batches are built with a global token budget = per-device budget x
-``world_size``; the port trains on one device so far (world_size 1).
+``world_size``: ``train_lm`` passes dp (times ``n_micro`` under pp), and every
+rank builds the same global batches and takes its rows.
 """
 
 from __future__ import annotations

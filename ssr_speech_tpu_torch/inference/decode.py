@@ -310,7 +310,8 @@ def _generate_shared_impl(params, pfx: trf.KVCache, key_banned: torch.Tensor,
     dev = pfx.k.device
     rows = n_chains * (2 if aug_text else 1)
     gen = trf.init_kv_cache(cfg, rows, _bucket(cap_total + 8, 128),
-                            dtype=pfx.k.dtype, device=dev)
+                            dtype=pfx.k.dtype, device=dev,
+                            par=trf.parallel_of(params))
     pe = ssr_model.sine_table(cfg.max_position, cfg.d_model, device=dev)
     silence = torch.tensor(dec.silence_tokens, dtype=torch.int64, device=dev)
     static_ban = _static_ban(ts, dev)
@@ -478,7 +479,8 @@ def _prefill_impl(params, x: torch.Tensor, y_prefix: torch.Tensor, x_len: int,
         lo[uncond_row_start:] = 1
     key_banned = torch.stack([lo, hi], dim=1)
 
-    cache = trf.init_kv_cache(cfg, B, tmax, dtype=dtype, device=dev)
+    cache = trf.init_kv_cache(cfg, B, tmax, dtype=dtype, device=dev,
+                              par=trf.parallel_of(params))
     _, cache = trf.transformer_prefill(params["decoder"], h, cache, cfg,
                                        key_valid=seg, dtype=dtype)
     # true fill point: the padded text block stays (banned), the prefix is
@@ -671,7 +673,8 @@ def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
 
     dead = multi_dead_keys(x_lens, p_lens, sx, P, aug_text=aug_text,
                            cfg_pretrained=cfg_pretrained)
-    cache = trf.init_kv_cache(cfg, R, tmax, dtype=dtype, device=dev)
+    cache = trf.init_kv_cache(cfg, R, tmax, dtype=dtype, device=dev,
+                              par=trf.parallel_of(params))
     _, cache = trf.transformer_prefill(params["decoder"], h, cache, cfg,
                                        key_valid=(~dead).to(torch.int32),
                                        dtype=dtype)

@@ -44,6 +44,7 @@ from ..config import DecodeConfig, SSRModelConfig
 from ..models import ssr as ssr_model
 from ..models import transformer as trf
 from ..ops import patterns
+from ..parallel.dist import is_main, synced_clock
 from . import decode as dec_mod
 
 
@@ -174,8 +175,9 @@ class ContinuousBatcher:
         self._sentinels_dev = torch.from_numpy(self.sentinels).to(dev)
         R = n_slots * (2 if self.aug else 1)
         gen_cap = dec_mod._bucket(self.cap_total + 8, 128)
+        par = trf.parallel_of(params)
         self._pfx = trf.init_kv_cache(cfg, R, self.tmax, dtype=self.dtype,
-                                      device=dev)
+                                      device=dev, par=par)
         self._pfx = trf.KVCache(self._pfx.k, self._pfx.v, sx_pad + p_pad)
         self._banned = torch.ones((R, self.tmax), dtype=torch.bool, device=dev)
         self._x_lens = torch.ones(n_slots, dtype=torch.int64, device=dev)
@@ -189,7 +191,7 @@ class ContinuousBatcher:
         self.state = ServeState(
             **_chain_fields(chains),
             cache=trf.init_kv_cache(cfg, R, gen_cap, dtype=self.dtype,
-                                    device=dev),
+                                    device=dev, par=par),
             gen_len=torch.zeros(R, dtype=torch.int64, device=dev),
             active=torch.zeros(n_slots, dtype=torch.bool, device=dev),
             steps=0)
@@ -343,7 +345,8 @@ class ContinuousBatcher:
         """Serve ``requests`` (each ``(x, y, mask_intervals)``, the
         :func:`decode.generate` contract, or its aug_context 5-tuple) FIFO
         through the slots; returns results in request order (each ``(codes,
-        marks, out_intervals, nm)``). ``progress(completed, total,
+        marks, out_intervals, nm)``; on tensor-parallel parameters rank 0
+        returns them and the other ranks None). ``progress(completed, total,
         max_gen_len)`` is called after each chunk. ``eager_prefill``: how
         many pending requests to prefill after each chunk, ahead of the
         harvest (0 disables; the fill order, and so greedy results, is FIFO
@@ -404,7 +407,7 @@ class ContinuousBatcher:
             self.stats = None
         if stats is not None:
             stats["done_at"] = done_at
-        return results
+        return results if is_main() else None
 
     def run_online(self, requests: Sequence[Tuple], arrival_times,
                    generator: Optional[torch.Generator] = None, clock=None,
@@ -414,8 +417,10 @@ class ContinuousBatcher:
         first free lane. Returns (results, completion_times) on the clock of
         the arrivals; ``clock`` (default ``time.monotonic``) is injectable
         for tests. Chunks run at most ``chunk_steps`` steps, which bounds
-        the admission latency."""
-        clock = clock or time.monotonic
+        the admission latency. On tensor-parallel parameters every rank runs
+        the loop on rank 0's clock, and rank 0 alone gets the results (the
+        other ranks None)."""
+        clock = synced_clock(clock or time.monotonic, self.device)
         if generator is not None:
             self.generator = generator
         norm = [self._normalize(r) for r in requests]
@@ -468,7 +473,7 @@ class ContinuousBatcher:
                 results[idx] = result
                 done_at[idx] = now
                 self._park(int(slot))
-        return results, done_at
+        return (results, done_at) if is_main() else None
 
 
 def sorted_static_batches(requests, n_slots: int,

@@ -30,6 +30,7 @@ import torch
 from ..config import CodecConfig, DecodeConfig, SSRModelConfig
 from ..models.codec import streaming as cstream
 from ..ops import patterns
+from ..parallel.dist import is_main, synced_clock
 from . import serve as serve_mod
 
 
@@ -313,9 +314,13 @@ class StreamingServer:
         stream (times in seconds on ``clock`` since the loop started). The
         loop returns when ``should_stop()`` is true and every lane is idle;
         ``on_idle(now)`` is called when no lane is active and ``poll``
-        returned None (default: a 5 ms sleep)."""
+        returned None (default: a 5 ms sleep). On tensor-parallel parameters
+        every rank runs the loop (``poll`` must give every rank the same
+        requests) on rank 0's clock, and the callbacks fire on rank 0."""
         srv = self._server
-        clock = clock or time.monotonic
+        clock = synced_clock(clock or time.monotonic, self.device)
+        if not is_main():
+            on_chunk = on_done = None
         if generator is not None:
             srv.generator = generator
         S = srv.S
@@ -426,8 +431,9 @@ class StreamingServer:
         [T*hop, ch])`` of the generated region, the first audio's and the
         last chunk's emission times (time to first audio is
         ``first_chunk_at[i] - arrival_times[i]``). ``clock`` is injectable
-        for tests."""
-        clock = clock or time.monotonic
+        for tests. On tensor-parallel parameters rank 0 returns the results
+        and streams the chunks; the other ranks return None."""
+        clock = synced_clock(clock or time.monotonic, self.device)
         # fail fast on every request before any decoding
         norm = [self.prepare_request(x, y) for x, y in requests]
         order = sorted(range(len(requests)), key=lambda i: arrival_times[i])
@@ -442,6 +448,8 @@ class StreamingServer:
             if t0[0] is None:
                 t0[0] = now
             return now
+
+        loop_clock.synced = getattr(clock, "synced", False)
 
         def poll():
             if not pending:
@@ -467,4 +475,4 @@ class StreamingServer:
                         generator=generator, clock=loop_clock,
                         should_stop=lambda: not pending, on_idle=on_idle,
                         eager_prefill=eager_prefill)
-        return results, first_at, done_at
+        return (results, first_at, done_at) if is_main() else None

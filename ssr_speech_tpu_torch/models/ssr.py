@@ -5,6 +5,14 @@ loss with its metrics (unfused, or through the fused CE head kernels).
 Functions take the :class:`from_jax.SSRLM` tree as ``params``, indexed with
 the JAX keys; they are differentiable, and the serving and eval callers run
 them under ``torch.no_grad()``.
+
+Under tensor parallelism (``par``, or the ``parallel`` a sharded tree
+carries) the heads are Megatron's: ``head1`` column-parallel (the rank's
+block of the hidden), ``head2`` row-parallel (partial logits summed over tp
+before the bias). The fused CE head gathers the hidden and ``head2_w`` over
+tp and runs its kernels on the whole head on every tp rank, so K4-K6 see
+the shapes they see on one device; the gradient of each gathered block goes
+back to its rank.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from ..config import SSRModelConfig
 
 from ..ops.fused_ce import fused_ce_head
 from ..ops.masking import make_pad_mask, xy_attn_bias
+from ..parallel import collectives as col
 from . import transformer as trf
 
 
@@ -89,7 +98,8 @@ def predict_logits(params, h: torch.Tensor, dtype=torch.float32) -> torch.Tensor
     b2 = params["head2_b"].to(dtype)
     hidden = F.gelu(torch.einsum("...d,kdh->...kh", h.to(dtype), w1) + b1,
                     approximate="none")
-    return torch.einsum("...kh,khc->...kc", hidden, w2) + b2
+    logits = torch.einsum("...kh,khc->...kc", hidden, w2)
+    return col.reduce_from_tp(logits, trf.parallel_of(params)) + b2
 
 
 def ssr_embed(params, cfg: SSRModelConfig, batch: Dict[str, torch.Tensor], *,
@@ -114,13 +124,22 @@ def ssr_loss_from_hidden(params, cfg: SSRModelConfig, y_out: torch.Tensor,
                          predict_mask_token: bool = True,
                          predict_all: bool = False,
                          codebook_weight: Optional[Tuple[float, ...]] = None,
-                         head_dtype=torch.float32) -> Dict[str, torch.Tensor]:
+                         head_dtype=torch.float32,
+                         par: Optional[col.Parallel] = None
+                         ) -> Dict[str, torch.Tensor]:
     """Heads + masked-span CE over the audio positions (y_out [B, Sy, D]):
     sum_k mean-CE_k * ntokens_k * weight_k, and the top-10 hit by rank
     counting (#logits > target < 10), not a sort. ``cfg.ce_impl`` "fused"
     runs the second head matmul and the CE through :func:`fused_ce_head`
     (fp32 logits from ``head_dtype`` operands); "unfused" materialises the
-    logits in ``head_dtype``."""
+    logits in ``head_dtype``. Under tp ``y_out`` is the whole sequence on
+    every tp rank, its gradient summed over tp by the caller
+    (``collectives.copy_to_tp`` or ``gather_seq``). With a dp group in
+    ``par`` the batch is this rank's rows of a global one: the token counts
+    (``effective_ntoken``, the per-codebook denominators) are the global
+    batch's, and ``loss``, ``top10acc`` and the per-codebook terms are this
+    rank's share, so their sum over dp is the global batch's value."""
+    par = par or trf.parallel_of(params)
     y, y_lens = batch["y"], batch["y_lens"]
     sy = y.shape[1]
     K = cfg.n_codebooks
@@ -143,9 +162,11 @@ def ssr_loss_from_hidden(params, cfg: SSRModelConfig, y_out: torch.Tensor,
         hid = F.gelu(torch.einsum("bsd,kdh->bskh", y_out[:, :-1].to(dt),
                                   params["head1_w"].to(dt))
                      + params["head1_b"].to(dt), approximate="none")
+        hid = col.gather_replicated(hid, par, dim=-1)
+        w2 = col.gather_replicated(params["head2_w"], par, dim=1)
         rows = hid.permute(2, 0, 1, 3).reshape(K, b * sm1, -1).contiguous()
         tgt_rows = targets.permute(2, 0, 1).reshape(K, b * sm1)
-        nll_k, hit_k = fused_ce_head(rows, params["head2_w"].to(dt).contiguous(),
+        nll_k, hit_k = fused_ce_head(rows, w2.to(dt).contiguous(),
                                      params["head2_b"].to(dt).contiguous(),
                                      tgt_rows.to(torch.int32).contiguous())
         nll = nll_k.reshape(K, b, sm1).permute(1, 2, 0)
@@ -161,9 +182,13 @@ def ssr_loss_from_hidden(params, cfg: SSRModelConfig, y_out: torch.Tensor,
 
     sel = tmp_masks.float()
     ce_sum = (nll * sel).sum(dim=(0, 1))
-    sel_cnt = sel.sum(dim=(0, 1)).clamp_min(1.0)
-    ce_mean = ce_sum / sel_cnt
+    sel_cnt = sel.sum(dim=(0, 1))
     ntokens = masks.float().sum(dim=(0, 1))
+    if par is not None and par.dp_group is not None:
+        sel_cnt, ntokens = col.all_reduce(torch.stack([sel_cnt, ntokens]),
+                                          par.dp_group)
+    sel_cnt = sel_cnt.clamp_min(1.0)
+    ce_mean = ce_sum / sel_cnt
     cw = (torch.ones(K, device=y.device) if codebook_weight is None
           else torch.tensor(codebook_weight, dtype=torch.float32, device=y.device))
     loss = (ce_mean * ntokens * cw).sum()
@@ -179,7 +204,9 @@ def ssr_forward(params, cfg: SSRModelConfig, batch: Dict[str, torch.Tensor], *,
                 compute_dtype=None, predict_mask_token: bool = True,
                 predict_all: bool = False,
                 codebook_weight: Optional[Tuple[float, ...]] = None,
-                remat: str = "none") -> Dict[str, torch.Tensor]:
+                remat: str = "none", par: Optional[col.Parallel] = None,
+                hidden_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
     """Training/eval loss. batch: x [B,Sx], x_lens [B], y [B,Sy,K], y_lens
     [B]. With ``cfg.attn_impl`` "flash" the attention is the fused kernel
     over the key-validity mask derived here; "einsum" builds the additive
@@ -187,23 +214,40 @@ def ssr_forward(params, cfg: SSRModelConfig, batch: Dict[str, torch.Tensor], *,
     transformer dropouts draw from ``generator`` in JAX's order.
     ``compute_dtype`` (also the heads' dtype) defaults to the dtype of the
     decoder's matmul weights. ``remat`` checkpoints each decoder layer
-    (``transformer.REMAT_MODES``)."""
+    (``transformer.REMAT_MODES``).
+
+    ``par`` (default: what ``params`` carries): this rank's tensor-parallel
+    blocks, the batch being this rank's dp rows; the result is the loss of
+    those rows, the same on every tp rank. Under sequence parallelism a
+    sequence that does not split over tp is padded at its end with
+    positions no real query attends (they come after every real one)."""
+    par = par or trf.parallel_of(params)
+    tp = col.tp_of(par)
+    sp = tp > 1 and par.sequence_parallel
     if compute_dtype is None:
         compute_dtype = params["decoder"]["layers"]["qkv_w"].dtype
     sx, sy = batch["x"].shape[1], batch["y"].shape[1]
     h = ssr_embed(params, cfg, batch, deterministic=deterministic,
                   generator=generator)
+    pad = -(sx + sy) % tp if sp else 0
+    if pad:
+        h = torch.cat([h, h.new_zeros((h.shape[0], pad, h.shape[2]))], dim=1)
     bias = key_valid = None
     if cfg.attn_impl in ("flash", "splash"):
         key_valid = ~torch.cat([make_pad_mask(batch["x_lens"], sx),
-                                make_pad_mask(batch["y_lens"], sy)], dim=1)
+                                make_pad_mask(batch["y_lens"], sy + pad)], dim=1)
     else:
-        bias = xy_attn_bias(batch["x_lens"], batch["y_lens"], sx, sy)
+        bias = xy_attn_bias(batch["x_lens"], batch["y_lens"], sx, sy + pad)
     out = trf.transformer_forward(params["decoder"], h, cfg, bias=bias,
                                   key_valid=key_valid, dtype=compute_dtype,
                                   deterministic=deterministic,
-                                  generator=generator, remat=remat)
+                                  generator=generator, remat=remat, par=par,
+                                  hidden_generator=hidden_generator)
+    if sp:
+        out = col.gather_seq(out, par)[:, :sx + sy]
+    else:
+        out = col.copy_to_tp(out, par)
     return ssr_loss_from_hidden(
         params, cfg, out[:, sx:], batch, predict_mask_token=predict_mask_token,
         predict_all=predict_all, codebook_weight=codebook_weight,
-        head_dtype=compute_dtype)
+        head_dtype=compute_dtype, par=par)

@@ -17,6 +17,19 @@ them: a no-op for the serving path's stored bf16 (or fp32) weights, and the
 bf16 compute copy of the trainer's fp32 master weights. The training forward
 draws its inverted dropout from an explicit ``torch.Generator``.
 
+Tensor parallelism (``parallel.collectives.Parallel``, passed as ``par`` or
+carried by a sharded ParamTree as ``parallel``): a rank holds ``nhead / tp``
+heads and ``ffn_dim / tp`` of the FFN hidden; ``copy_to_tp`` goes in front of
+the two column-parallel products and ``reduce_from_tp`` after the two
+row-parallel ones, before their biases. With ``sequence_parallel`` the
+residual stream, its norms and dropouts run on the rank's block of the
+sequence, with ``gather_seq`` / ``scatter_seq`` around attention and FFN. With
+an fsdp group each layer is broadcast from the rank that holds it just before
+use. Dropout under tp: the residual masks come from ``generator``, the same on
+every tp rank (under sequence parallelism the whole sequence's mask is drawn
+and the rank's block kept), the FFN-hidden masks from ``hidden_generator``,
+which differs by tp rank. Without ``par`` every path is the single-device one.
+
 Activation checkpointing of the training forward (``remat``) wraps each layer
 of the loop, with what each mode of JAX's ``wrap_remat`` keeps and none of
 XLA's policy objects: ``full`` recomputes the whole layer in the backward,
@@ -33,7 +46,7 @@ import functools
 import math
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +56,7 @@ from ..config import SSRModelConfig
 
 from ..ops import scaling
 from ..ops.flash_attention import flash_attend_xy
+from ..parallel import collectives as col
 
 LAYER_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b", "ln2_w",
               "ln2_b", "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b")
@@ -100,15 +114,23 @@ _in_mask = threading.local()
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, seq_block=None) -> torch.Tensor:
     """Inverted dropout (JAX ``transformer._dropout``): keep each element with
     probability 1 - rate and scale the kept ones by 1 / (1 - rate). The draw
-    comes from ``generator``, so a seeded generator repeats it."""
+    comes from ``generator``, so a seeded generator repeats it.
+    ``seq_block=(n, r)``: ``x`` is block r of n along dim 1; the whole
+    sequence's draw is made and block r kept (sequence parallelism)."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs a torch.Generator when not deterministic")
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    if seq_block is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        n, r = seq_block
+        full = (x.shape[0], x.shape[1] * n) + tuple(x.shape[2:])
+        u = torch.rand(full, generator=generator,
+                       device=x.device).chunk(n, dim=1)[r]
     _in_mask.on = True
     try:
         keep = u < 1.0 - rate
@@ -152,9 +174,44 @@ def _ffn_act(cfg: SSRModelConfig, deterministic: bool):
     raise ValueError(cfg.activation)
 
 
-def layer_params(params) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer views [l] of the stacked decoder tensors."""
+def parallel_of(params) -> Optional[col.Parallel]:
+    """The ``Parallel`` context a sharded ParamTree carries (None for a
+    whole model or a plain dict)."""
+    return getattr(params, "parallel", None)
+
+
+def local_heads(cfg: SSRModelConfig, par: Optional[col.Parallel]) -> int:
+    tp = col.tp_of(par)
+    if cfg.nhead % tp:
+        raise ValueError(f"nhead {cfg.nhead} does not split over tp={tp}")
+    return cfg.nhead // tp
+
+
+class _GatheredLayers:
+    """Layer l of stacks the fsdp group shares out, broadcast from its
+    owner each time it is read (so the whole stack is never held)."""
+
+    def __init__(self, stacked, par: col.Parallel):
+        self.stacked, self.par = stacked, par
+        self.n = stacked["qkv_w"].shape[0] * par.fsdp_size
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, l: int) -> Dict[str, torch.Tensor]:
+        if not 0 <= l < self.n:
+            raise IndexError(l)
+        return {k: col.fsdp_layer(t, l, self.par) for k, t in self.stacked.items()}
+
+
+def layer_params(params, par: Optional[col.Parallel] = None):
+    """Per-layer views [l] of the stacked decoder tensors (broadcast from
+    their owner, layer by layer as read, when an fsdp group shares the
+    stacks out)."""
+    par = par or parallel_of(params)
     stacked = {k: params["layers"][k] for k in LAYER_KEYS}
+    if par is not None and par.fsdp_size > 1:
+        return _GatheredLayers(stacked, par)
     n = stacked["qkv_w"].shape[0]
     return [{k: t[l] for k, t in stacked.items()} for l in range(n)]
 
@@ -163,26 +220,51 @@ def _linear(x, w, b):
     return x @ w.to(x.dtype) + b.to(x.dtype)
 
 
-def _qkv(lp, hn, nhead):
-    qkv = _linear(hn, lp["qkv_w"], lp["qkv_b"])
+def _row_linear(x, w, b, par):
+    """Row-parallel product: partial sums over the tp ranks' input blocks
+    summed (or, under sequence parallelism, reduce-scattered over the
+    sequence), then the bias; ``_linear`` without tp."""
+    if col.tp_of(par) == 1:
+        return _linear(x, w, b)
+    y = x @ w.to(x.dtype)
+    y = (col.scatter_seq(y, par) if par.sequence_parallel
+         else col.reduce_from_tp(y, par))
+    return y + b.to(x.dtype)
+
+
+def _tp_in(x, par):
+    """The input of a column-parallel product: the whole sequence, with its
+    gradient summed over tp."""
+    if col.tp_of(par) == 1:
+        return x
+    return col.gather_seq(x, par) if par.sequence_parallel else col.copy_to_tp(x, par)
+
+
+def _qkv(lp, hn, nhead, par=None):
+    qkv = _linear(_tp_in(hn, par), lp["qkv_w"], lp["qkv_b"])
     return [_split_heads(t, nhead) for t in qkv.chunk(3, dim=-1)]
 
 
-def _post_attention(lp, h, attn, act, *, bias_last: bool, drop=None):
+def _post_attention(lp, h, attn, act, *, bias_last: bool, drop=None,
+                    drop_hidden=None, par=None):
     """out projection + residual, then the FFN block + residual; ``drop`` is
-    the training forward's dropout at JAX's three places.
+    the training forward's dropout at JAX's two residual places and
+    ``drop_hidden`` (default ``drop``) the FFN hidden's.
 
     ``bias_last`` keeps the JAX prefill/decode order of the last residual,
     ``(h + ff @ w2) + b2``; the training forward adds ``h + (ff @ w2 + b2)``.
     The two round differently in fp32, and greedy parity is held bit for
     bit."""
     drop = drop or (lambda x: x)
-    h = h + drop(_linear(attn, lp["out_w"], lp["out_b"]))
+    drop_hidden = drop_hidden or drop
+    h = h + drop(_row_linear(attn, lp["out_w"], lp["out_b"], par))
     hn = layer_norm(h, lp["ln2_w"], lp["ln2_b"])
-    ff = drop(act(_linear(hn, lp["ffn1_w"], lp["ffn1_b"])))
+    ff = drop_hidden(act(_linear(_tp_in(hn, par), lp["ffn1_w"], lp["ffn1_b"])))
     if bias_last:
-        return h + ff @ lp["ffn2_w"] + lp["ffn2_b"]
-    return h + drop(_linear(ff, lp["ffn2_w"], lp["ffn2_b"]))
+        if col.tp_of(par) == 1:
+            return h + ff @ lp["ffn2_w"] + lp["ffn2_b"]
+        return h + col.reduce_from_tp(ff @ lp["ffn2_w"], par) + lp["ffn2_b"]
+    return h + drop(_row_linear(ff, lp["ffn2_w"], lp["ffn2_b"], par))
 
 
 REMAT_MODES = ("full", "dots", "dots_masks", "mixed", "none")
@@ -213,28 +295,33 @@ def default_remat(attn_impl: str) -> str:
     return "dots_masks" if attn_impl in ("flash", "splash") else "full"
 
 
-def checkpoint_layer(body, mode: str, generator: Optional[torch.Generator]):
+def checkpoint_layer(body, mode: str, generator):
     """``body(h) -> h`` under the remat ``mode``. A recompute draws its
-    dropout from a copy of ``generator``'s state taken before the layer ran,
-    and leaves ``generator`` where it was, so the masks are the forward's
-    and the next step's draws are those of an un-checkpointed step."""
+    dropout from a copy of ``generator``'s state (a generator, or a tuple of
+    them) taken before the layer ran, and leaves it where it was, so the
+    masks are the forward's and the next step's draws are those of an
+    un-checkpointed step."""
     if mode not in REMAT_MODES:
         raise ValueError(f"remat mode {mode!r}")
     if mode == "none":
         return body
-    snap = None if generator is None else generator.get_state()
+    gens = tuple(g for g in (generator if isinstance(generator, tuple)
+                             else (generator,)) if g is not None)
+    snap = [g.get_state() for g in gens]
     calls = [0]
 
     def replayed(h):
         calls[0] += 1
-        if calls[0] == 1 or snap is None:
+        if calls[0] == 1 or not gens:
             return body(h)
-        now = generator.get_state()
-        generator.set_state(snap)
+        now = [g.get_state() for g in gens]
+        for g, st in zip(gens, snap):
+            g.set_state(st)
         try:
             return body(h)
         finally:
-            generator.set_state(now)
+            for g, st in zip(gens, now):
+                g.set_state(st)
 
     kw = dict(use_reentrant=False, preserve_rng_state=False)
     if mode != "full":
@@ -250,42 +337,85 @@ def transformer_forward(params, h: torch.Tensor, cfg: SSRModelConfig, *,
                         dtype: torch.dtype = torch.float32,
                         deterministic: bool = True,
                         generator: Optional[torch.Generator] = None,
-                        remat: str = "none") -> torch.Tensor:
+                        remat: str = "none",
+                        par: Optional[col.Parallel] = None,
+                        hidden_generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
     """Full-sequence forward (training and eval). h: [B, S, D] -> [B, S, D]
     after the final LayerNorm. With ``cfg.attn_impl`` "flash"/"splash" the
     attention is the fused kernel over ``key_valid`` [B, S]; with "einsum" it
     is ``_attend`` over the additive ``bias`` [B, 1, S, S]. Unless
     ``deterministic``, ``cfg.trm_dropout`` is drawn from ``generator``.
     ``remat`` (one of :data:`REMAT_MODES`) checkpoints each layer when
-    autograd records."""
+    autograd records.
+
+    Under ``par`` (default: the one ``params`` carries) the layers are this
+    rank's tensor-parallel blocks; ``h`` is the whole residual stream, the
+    same on every tp rank, and so is the output, except under sequence
+    parallelism, where the output is this rank's block of the sequence
+    (``collectives.gather_seq`` gives the whole of it to a column-parallel
+    consumer). ``hidden_generator`` draws the FFN hidden's dropout under tp."""
+    par = par or parallel_of(params)
+    sp = par is not None and par.sequence_parallel
+    if sp:
+        h = col.split_seq(h, par)
+    h = run_layers(layer_params(params, par), h, cfg, bias=bias,
+                   key_valid=key_valid, dtype=dtype,
+                   deterministic=deterministic, generator=generator,
+                   remat=remat, par=par, hidden_generator=hidden_generator)
+    return layer_norm(h, params["final_ln_w"], params["final_ln_b"])
+
+
+def run_layers(layers, h: torch.Tensor, cfg: SSRModelConfig, *, bias=None,
+               key_valid=None, dtype=torch.float32, deterministic=True,
+               generator=None, remat="none", par=None, hidden_generator=None
+               ) -> torch.Tensor:
+    """The layer loop of :func:`transformer_forward` over ``layers``
+    (per-layer dicts), without the final norm; the pipeline's stages run it
+    on their own layers."""
     act = _ffn_act(cfg, deterministic)
     use_flash = cfg.attn_impl in ("flash", "splash")
     if use_flash and key_valid is None:
         raise ValueError(f"attn_impl={cfg.attn_impl!r} needs key_valid")
     if not use_flash and bias is None:
         raise ValueError("attn_impl='einsum' needs bias")
+    nhead = local_heads(cfg, par)
+    tp = col.tp_of(par)
+    if tp > 1 and not deterministic and cfg.trm_dropout > 0 \
+            and hidden_generator is None:
+        raise ValueError("dropout under tp needs a hidden_generator")
+    block = ((tp, par.tp_rank) if par is not None and par.sequence_parallel
+             else None)
 
     def drop(x):
-        return dropout(x, cfg.trm_dropout, generator, deterministic)
+        return dropout(x, cfg.trm_dropout, generator, deterministic,
+                       seq_block=block)
+
+    def drop_hidden(x):
+        return dropout(x, cfg.trm_dropout, hidden_generator or generator,
+                       deterministic)
 
     def layer(lp, h):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-        q, k, v = _qkv(lp, hn, cfg.nhead)
+        q, k, v = _qkv(lp, hn, nhead, par)
         if use_flash:
             attn = flash_attend_xy(q.contiguous(), k.contiguous(),
                                    v.contiguous(), key_valid)
         else:
             attn = _attend(q, k, v, bias.float())
         return _post_attention(lp, h, _merge_heads(attn), act,
-                               bias_last=False, drop=drop)
+                               bias_last=False, drop=drop,
+                               drop_hidden=drop_hidden if tp > 1 else None,
+                               par=par)
 
     if remat not in REMAT_MODES:
         raise ValueError(f"remat mode {remat!r}")
     mode = remat if torch.is_grad_enabled() else "none"
+    gens = (generator, hidden_generator) if tp > 1 else generator
     h = h.to(dtype)
-    for lp in layer_params(params):
-        h = checkpoint_layer(functools.partial(layer, lp), mode, generator)(h)
-    return layer_norm(h, params["final_ln_w"], params["final_ln_b"])
+    for lp in layers:
+        h = checkpoint_layer(functools.partial(layer, lp), mode, gens)(h)
+    return h
 
 
 @dataclass
@@ -303,8 +433,10 @@ class KVCache:
 
 
 def init_kv_cache(cfg: SSRModelConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cpu") -> KVCache:
-    shape = (cfg.num_layers, batch, cfg.nhead, max_len, cfg.head_dim)
+                  dtype=torch.bfloat16, device="cpu",
+                  par: Optional[col.Parallel] = None) -> KVCache:
+    """Zeroed buffers for every layer and this rank's heads (``par``)."""
+    shape = (cfg.num_layers, batch, local_heads(cfg, par), max_len, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
@@ -320,15 +452,18 @@ def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
     is the JAX prefill's additive mask for every row whose output is read.
     Returns (hidden [B, S, D], cache)."""
     act = _ffn_act(cfg, deterministic=True)
+    par = parallel_of(params)
+    nhead = local_heads(cfg, par)
     h = h.to(dtype)
     start, s = cache.length, h.shape[1]
     for l, lp in enumerate(layer_params(params)):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-        q, k, v = (t.contiguous() for t in _qkv(lp, hn, cfg.nhead))
+        q, k, v = (t.contiguous() for t in _qkv(lp, hn, nhead, par))
         cache.k[l, :, :, start:start + s] = k
         cache.v[l, :, :, start:start + s] = v
         attn = flash_attend_xy(q, k, v, key_valid)
-        h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True)
+        h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True,
+                            par=par)
     out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
     return out, KVCache(cache.k, cache.v, start + s)
 
@@ -354,6 +489,8 @@ def transformer_decode_step(params, h_t: torch.Tensor, cache: KVCache,
     advanced by one); the new K/V are written into the cache in place.
     ``layers`` may pass ``layer_params(params)`` precomputed."""
     act = _ffn_act(cfg, deterministic=True)
+    par = parallel_of(params)
+    nhead = local_heads(cfg, par)
     pos = cache.length
     if pos >= cache.max_len:
         raise ValueError(f"KV cache full ({cache.max_len} positions)")
@@ -361,12 +498,13 @@ def transformer_decode_step(params, h_t: torch.Tensor, cache: KVCache,
     bias = decode_bias(key_banned, pos + 1)
     for l, lp in enumerate(layers or layer_params(params)):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-        q, k, v = _qkv(lp, hn, cfg.nhead)
+        q, k, v = _qkv(lp, hn, nhead, par)
         cache.k[l, :, :, pos:pos + 1] = k
         cache.v[l, :, :, pos:pos + 1] = v
         attn = _attend(q, cache.k[l, :, :, :pos + 1],
                        cache.v[l, :, :, :pos + 1], bias)
-        h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True)
+        h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True,
+                            par=par)
     out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
     return out[:, 0, :], KVCache(cache.k, cache.v, pos + 1)
 
@@ -393,9 +531,11 @@ def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
     probabilities in ``dtype``, the last residual ``(h + ff @ w2) + b2``.
     Returns (out [B, D], gen advanced by one)."""
     act = _ffn_act(cfg, deterministic=True)
-    b, d = h_t.shape
+    par = parallel_of(params)
+    b, _ = h_t.shape
     s = b // n_groups
-    nhead, dh = cfg.nhead, cfg.head_dim
+    nhead, dh = local_heads(cfg, par), cfg.head_dim
+    d = nhead * dh
     gpos, tp = gen.length, pfx.length
     if gpos >= gen.max_len:
         raise ValueError(f"generated KV cache full ({gen.max_len} positions)")
@@ -411,7 +551,7 @@ def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
     h = h_t.to(dtype)[:, None, :]
     for l, lp in enumerate(layers or layer_params(params)):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-        q, k, v = _qkv(lp, hn, nhead)  # [B, H, 1, Dh]
+        q, k, v = _qkv(lp, hn, nhead, par)  # [B, H, 1, Dh]
         gen.k[l, :, :, gpos:gpos + 1] = k
         gen.v[l, :, :, gpos:gpos + 1] = v
         qs = q * scale
@@ -427,7 +567,8 @@ def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
         pg = p[..., tp:].transpose(1, 2).reshape(b, nhead, 1, gpos + 1)
         out_g = torch.matmul(pg, gen.v[l, :, :, :gpos + 1])  # [B, H, 1, Dh]
         attn = out_p.transpose(1, 2).reshape(b, nhead, 1, dh) + out_g
-        h = _post_attention(lp, h, attn.reshape(b, 1, d), act, bias_last=True)
+        h = _post_attention(lp, h, attn.reshape(b, 1, d), act, bias_last=True,
+                            par=par)
     out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
     return out[:, 0, :], KVCache(gen.k, gen.v, gpos + 1)
 
@@ -463,8 +604,10 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
     never lets a row reach it). Returns (out [B, D], gen), the cache
     written in place."""
     act = _ffn_act(cfg, deterministic=True)
-    b, d = h_t.shape
-    nhead, dh = cfg.nhead, cfg.head_dim
+    par = parallel_of(params)
+    b, _ = h_t.shape
+    nhead, dh = local_heads(cfg, par), cfg.head_dim
+    d = nhead * dh
     tp, tg = pfx.length, gen.max_len
     rl = tg if read_len is None else min(int(read_len), tg)
     dev = h_t.device
@@ -479,7 +622,7 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
     ks, vs = [], []
     for l, lp in enumerate(layers or layer_params(params)):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-        q, k, v = _qkv(lp, hn, nhead)  # [B, H, 1, Dh]
+        q, k, v = _qkv(lp, hn, nhead, par)  # [B, H, 1, Dh]
         ks.append(k[:, :, 0])
         vs.append(v[:, :, 0])
         qs = q * scale
@@ -492,7 +635,8 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
         out = torch.matmul(p[..., :tp], pfx.v[l, :, :, :tp])
         out = out + torch.matmul(p[..., tp:tp + rl], gen.v[l, :, :, :rl])
         out = out + p[..., -1:] * v
-        h = _post_attention(lp, h, out.reshape(b, 1, d), act, bias_last=True)
+        h = _post_attention(lp, h, out.reshape(b, 1, d), act, bias_last=True,
+                            par=par)
     # one scatter for all layers: row r writes column gen_len[r]
     rows = torch.arange(b, device=dev)
     col = gen_len.clamp(max=tg - 1)

@@ -9,7 +9,10 @@ run the GAN + watermark-CE loop of ``training.codec_trainer``.
         --codec_path codec.pkl --exp_dir exp/wmcodec --updates 2000
 
 The JAX CLI's flags plus ``--device`` (default ``cuda``, which raises without
-a card). ``--precision`` defaults to float32 on every device (JAX picks
+a card) and ``--dist_backend``. ``--data_parallel`` under ``torchrun``
+splits each global batch's rows over the ranks (``--batch_size`` is the
+global batch, as JAX's dp mesh takes it); the gradients, the balancer's norms
+and the metrics are the global batch's, and rank 0 alone writes files. ``--precision`` defaults to float32 on every device (JAX picks
 bfloat16 on a TPU only). A reference ``.th`` / ``.pth`` / ``.pt`` checkpoint
 converts through ``models/convert.py`` at the run's geometry. The bundle is
 written as ``codec_bundle.pkl`` with ``params = {encoder, decoder,
@@ -116,8 +119,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="C++ threaded WAV batch loader threads (0 = python "
                         "loop); batches are also prefetched two steps ahead")
     p.add_argument("--data_parallel", action="store_true",
-                   help="a no-op on one device; more than one is refused "
-                        "until the port has data parallelism")
+                   help="split each batch's rows over the ranks of a "
+                        "torchrun launch (a no-op in one process)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend; default nccl on cuda, gloo "
+                        "on cpu")
     return p
 
 
@@ -145,13 +151,22 @@ def main(argv=None):
     from .utils.tree import tree_map
     from .utils.watchdog import DeadlockDetect
 
+    from .parallel.dist import init_distributed, is_main
+
     device = resolve_device(args.device)
     set_precision_policy()
-    if (args.data_parallel and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "--data_parallel over more than one device is not ported yet "
-            "(ROADMAP.md, queue 1 item 8: parallelism)")
+    dp_group, dp, dp_rank = None, 1, 0
+    if args.data_parallel:
+        import torch.distributed as dist
+
+        dp_rank, dp, device = init_distributed(args.dist_backend, device)
+        if dp > 1:
+            dp_group = dist.group.WORLD
+            if args.batch_size % dp:
+                raise SystemExit(f"train_codec: --batch_size {args.batch_size} "
+                                 f"does not split over {dp} ranks")
+    rows = slice(dp_rank * (args.batch_size // dp),
+                 (dp_rank + 1) * (args.batch_size // dp))
     if args.config_json:
         with open(args.config_json) as f:
             cfg = codec_config_from_json(f.read())
@@ -174,7 +189,7 @@ def main(argv=None):
     step_fn = codec_trainer.make_codec_train_step(
         cfg, opts, args.ema_decay, balance_weights=bw,
         adv_loss_mode=args.adv_loss_mode, compute_dtype=args.precision,
-        wm_ce_weight=args.wm_ce_weight)
+        wm_ce_weight=args.wm_ce_weight, dp_group=dp_group)
 
     ds = AudioSegmentDataset(args.manifest, cfg, args.segment_duration,
                              seed=args.seed,
@@ -185,16 +200,17 @@ def main(argv=None):
                              max_read_retry=args.max_read_retry,
                              max_audio_duration=args.max_audio_duration)
     rng = np.random.default_rng(args.seed)
-    os.makedirs(args.exp_dir, exist_ok=True)
-    # the resolved geometry, which --config_json of a later run reads
-    with open(os.path.join(args.exp_dir, "config.json"), "w") as f:
-        f.write(config_to_json(cfg))
+    if is_main():
+        os.makedirs(args.exp_dir, exist_ok=True)
+        # the resolved geometry, which --config_json of a later run reads
+        with open(os.path.join(args.exp_dir, "config.json"), "w") as f:
+            f.write(config_to_json(cfg))
     hop = cfg.hop_length
     frames = int(args.segment_duration * cfg.sample_rate) // hop
     on_device = lambda a: torch.as_tensor(np.asarray(a)).to(device)  # noqa: E731
 
     samples_dir = args.samples_dir or os.path.join(args.exp_dir, "samples")
-    samples = SampleManager(samples_dir)
+    samples = SampleManager(samples_dir) if is_main() else None
     visqol = None
     if args.visqol_bin:
         from .utils.visqol import ViSQOL
@@ -203,7 +219,10 @@ def main(argv=None):
 
     def generate_stage(epoch: int, step: int):
         # store watermark reconstructions of an eval batch with provenance
+        # (every rank draws it, so the data streams stay in step)
         wav_eval = np.asarray(next(ds.batches(args.batch_size, 1)))
+        if samples is None:
+            return
         recon = codec_trainer.reconstruct(state, cfg, on_device(wav_eval)
                                           ).cpu().numpy()
         for i in range(recon.shape[0]):
@@ -222,6 +241,8 @@ def main(argv=None):
 
     def save(step: int) -> str:
         path = os.path.join(args.exp_dir, "codec_bundle.pkl")
+        if not is_main():
+            return path
         params = dict(encoder=state.frozen["encoder"],
                       decoder=state.frozen["decoder"],
                       quantizer=state.frozen["quantizer"],
@@ -236,7 +257,7 @@ def main(argv=None):
     watchdog = DeadlockDetect(use=args.deadlock_timeout > 0,
                               timeout=args.deadlock_timeout)
     prof = Profiler(logdir=os.path.join(args.exp_dir, "profile"),
-                    enabled=args.profile_steps > 0,
+                    enabled=args.profile_steps > 0 and is_main(),
                     num_steps=args.profile_steps)
     try:
         with watchdog:
@@ -246,6 +267,7 @@ def main(argv=None):
                     labels, keep = wm.sample_watermark_mask(
                         rng, wav.shape[0], frames, hop,
                         min_regions=args.wm_min_regions)
+                    wav, labels, keep = wav[rows], labels[rows], keep[rows]
                     t0 = time.perf_counter()
                     watchdog.update("dispatch")
                     state, metrics = step_fn(state, on_device(wav),
@@ -261,9 +283,15 @@ def main(argv=None):
                                     {k: round(v, 4) for k, v in row.items()})
                     if step % args.eval_every == 0:
                         watchdog.update("eval")
-                        wav_eval = on_device(next(ds.batches(args.batch_size, 1)))
-                        sisnr = float(codec_trainer.evaluate_sisnr(
-                            state, cfg, wav_eval))
+                        wav_eval = on_device(
+                            next(ds.batches(args.batch_size, 1))[rows])
+                        sisnr = codec_trainer.evaluate_sisnr(state, cfg,
+                                                             wav_eval)
+                        if dp_group is not None:  # over the global batch
+                            from .parallel.collectives import all_reduce
+
+                            sisnr = all_reduce(sisnr.reshape(1), dp_group)[0] / dp
+                        sisnr = float(sisnr)
                         evals.append((step, sisnr))
                         logger.info("eval si-snr %.2f dB", sisnr)
                     if args.generate_every and step % args.generate_every == 0:

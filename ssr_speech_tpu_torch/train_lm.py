@@ -1,13 +1,20 @@
-"""LM training entry point of the PyTorch port (``ssr_speech_tpu/train_lm.py``
-on one device).
+"""LM training entry point of the PyTorch port (``ssr_speech_tpu/train_lm.py``).
 
-The flags are the JAX CLI's, without the parallelism and XLA knobs (``--tp
---pp --n_micro --sequence_parallel --unroll_layers --rng_impl``), plus
-``--device`` (default ``cuda``; asking for it without a card is an error,
-never a silent CPU run). The dataset, batcher and prefetcher are the port's
+The flags are the JAX CLI's, without its XLA knobs (``--unroll_layers
+--rng_impl``), plus ``--device`` (default ``cuda``; asking for it without a
+card is an error, never a silent CPU run) and ``--dist_backend``. Over
+several ranks it is launched by ``torchrun``; ``--tp``, ``--pp``,
+``--n_micro`` and ``--sequence_parallel`` are JAX's, and dp is the world
+size over ``tp * pp``. Each rank reads the same global batches (the token
+budget is the per-rank one times dp, times ``n_micro`` under pp, as in JAX)
+and takes its rows. The dataset, batcher and prefetcher are the port's
 own copies of the JAX package's modules. ``--remat`` checkpoints each decoder
 layer as JAX's modes describe (``models.transformer.checkpoint_layer``), with
 JAX's default: ``dots_masks`` with the fused attention, else ``full``.
+
+Example (two H100s, one rank each, tensor parallel):
+  torchrun --nproc_per_node 2 -m ssr_speech_tpu_torch.train_lm --device cuda \
+    --tp 2 --exp_dir exp/e830M --dataset_dir data/gigaspeech ...
 
 Example (the 830M e830M geometry on one H100):
   python -m ssr_speech_tpu_torch.train_lm --device cuda --exp_dir exp/e830M \\
@@ -26,7 +33,21 @@ import os
 def build_parser():
     p = argparse.ArgumentParser("ssr_speech_tpu_torch.train_lm")
     p.add_argument("--device", type=str, default="cuda",
-                   help="cpu, cuda or cuda:N")
+                   help="cpu, cuda or cuda:N (under torchrun with nccl, "
+                        "cuda is each rank's cuda:LOCAL_RANK)")
+    # parallelism (launch with torchrun; dp = world / (tp * pp))
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel size")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages (GPipe microbatch schedule)")
+    p.add_argument("--n_micro", type=int, default=None,
+                   help="pipeline microbatches per step (default 2*pp)")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="Megatron-SP: the residual stream split over the tp "
+                        "group along the sequence")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend; default nccl on cuda (one "
+                        "rank per GPU), gloo on cpu (gloo also lets ranks "
+                        "share one card)")
     # general
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--precision", default="bfloat16")
@@ -212,14 +233,39 @@ def configs_from_args(args, device):
     return cfg, tcfg
 
 
-def make_train_batcher(cfg, tcfg, seed: int):
+def make_train_batcher(cfg, tcfg, seed: int, world_size: int = 1):
     """(training set, its bucket batcher): ``batcher(epoch)`` yields the
-    batches ``main`` trains on, in order, the same for the same seed."""
+    batches ``main`` trains on, in order, the same for the same seed.
+    ``world_size``: the number of row blocks a batch splits into (dp, times
+    n_micro under pp)."""
     from .data.batching import BucketBatcher
     from .data.dataset import SpeechDataset
 
     train_ds = SpeechDataset(cfg, tcfg.data, tcfg.masking, "train", seed=seed)
-    return train_ds, BucketBatcher(train_ds, cfg, tcfg.data, seed=seed)
+    return train_ds, BucketBatcher(train_ds, cfg, tcfg.data,
+                                   world_size=world_size, seed=seed)
+
+
+def make_mesh_of(args, world: int):
+    """(mesh or None, row blocks of a batch) for the parsed flags over a
+    world of ``world`` ranks."""
+    if world % (args.tp * args.pp):
+        raise SystemExit(
+            f"train_lm: --tp {args.tp} --pp {args.pp} needs a world that "
+            f"divides into tp*pp={args.tp * args.pp} ranks, this one has "
+            f"{world}: launch with torchrun --nproc_per_node N (N a multiple "
+            f"of {args.tp * args.pp})")
+    if world == 1:
+        return None, 1
+    dp = world // (args.tp * args.pp)
+    if args.pp > 1:
+        from .parallel.pipeline import make_pp_mesh
+
+        return make_pp_mesh(pp=args.pp, tp=args.tp), dp * (args.n_micro
+                                                           or 2 * args.pp)
+    from .parallel.mesh import make_mesh
+
+    return make_mesh(tp=args.tp), dp
 
 
 def main(argv=None):
@@ -236,21 +282,28 @@ def main(argv=None):
     from .device import resolve_device, set_precision_policy
     from .training.trainer import Trainer
 
+    from .parallel.dist import init_distributed
+
     device = resolve_device(args.device)
+    _, world, device = init_distributed(args.dist_backend, device)
     set_precision_policy()
     cfg, tcfg = configs_from_args(args, device)
-    train_ds, train_batcher = make_train_batcher(cfg, tcfg, args.seed)
+    mesh, blocks = make_mesh_of(args, world)
+    train_ds, train_batcher = make_train_batcher(cfg, tcfg, args.seed, blocks)
     try:
         val_ds = SpeechDataset(cfg, tcfg.data, tcfg.masking, "validation",
                                seed=args.seed + 1)
-        val_batcher = BucketBatcher(val_ds, cfg, tcfg.data, seed=args.seed + 1)
+        val_batcher = BucketBatcher(val_ds, cfg, tcfg.data, world_size=blocks,
+                                    seed=args.seed + 1)
         valid_loader = lambda: val_batcher(0)
     except FileNotFoundError:
         valid_loader = None
 
     trainer = Trainer(cfg, tcfg, prefetch(train_batcher), valid_loader,
                       phn2num=train_ds.phn2num, exp_dir=args.exp_dir,
-                      device=device)
+                      device=device, mesh=mesh, pp=args.pp,
+                      n_micro=args.n_micro,
+                      sequence_parallel=args.sequence_parallel)
     resume_path = os.path.join(args.exp_dir, "bundle.pkl")
     if args.resume:
         if not os.path.isfile(resume_path):

@@ -20,6 +20,15 @@ discriminator's parameters carry no gradient from the generator's losses.
 
 The state is a tree of plain tensors updated in place; the step returns the
 same state object, so ``state, metrics = step(state, ...)`` reads as in JAX.
+
+Data parallel (``dp_group``, JAX's step over a batch sharded on dp): a rank
+takes its rows of the global batch; every loss is a mean over rows, so the
+gradients of the rank's losses on its rows are divided by the dp size to
+make them its rows' share of the global losses' gradients, the balancer's
+norms are taken over the global batch, and the watermark decoder's and the
+discriminator's gradients are summed over dp. The metrics are the global
+batch's, and the parameters, optimizer states and EMA stay identical on
+every rank.
 """
 
 from __future__ import annotations
@@ -141,11 +150,44 @@ def _grads(outputs, leaves, grad_outputs=None):
             for g, p in zip(got, leaves)]
 
 
-def _balanced_cotangent(state, y_pred, x, x_c, cast, bw, gen_loss, sr):
+def _dp_size(group) -> int:
+    import torch.distributed as dist
+
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _dp_mean(values: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Per-rank means over equal row blocks -> the global batch's means."""
+    if group is None:
+        return values
+    from ..parallel.collectives import all_reduce
+
+    names = list(values)
+    tot = all_reduce(torch.stack([values[n].float() for n in names]), group)
+    return {n: tot[i] / _dp_size(group) for i, n in enumerate(names)}
+
+
+def _dp_sum_(grads, group) -> None:
+    """In place: gradients summed over the dp group (one flat all-reduce)."""
+    if group is None:
+        return
+    from ..parallel.collectives import all_reduce
+
+    flat = all_reduce(torch.cat([g.reshape(-1).float() for g in grads]), group)
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].reshape(g.shape))
+        i += g.numel()
+
+
+def _balanced_cotangent(state, y_pred, x, x_c, cast, bw, gen_loss, sr,
+                        group=None):
     """The balanced generator losses, each as f(y_pred): the adversarial and
     feature-matching pair from one graph through the discriminator as it is
     (before this step's update), then each reconstruction loss. Returns
-    (cotangent on y_pred, balancer state, g_loss, losses)."""
+    (cotangent on y_pred, balancer state, g_loss, losses). Under a dp
+    ``group`` the per-loss gradients are this rank's share of the global
+    losses' and the losses are global."""
     yp = y_pred.detach().requires_grad_(True)
     disc = state.disc_params
     logits_f, fmaps_f = disc_mod.msstftd_forward(disc, cast(yp))
@@ -164,30 +206,40 @@ def _balanced_cotangent(state, y_pred, x, x_c, cast, bw, gen_loss, sr):
         loss = RECON_LOSS_FNS[k](yp, x, sr)
         grads_out[k], = torch.autograd.grad(loss, yp)
         losses[k] = loss.detach()
+    n = _dp_size(group)
+    if n > 1:
+        grads_out = {k: g / n for k, g in grads_out.items()}
+        losses = _dp_mean(losses, group)
     cot, new_bal, g_loss = L.balancer_cotangent(state.balancer, grads_out, bw,
-                                                losses)
+                                                losses, group=group)
     return cot, new_bal, g_loss, losses
 
 
-def _discriminator_step(state, d_opt_t, y_det, x_c, real_loss, fake_loss):
-    """One discriminator update on the detached generator output."""
+def _discriminator_step(state, d_opt_t, y_det, x_c, real_loss, fake_loss,
+                        group=None):
+    """One discriminator update on the detached generator output (the
+    gradient of the global batch's mean loss under a dp ``group``)."""
     leaves = tree_leaves(state.disc_params)
     logits_f, _ = disc_mod.msstftd_forward(state.disc_params, y_det)
     logits_r, _ = disc_mod.msstftd_forward(state.disc_params, x_c)
     d_loss = sum(fake_loss(lf) + real_loss(lr_)
                  for lf, lr_ in zip(logits_f, logits_r)) / len(logits_f)
-    g_d = _grads(d_loss, leaves)
+    n = _dp_size(group)
+    g_d = _grads(d_loss / n if n > 1 else d_loss, leaves)
+    _dp_sum_(g_d, group)
     d_opt_t.update_(g_d, state.d_opt, state.disc_params)
-    return d_loss.detach()
+    return _dp_mean(dict(d=d_loss.detach()), group)["d"]
 
 
 def make_codec_train_step(cfg: CodecConfig, optimizers, ema_decay: float = 0.99,
                           balance_weights: Optional[Dict[str, float]] = None,
                           adv_loss_mode: str = "hinge",
                           compute_dtype: Optional[str] = None,
-                          wm_ce_weight: float = 1.0):
+                          wm_ce_weight: float = 1.0, dp_group=None):
     """``step(state, wav [B, T, 1], labels [B, F] 0/1, keep [B, T]) ->
     (state, metrics)``; ``keep`` is 1 outside the watermarked spans.
+    ``dp_group``: the rows are this rank's block of the global batch (see
+    the module's docstring).
 
     ``compute_dtype="bfloat16"`` runs the watermark decoder, the detector
     and the discriminator passes with bf16 activations; parameters, losses,
@@ -222,17 +274,22 @@ def make_codec_train_step(cfg: CodecConfig, optimizers, ema_decay: float = 0.99,
                 c_in, torch.zeros(c_in.shape[:-1], dtype=torch.long,
                                   device=c_in.device)))
         g_mark, g_clean = torch.autograd.grad(cls_loss, [m_in, c_in])
+        n = _dp_size(dp_group)
+        if n > 1:
+            g_mark, g_clean = g_mark / n, g_clean / n
+            cls_loss = _dp_mean(dict(c=cls_loss.detach()), dp_group)["c"]
 
         cot, new_bal, g_loss, losses = _balanced_cotangent(
-            state, y_pred, x, x_c, cast, bw, gen_loss, sr)
+            state, y_pred, x, x_c, cast, bw, gen_loss, sr, dp_group)
         wm_leaves = tree_leaves(wm_p)
         g_wm = _grads([y_pred, mark, clean], wm_leaves,
                       grad_outputs=[cot, g_mark, g_clean])
         del y_full, mark, clean
+        _dp_sum_(g_wm, dp_group)
         g_opt_t.update_(g_wm, state.g_opt, wm_p)
 
         d_loss = _discriminator_step(state, d_opt_t, cast(y_pred.detach()),
-                                     x_c, real_loss, fake_loss)
+                                     x_c, real_loss, fake_loss, dp_group)
         with torch.no_grad():
             ema = tree_leaves(state.ema_params)
             torch._foreach_mul_(ema, ema_decay)

@@ -156,20 +156,41 @@ def balancer_cotangent(
     ema_decay: float = 0.999,
     per_batch_item: bool = True,
     epsilon: float = 1e-12,
+    group=None,
 ) -> Tuple[torch.Tensor, BalancerState, torch.Tensor]:
     """Combine the per-loss output gradients into one cotangent.
+
+    ``group``: the batch rows are split over this data-parallel group and
+    ``grads`` are this rank's rows of the global batch's gradients; the
+    norms are then the global batch's (the per-row norms averaged over
+    every rank's rows), so every rank scales by the same factors.
 
     ``grads[name]`` is d loss_name / d output, all of one shape. Returns
     (cotangent, new state, effective loss). The running average is
     ``avg * decay + v * (1 - decay)``, bias-corrected by
     ``1 - decay ** count``."""
     norms = {}
-    for name, g in grads.items():
-        if per_batch_item:
-            dims = tuple(range(1, g.dim()))
-            norms[name] = torch.sqrt((g * g).sum(dim=dims) + 0.0).mean()
+    if group is None:
+        for name, g in grads.items():
+            if per_batch_item:
+                dims = tuple(range(1, g.dim()))
+                norms[name] = torch.sqrt((g * g).sum(dim=dims) + 0.0).mean()
+            else:
+                norms[name] = torch.sqrt((g * g).sum())
+    else:
+        from ..parallel.collectives import all_reduce
+
+        names = list(grads)
+        if per_batch_item:  # the mean over every rank's rows of the row norms
+            part = torch.stack([torch.sqrt((g * g).sum(dim=tuple(range(1, g.dim())))
+                                           + 0.0).sum() for g in grads.values()])
+            rows = float(next(iter(grads.values())).shape[0])
+            tot = all_reduce(torch.cat([part, part.new_tensor([rows])]), group)
+            norms = {n: tot[i] / tot[-1] for i, n in enumerate(names)}
         else:
-            norms[name] = torch.sqrt((g * g).sum())
+            tot = all_reduce(torch.stack([(g * g).sum() for g in grads.values()]),
+                             group)
+            norms = {n: torch.sqrt(tot[i]) for i, n in enumerate(names)}
     count = state.count + 1.0
     bias = 1.0 - torch.tensor(ema_decay, dtype=torch.float32,
                               device=count.device) ** count

@@ -19,6 +19,15 @@ Semantics held to JAX:
   scale and the clipping norm are taken over the whole ``[L, ...]`` tensor,
   not per layer; scalars are the leaves of size 1 (the positional alphas);
 - AdamW clips the gradients by their global norm first.
+
+Sharded leaves (tensor-, pipeline- or fsdp-parallel training): after
+``set_sharding(groups)`` (a tree like the parameters whose leaves list the
+process groups that split that leaf) every whole-leaf statistic is taken over
+the whole leaf: ScaledAdam's ``param_rms``, its scale gradient and its
+clipping norm, Eve's norm and AdamW's global norm sum each rank's part over
+the leaf's groups. So ``norm_buffer``, ``norm_threshold`` and every per-leaf
+scalar come out the same on every rank, and each rank's moments are its
+block of the state one device would hold.
 """
 
 from __future__ import annotations
@@ -30,9 +39,52 @@ import torch
 
 from ..config import OptimConfig
 
+from ..parallel.collectives import sum_over
 from ..utils.tree import tree_leaves, tree_map
 
 F32 = np.float32
+
+
+class _Sharded:
+    """The ``set_sharding`` mixin: per-leaf process groups (empty for a leaf
+    each rank holds whole) and the reductions over them."""
+
+    _groups = None
+
+    def set_sharding(self, groups) -> None:
+        self._groups = [list(g or ()) for g in _group_leaves(groups)]
+
+    def _leaf_groups(self, n: int):
+        return self._groups if self._groups is not None else [[]] * n
+
+    def _sum(self, values, n: int):
+        """Per-leaf partial sums -> whole-leaf sums."""
+        return sum_over(values, self._leaf_groups(n))
+
+    def _whole(self, ps, local, partial):
+        """Per leaf ``local(p)`` where the rank holds the whole leaf, else
+        ``partial(p)`` summed over the leaf's groups (in one all-reduce per
+        group)."""
+        gl = self._leaf_groups(len(ps))
+        sums = sum_over([partial(p) if gs else local(p)
+                         for p, gs in zip(ps, gl)], gl)
+        return sums, [bool(gs) for gs in gl]
+
+    def _numel(self, ps):
+        """Each leaf's whole size (a block's size times its shard count)."""
+        import torch.distributed as dist
+
+        return [p.numel() * int(np.prod([dist.get_world_size(g) for g in gs]))
+                for p, gs in zip(ps, self._leaf_groups(len(ps)))]
+
+
+def _group_leaves(tree):
+    """Leaves of a tree whose leaves are lists of groups (kept whole)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _group_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for item in tree for x in _group_leaves(item)]
+    return [tree]
 
 
 # ------------------------------------------------------------------ schedules
@@ -78,7 +130,7 @@ def _scalar(x, like: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- ScaledAdam
 
-class ScaledAdam:
+class ScaledAdam(_Sharded):
     """ScaledAdam: an Adam step scaled by each tensor's RMS, a learned
     log-scale per tensor (the size update every ``size_update_period``
     steps), plain clamped Adam for scalars, and median-based clipping of the
@@ -96,23 +148,34 @@ class ScaledAdam:
         cfg = self.cfg
         mdt = torch.bfloat16 if cfg.moments_dtype == "bfloat16" else None
 
+        ps = tree_leaves(params)
+        rms_of = {id(p): r for p, r in zip(ps, self._rms(ps))}
+
         def leaf(p):
+            rms = rms_of[id(p)]
             p = p.detach()
             bshape = (1,) * p.dim()
             zeros = lambda shape: torch.zeros(shape, dtype=torch.float32,
                                               device=p.device)
-            rms = (zeros(bshape) if p.numel() == 1 else
-                   p.float().square().mean().sqrt().reshape(bshape))
+            rms = zeros(bshape) if p.numel() == 1 else rms.reshape(bshape)
             return (torch.zeros_like(p, dtype=mdt or p.dtype),
                     torch.zeros_like(p, dtype=mdt or p.dtype), rms,
                     zeros((cfg.size_update_period,) + bshape), zeros(bshape))
 
-        dev = tree_leaves(params)[0].device
+        dev = ps[0].device
         return (torch.zeros((), dtype=torch.int32),
                 tree_map(leaf, params),
                 torch.zeros(cfg.clipping_update_period, dtype=torch.float32,
                             device=dev),
                 torch.full((), float("inf"), dtype=torch.float32, device=dev))
+
+    def _rms(self, ps):
+        """Each leaf's RMS over the whole leaf."""
+        sums, sharded = self._whole(
+            ps, lambda p: p.detach().float().square().mean(),
+            lambda p: p.detach().float().square().sum())
+        return [(s / n).sqrt() if sh else s.sqrt()
+                for s, n, sh in zip(sums, self._numel(ps), sharded)]
 
     def update_(self, grads, state, params) -> None:
         cfg = self.cfg
@@ -131,7 +194,7 @@ class ScaledAdam:
             sumsq = [g.float().square().sum() if p.numel() == 1
                      else (g.float() * s[2]).square().sum()
                      for p, g, s in zip(ps, gs, ss)]
-            tot_norm = torch.sqrt(sum(sumsq))
+            tot_norm = torch.sqrt(sum(self._sum(sumsq, len(ps))))
             norm_buffer[step % cup] = tot_norm
             if step % cup == 0 and step > 0:
                 median = torch.sort(norm_buffer).values[(cup // 4) * 2]
@@ -142,7 +205,13 @@ class ScaledAdam:
                                                max=1.0), 1.0)
 
         bc2 = F32(1.0) - F32(beta2) ** F32(step + 1)
-        for p, g, (delta_s, eas_s, rms, scale_grads, sesq) in zip(ps, gs, ss):
+        at_size_step = step % period == period - 1
+        # whole-leaf sums: sum(p * g * clip) each step, sum(p^2) at a size step
+        pg = self._sum([(p.detach().float() * (g.float() * clip)).sum()
+                        for p, g in zip(ps, gs)], len(ps))
+        rms_now = self._rms(ps) if at_size_step else None
+        for i, (p, g, (delta_s, eas_s, rms, scale_grads, sesq)) in enumerate(
+                zip(ps, gs, ss)):
             g = g.float() * clip
             pf = p.detach().float()
             delta = delta_s.float() * beta1
@@ -153,10 +222,9 @@ class ScaledAdam:
                 update = torch.clamp(pf, -cfg.scalar_max, cfg.scalar_max) + delta - pf
             else:
                 # learned-size update every `period` steps
-                scale_grads[step % period] = (pf * g).sum().reshape(rms.shape)
-                at_size_step = step % period == period - 1
+                scale_grads[step % period] = pg[i].reshape(rms.shape)
                 if at_size_step:
-                    rms.copy_(pf.square().mean().sqrt().reshape(rms.shape))
+                    rms.copy_(rms_now[i].reshape(rms.shape))
                     beta2c = beta2 ** period
                     sesq.copy_(sesq * beta2c + (1 - beta2c)
                                * scale_grads.square().mean(dim=0))
@@ -184,7 +252,7 @@ class ScaledAdam:
 
 # ----------------------------------------------------------------------- Eve
 
-class Eve:
+class Eve(_Sharded):
     """Eve: AdamW whose weight decay applies only while a tensor's RMS
     exceeds ``target_rms``; scalars are never decayed. State:
     ``(step, leaves)``, ``leaves`` a tree of ``(exp_avg, exp_avg_sq)``."""
@@ -208,16 +276,22 @@ class Eve:
         bc1 = F32(1.0) - F32(beta1) ** F32(step)
         bc2 = F32(1.0) - F32(beta2) ** F32(step)
         ss = tree_leaves(leaves)
-        for p, g, exp_avg, exp_avg_sq in zip(tree_leaves(params), tree_leaves(grads),
-                                             ss[0::2], ss[1::2]):
+        ps = tree_leaves(params)
+        norms, sharded = self._whole(
+            ps, lambda p: torch.linalg.vector_norm(p.detach().float()),
+            lambda p: p.detach().float().square().sum())
+        norms = [n.sqrt() if sh else n for n, sh in zip(norms, sharded)]
+        numel = self._numel(ps)
+        for i, (p, g, exp_avg, exp_avg_sq) in enumerate(zip(
+                ps, tree_leaves(grads), ss[0::2], ss[1::2])):
             g = g.float()
             pf = p.detach().float()
             exp_avg.copy_(exp_avg * beta1 + (1 - beta1) * g)
             exp_avg_sq.copy_(exp_avg_sq * beta2 + (1 - beta2) * g * g)
             denom = torch.sqrt(exp_avg_sq) * float(bc2 ** F32(-0.5)) + self.eps
             new_p = pf
-            if p.numel() > 1:
-                above = torch.linalg.vector_norm(pf) > self.target_rms * p.numel() ** 0.5
+            if numel[i] > 1:
+                above = norms[i] > self.target_rms * numel[i] ** 0.5
                 new_p = new_p * (1 - self.weight_decay * above.float())
             new_p = new_p - float(lr / bc1) * exp_avg / denom
             with torch.no_grad():
@@ -227,7 +301,7 @@ class Eve:
 
 # --------------------------------------------------------------------- AdamW
 
-class AdamW:
+class AdamW(_Sharded):
     """``optax.chain(clip_by_global_norm(clip), adamw(schedule, b1=0.9,
     b2=0.999, eps=1e-8, weight_decay))``. State:
     ``((), ((count, mu, nu), (), (schedule_count,)))``, the optax chain's
@@ -248,7 +322,8 @@ class AdamW:
         b1, b2 = self.b1, self.b2
         (count, mu, nu), _, (sched_count,) = state[1]
         gs = [g.float() for g in tree_leaves(grads)]
-        g_norm = torch.sqrt(sum(g.square().sum() for g in gs))
+        g_norm = torch.sqrt(sum(self._sum([g.square().sum() for g in gs],
+                                          len(gs))))
         max_norm = self.cfg.gradient_clip_val
         gs = [torch.where(g_norm < max_norm, g, (g / g_norm) * max_norm) for g in gs]
         n = int(count) + 1

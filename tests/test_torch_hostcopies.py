@@ -21,6 +21,7 @@ config classes instead of the reference's.
 
 import dataclasses
 import importlib
+import inspect
 import json
 import re
 import subprocess
@@ -422,8 +423,12 @@ def test_port_modules_are_the_ports_own():
     assert tpretrained.save_bundle is tckpt.save_bundle
     assert tpretrained.save_step_checkpoint is tckpt.save_step_checkpoint
     assert ttrainer.DeadlockDetect is twatchdog.DeadlockDetect
-    assert not hasattr(tckpt, "save_sharded") and not hasattr(tpatterns,
-                                                              "revert_delay_jnp")
+    # the sharded pair is the port's own (torch.distributed.checkpoint),
+    # not a copy of the orbax one
+    assert tckpt.save_sharded.__module__ == tckpt.load_sharded.__module__ \
+        == tckpt.__name__
+    assert "import orbax" not in inspect.getsource(tckpt)
+    assert not hasattr(tpatterns, "revert_delay_jnp")
 
 
 # ------------------------------------------- the codec trainer's host copies
