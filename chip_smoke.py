@@ -53,7 +53,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    launch per layer, aggregate RTF printed; and ``inference_multi`` over
    three jobs (the edit, a two-span mask, a shorter text: 6 rows with ragged
    text and prefix lengths) twice, bit for bit, one prefill launch per layer
-   per call, at the layout K1 was held at in step 3.
+   per call, at the layout K1 was held at in step 3. Every decode loop on
+   this card replays CUDA graphs (``inference/graphs.py``). Then the
+   continuous server, the streaming server and the HTTP server, and
+   ``[graph]``: the edit (2 rows), batch-8 (16 rows), continuous-6 (4
+   lanes) and stream-3 once through the eager loop and twice through the
+   graphs, every step's logits recorded on the device and held between the
+   two (``[decode vs cpu]``'s rule), the second graph run capturing
+   nothing; ms a step, request wall, LM-only RTF, captures and capture ms,
+   the graph pool's bytes, and from ``torch.profiler`` launches, device
+   operations, device ms and busy ms a step of each.
 5. Training: over the seeded synthetic corpus (600 utterances of 2-20 s),
    drive ``ssr_speech_tpu_torch.train_lm.main`` on the e830M geometry with
    the flash and fused-CE kernels, ScaledAdam, the CLI's dropouts and its
@@ -132,6 +141,7 @@ kernels against their plain versions without the main paths.
 
 from __future__ import annotations
 
+import functools
 import gc
 import importlib
 import json
@@ -943,7 +953,7 @@ def check_paged_step(torch, device, main: dict) -> dict:
     for slot in range(S):
         srv._fill_slot(slot, slot, xa, codes, ma)
     srv._run_chunk(g)  # stops early if the chains finish first
-    g = srv.state.steps
+    g = int(srv.state.steps)
     if g < 1 or not bool((srv.state.gen_len == g).all()):
         raise RuntimeError(f"paged-step check: after {g} steps the lanes sit "
                            f"at columns {srv.state.gen_len.tolist()}")
@@ -1261,6 +1271,330 @@ def drive_http_path(torch, device, main: dict, stream: dict, card: str) -> dict:
                            f"expected {len(reqs) * cfg.num_layers} from the "
                            "engine thread alone")
     return dict(launches=launches)
+
+
+# ------------------------------------------------------------ decode graphs
+
+GRAPH_PROFILE_STEPS = 32  # steps a profile reads: 4 replays of a graph
+# host calls that put work on the card: what "launches" counts
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def _union_ns(intervals) -> int:
+    total, end = 0, -1
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def launch_profile(torch, run) -> dict:
+    """``run()`` (returning the decode steps it took) under
+    ``torch.profiler`` with the device activity only (CUPTI also records
+    the host's launch calls then): host launches a step (kernels, graph
+    launches, copies; graph launches and copies apart), device operations
+    a step, device ms a step and device busy ms a step (the union of their
+    intervals), over the whole call. Read from the raw events: the
+    profiler's function events cost seconds a hundred thousand."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps = run()
+        torch.cuda.synchronize()
+    calls, spans = Counter(), []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif e.name() in LAUNCH_CALLS:
+            calls[e.name()] += 1
+    if not spans or not calls:
+        raise RuntimeError(f"the profile holds {len(spans)} device events and "
+                           f"{sum(calls.values())} launch calls: is CUPTI "
+                           f"tracing?")
+    return dict(steps=steps,
+                launches_per_step=sum(calls.values()) / steps,
+                graph_launches_per_step=calls["cudaGraphLaunch"] / steps,
+                copies_per_step=calls["cudaMemcpyAsync"] / steps,
+                device_ops_per_step=len(spans) / steps,
+                device_ms_per_step=sum(b - a for a, b in spans) / steps / 1e6,
+                busy_ms_per_step=_union_ns(spans) / steps / 1e6)
+
+
+def _graph_paths(torch, device, main: dict, stream: dict):
+    """The four paths of ``[graph]`` on one 830M model: (name, rows, run,
+    profile). ``run(cuda_graphs, stats)`` serves the path's requests and
+    returns (codes per output, generated frames, the loops it ran);
+    ``profile(cuda_graphs)`` sets up a decode of ``GRAPH_PROFILE_STEPS``
+    steps (the graph path's captures made) and returns the call to profile,
+    which returns the steps it took: the edit's or batch's decode with its
+    cap at that many steps, or one chunk of a server with its lanes
+    filled."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.data.tokenizer import tokenize_audio
+    from ssr_speech_tpu_torch.inference import decode, graphs, serve
+    from ssr_speech_tpu_torch.inference import stream as tstream
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.ops import patterns
+
+    inputs = main["inputs"]
+    lm, cfg, _ = pretrained.load_lm(inputs["lm"], device)
+    y = tokenize_audio(pretrained.load_codec(inputs["codec"], device),
+                       inputs["wav"])[0][0]
+    x, _, mask = serve_prompts(cfg, (EDIT_TARGET,))[0]
+    edit_dec = DecodeConfig(top_k=1, aug_text=True, cfg_pretrained=True,
+                            cfg_stride=5)  # the CLI's edit flags
+    srv_dec = DecodeConfig(top_k=1, cfg_pretrained=True)  # SERVE_FLAGS
+    srv_reqs = [(xs, y, m) for xs, _, m in serve_prompts(cfg)]
+    sx, P, nt = serve.serve_geometry(cfg, srv_dec, srv_reqs)
+    audio_tok = pretrained.load_codec(stream["causal"], device)
+    tts = stream["requests"]
+    tts_dec = DecodeConfig(top_k=1, aug_text=True, cfg_pretrained=True,
+                           stop_repetition=-1)  # STREAM_FLAGS, as http serves
+    tts_geom = dict(
+        sx_pad=decode._bucket(max(len(t) for t, _ in tts), 64),
+        p_pad=decode._bucket(max(patterns.build_inference_prefix(
+            c, [(c.shape[1], c.shape[1])], cfg.tokens)[0].shape[1]
+            for _, c in tts), 128))
+    gen = lambda: torch.Generator(device=device).manual_seed(1)  # noqa: E731
+    kept = lambda: [ws.loop for ws in graphs.kept()]  # noqa: E731
+    state = {}
+
+    def frames(results):
+        return sum(r[0].shape[-1] for r in results)
+
+    def edit(use, st):
+        out = decode.generate(lm, cfg, edit_dec, x, y, mask, gen(), stats=st,
+                              cuda_graphs=use)
+        return [out[0]], st["out_tokens"].shape[-1], kept()
+
+    def batch(use, st):
+        outs = decode.generate_batch(lm, cfg, edit_dec, x, y, mask, gen(),
+                                     BATCH, stats=st, cuda_graphs=use)
+        return [o[0] for o in outs], frames(outs), kept()
+
+    def continuous(use, st):
+        if state.get("srv_use") != use:
+            state["srv"] = serve.ContinuousBatcher(
+                lm, cfg, srv_dec, SERVE_SLOTS, sx_pad=sx, p_pad=P,
+                num_task=nt, cuda_graphs=use)
+            state["srv_use"] = use
+        outs = state["srv"].run(srv_reqs, gen(), stats=st)
+        return [o[0] for o in outs], frames(outs), [state["srv"]._loop]
+
+    def streamed(use, st):
+        if state.get("tts_use") != use:
+            state["tts"] = tstream.StreamingServer(
+                lm, cfg, tts_dec, audio_tok.params, audio_tok.cfg, len(tts),
+                cuda_graphs=use, **tts_geom)
+            state["tts_use"] = use
+        server = state["tts"]
+        server._server.stats = st
+        try:
+            results, first_at, _ = server.run_online(
+                tts, [0.0] * len(tts), generator=gen())
+        finally:
+            server._server.stats = None
+        st["first_audio_s"] = first_at
+        return ([r[0] for r in results], sum(r[0].shape[1] for r in results),
+                [server._server._loop])
+
+    def chain_profile(kind):  # the prefill made once, outside the profile
+        p = decode._one_prompt(lm, cfg, edit_dec, x, y, mask, gen(), None,
+                               None, None, "graph")
+        if kind == "single":
+            tmax = decode._bucket(p["sx_pad"] + p["p_pad"] + p["cap_total"]
+                                  + p["num_task"] + 8, decode.TMAX_BUCKET)
+        else:
+            tmax = decode._bucket(p["sx_pad"] + p["p_pad"] + 8, 256)
+        dtype = lm["decoder"]["layers"]["qkv_w"].dtype
+        cache, banned = decode._prefill_impl(
+            lm, p["xb"], p["prefix"], p["x_len"], p["p_len"], cfg=cfg,
+            tmax=tmax, dtype=dtype, cfg_pretrained=True, aug_text=True)
+        kw = dict(cfg=cfg, dec=edit_dec, num_task=p["num_task"],
+                  cap_total=GRAPH_PROFILE_STEPS, aug_text=True, dtype=dtype)
+
+        def setup(use):
+            go = functools.partial(run, use)
+            if use:
+                go()  # the captures
+            return go
+
+        def run(use):
+            st = {}
+            if kind == "single":
+                decode._generate_impl(lm, cache, banned, gen(), p["sentinels"],
+                                      p["x_len"], p["p_len"], stats=st,
+                                      cuda_graphs=use, **kw)
+            else:
+                decode._generate_batched_impl(
+                    lm, cache, banned, gen(), p["sentinels"], p["x_len"],
+                    p["p_len"], n_samples=BATCH, stats=st, cuda_graphs=use,
+                    **kw)
+            return st["decode_steps"]
+        return setup
+
+    def chunk_profile(make, reqs):
+        def setup(use):
+            srv = make(use)
+            for slot, (xs, ys, m) in enumerate(reqs[:srv.S]):
+                srv._fill_slot(slot, slot, xs, ys, m)
+            srv._run_chunk(graphs.UNROLL)  # the graph path: its capture
+
+            def go():
+                srv.stats = {}
+                srv._run_chunk(GRAPH_PROFILE_STEPS)
+                steps, srv.stats = srv.stats["decode_steps"], None
+                return steps
+            return go
+        return setup
+
+    return [
+        ("edit", 2, edit, chain_profile("single")),
+        (f"batch-{BATCH}", 2 * BATCH, batch, chain_profile("shared")),
+        (f"continuous-{len(srv_reqs)}", 2 * SERVE_SLOTS, continuous,
+         chunk_profile(lambda use: serve.ContinuousBatcher(
+             lm, cfg, srv_dec, SERVE_SLOTS, sx_pad=sx, p_pad=P, num_task=nt,
+             cuda_graphs=use), srv_reqs)),
+        (f"stream-{len(tts)}", 2 * len(tts), streamed,
+         chunk_profile(lambda use: serve.ContinuousBatcher(
+             lm, cfg, tts_dec, len(tts), num_task=1, cuda_graphs=use,
+             **tts_geom), [(t, c, [(c.shape[1], c.shape[1])])
+                           for t, c in tts])),
+    ]
+
+
+def drive_graph_path(torch, device, main: dict, stream: dict,
+                     card: str) -> dict:
+    """``[graph]``: the edit (2 rows), batch-8 (16 rows), continuous-6 (6
+    edits through 4 lanes) and stream-3 (3 TTS clients) at the e830M width,
+    each through the eager loop (``cuda_graphs=False``: the same body,
+    dispatched op by op) and through its CUDA graphs, greedy. Gates: every
+    step's logits, recorded on the device (``LogitTrace``), held between
+    the two under ``[decode vs cpu]``'s rule (``compare_traces``) and the
+    codes identical where no tie parts them; the graph path ran through
+    graphs (captured, then replayed), and a second run over the same
+    workspace or server captured nothing new and gave the same codes.
+    Prints, beside the card: ms a step and request wall of each (the
+    graph's first run with its captures and capture ms), the LM-only RTF
+    (output frames at 50 Hz over the request wall), the graph pool's bytes,
+    and from ``launch_profile`` over ``GRAPH_PROFILE_STEPS`` steps of each
+    (after the graph path's captures) host launches, device operations,
+    device ms and busy ms a step."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    fa.reset_launches()  # count only this path's launches
+    report = {}
+    for name, rows, run, profile_run in _graph_paths(torch, device, main,
+                                                     stream):
+        res = {}
+        for use in (False, True):
+            graphs.clear()
+            runs = []
+            with LogitTrace(torch, rows=2048) as trace:
+                for rep in range(2 if use else 1):
+                    if trace.n is not None:
+                        trace.n.zero_()
+                    st = {}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    codes, n_frames, loops = run(use, st)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    runs.append(dict(
+                        codes=codes, wall=wall, frames=n_frames,
+                        steps=st["decode_steps"],
+                        ms_step=st["decode_s"] / st["decode_steps"] * 1e3,
+                        logits=trace.steps(),
+                        captures=sum(lp.captures for lp in loops),
+                        capture_ms=sum(lp.capture_s for lp in loops) * 1e3,
+                        replays=sum(lp.replays for lp in loops),
+                        pool=sum(lp.pool_bytes() for lp in loops),
+                        used=all(lp.use_graphs == use for lp in loops)
+                        and bool(loops),
+                        first_audio=st.get("first_audio_s")))
+            graphs.clear()  # the graphs hold the trace's buffer
+            res[use] = runs
+        eager, first, again = res[False][0], res[True][0], res[True][1]
+        held = compare_traces(torch, eager["logits"], first["logits"],
+                              f"[graph] {name}")
+        if held["first_tie"] is None and not all(
+                np.array_equal(a, b) for a, b in zip(eager["codes"],
+                                                     first["codes"])):
+            raise RuntimeError(f"[graph] {name}: codes differ with no "
+                               f"differing step")
+        if not (eager["used"] and first["used"] and first["captures"] >= 1
+                and again["captures"] == first["captures"]
+                and again["replays"] > first["replays"]):
+            raise RuntimeError(f"[graph] {name}: the loops' captures and "
+                               f"replays {[(r['captures'], r['replays']) for r in res[True]]}"
+                               f" (eager path {eager['used']})")
+        if not (torch.equal(again["logits"], first["logits"]) and all(
+                np.array_equal(a, b) for a, b in zip(again["codes"],
+                                                     first["codes"]))):
+            raise RuntimeError(f"[graph] {name}: the second graph run differs "
+                               f"from the first")
+        prof = {}
+        for use in (False, True):
+            graphs.clear()
+            prof[use] = launch_profile(torch, profile_run(use))
+            graphs.clear()
+        if prof[True]["graph_launches_per_step"] <= 0:
+            raise RuntimeError(f"[graph] {name}: no graph launch in the "
+                               f"graph path's profile")
+        rtf = lambda r: r["frames"] / 50.0 / r["wall"]  # noqa: E731
+        print(f"[graph] {name} ({rows} rows): ms a step eager "
+              f"{eager['ms_step']:.3f}, graph {again['ms_step']:.3f} (first "
+              f"request {first['ms_step']:.3f} with {first['captures']} "
+              f"captures in {first['capture_ms']:.1f} ms); {again['steps']} "
+              f"steps; request wall eager {eager['wall']:.3f} s, graph "
+              f"{again['wall']:.3f} s (first {first['wall']:.3f}); LM-only "
+              f"RTF eager {rtf(eager):.3f}x, graph {rtf(again):.3f}x; graph "
+              f"pool {first['pool'] / 2 ** 20:.1f} MiB; codes held "
+              f"{held['held']} steps"
+              + (f", first tie {held['first_tie']}" if held["first_tie"]
+                 else " (no tie)")
+              + f", worst logit error {held['max_logit_err']:.3e}"
+              + (f"; first audio eager {[round(t, 3) for t in eager['first_audio']]}"
+                 f" s, graph {[round(t, 3) for t in again['first_audio']]} s"
+                 if eager["first_audio"] else "") + f" [{card}]")
+        for use in (False, True):
+            p = prof[use]
+            print(f"[graph] {name} {'graph' if use else 'eager'} profile "
+                  f"({p['steps']} steps): {p['launches_per_step']:.2f} "
+                  f"launches a step ({p['graph_launches_per_step']:.3f} graph "
+                  f"launches, {p['copies_per_step']:.3f} copies), "
+                  f"{p['device_ops_per_step']:.0f} device operations, "
+                  f"{p['device_ms_per_step']:.3f} device ms and "
+                  f"{p['busy_ms_per_step']:.3f} busy ms a step; busy share of "
+                  f"the unprofiled step "
+                  f"{p['busy_ms_per_step'] / (again if use else eager)['ms_step']:.1%}")
+        report[name] = dict(
+            rows=rows, steps=again["steps"],
+            ms_per_step={"eager": eager["ms_step"], "graph": again["ms_step"],
+                         "graph_first": first["ms_step"]},
+            request_s={"eager": eager["wall"], "graph": again["wall"],
+                       "graph_first": first["wall"]},
+            lm_rtf={"eager": rtf(eager), "graph": rtf(again)},
+            captures=first["captures"], capture_ms=first["capture_ms"],
+            pool_bytes=first["pool"], held=held["held"],
+            first_tie=held["first_tie"],
+            max_logit_err=held["max_logit_err"],
+            profile={"eager": prof[False], "graph": prof[True]})
+    print(f"[graph] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return dict(paths=report, launches=fa.launches)
 
 
 def check_small_reference(torch, device) -> None:
@@ -2444,21 +2778,97 @@ class _StopDecode(Exception):
     pass
 
 
+class LogitTrace:
+    """The logits each decode step samples from (the argument of
+    ``decode.top_k_top_p_filter``), written on the device into row ``n`` of
+    a buffer, ``n`` a device counter: a CUDA graph replays the write as the
+    eager body makes it (a copy to the host would not be captured). Every
+    step the body takes is recorded, the no-op steps past a loop's end
+    too. Installed over the module's filter for a ``with`` block; a graph
+    captured inside it records into this buffer, so its workspace is dropped
+    before the trace (``graphs.clear()``, or the server that owns it)."""
+
+    def __init__(self, torch, rows: int = 1024):
+        self.torch, self.rows = torch, rows
+        self.buf = self.n = None
+
+    def __enter__(self):
+        from ssr_speech_tpu_torch.inference import decode
+
+        self._decode, self._real = decode, decode.top_k_top_p_filter
+        decode.top_k_top_p_filter = self
+        return self
+
+    def __exit__(self, *exc):
+        self._decode.top_k_top_p_filter = self._real
+
+    def __call__(self, lgt, **kw):
+        torch = self.torch
+        if self.buf is None:
+            self.buf = torch.zeros((self.rows,) + tuple(lgt.shape),
+                                   dtype=torch.float32, device=lgt.device)
+            self.n = torch.zeros(1, dtype=torch.int64, device=lgt.device)
+        self.buf.index_copy_(0, self.n.clamp(max=self.rows - 1),
+                             lgt.float()[None])
+        self.n.add_(1)
+        return self._real(lgt, **kw)
+
+    def steps(self):
+        """The recorded steps' logits [n, ...] on the host."""
+        n = int(self.n.item())
+        if n > self.rows:
+            raise RuntimeError(f"logit trace: {n} steps > its {self.rows} rows")
+        return self.buf[:n].cpu()
+
+
+def compare_traces(torch, want, got, label: str) -> dict:
+    """Greedy decodes held step by step, ``[decode vs cpu]``'s rule: the
+    argmax of every row and codebook the same up to the first step where
+    one differs, and there ``want``'s top two of that codebook within twice
+    the step's logit error (max |got - want| over the step); a difference
+    outside such a tie fails. Both traces must have as many steps unless a
+    tie ends the comparison. Returns the steps held, the first tie and the
+    worst logit error."""
+    worst, n = 0.0, min(len(want), len(got))
+    for i in range(n):
+        err = (want[i] - got[i]).abs().max().item()
+        worst = max(worst, err)
+        a, b = want[i].argmax(-1), got[i].argmax(-1)
+        if torch.equal(a, b):
+            continue
+        ties = []
+        for idx in torch.nonzero(a != b).tolist():
+            top2 = torch.topk(want[i][tuple(idx)], 2).values
+            gap = (top2[0] - top2[1]).item()
+            if gap > 2 * err:
+                raise RuntimeError(
+                    f"{label}: step {i}, row/codebook {idx}: {int(a[tuple(idx)])}"
+                    f" against {int(b[tuple(idx)])}, the top two {gap:.3e} "
+                    f"apart, beyond twice the step's logit error {err:.3e}")
+            ties.append(dict(step=i, at=idx, gap=gap, err=err))
+        return dict(held=i, first_tie=ties[0], max_logit_err=worst)
+    if len(want) != len(got):
+        raise RuntimeError(f"{label}: {len(want)} steps against {len(got)} "
+                           f"with no differing token")
+    return dict(held=n, first_tie=None, max_logit_err=worst)
+
+
 def drive_decode_vs_cpu(torch, device, main: dict, card: str) -> dict:
     """The edit request's decode loop (capped at ``LIFECYCLE_GEN_CAP``
     frames), greedy in fp32, on the card and on the CPU from the same fp32
     prefill (on the CPU: K1 takes bf16 only, and the
     card's prefill is held to the CPU's in ``[reference]``), the 830M
-    bundle's weights. Each step's logits (after the constraint masks, as
-    sampling reads them) are recorded on the card; the CPU run compares
-    each of its steps as it goes. The codes must be the same up to the
+    bundle's weights. The card's loop replays its CUDA graphs, and each
+    step's logits (after the constraint masks, as sampling reads them) are
+    recorded on the device (``LogitTrace``); the CPU run, the same body
+    eagerly, compares each of its steps as it goes. The codes must be the same up to the
     first step where a codebook's argmax differs, and there the card's top
     two logits of that codebook must lie within twice the step's measured
     logit error (max |card - CPU| over the step's logits); a difference
     outside such a tie fails. Prints the steps held and the first tie."""
     from ssr_speech_tpu_torch.config import DecodeConfig
     from ssr_speech_tpu_torch.data.tokenizer import tokenize_audio
-    from ssr_speech_tpu_torch.inference import decode
+    from ssr_speech_tpu_torch.inference import decode, graphs
     from ssr_speech_tpu_torch.models import pretrained
     from ssr_speech_tpu_torch.models import transformer as trf
     from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
@@ -2488,10 +2898,6 @@ def drive_decode_vs_cpu(torch, device, main: dict, card: str) -> dict:
     real_filter = decode.top_k_top_p_filter
     card_steps, state = [], dict(step=0, held=0, tie=None, err=0.0)
 
-    def record(lgt, **kw):
-        card_steps.append(lgt[0].float().cpu())
-        return real_filter(lgt, **kw)
-
     def compare(lgt, **kw):
         i = state["step"]
         got = lgt[0].float()
@@ -2519,13 +2925,19 @@ def drive_decode_vs_cpu(torch, device, main: dict, card: str) -> dict:
         return real_filter(lgt, **kw)
 
     runs = {}
+    trace = LogitTrace(torch)
     try:
-        for name, dev, hook in (("cuda", device, record), ("cpu", cpu, compare)):
-            decode.top_k_top_p_filter = hook
+        for name, dev in (("cuda", device), ("cpu", cpu)):
             c = trf.KVCache(cache.k.to(dev), cache.v.to(dev), cache.length)
             st = {}
             t0 = time.perf_counter()
             try:
+                # the card's loop replays its graphs, each step's logits
+                # recorded on the device; the CPU's compares as it goes
+                if name == "cuda":
+                    trace.__enter__()
+                else:
+                    decode.top_k_top_p_filter = compare
                 out = decode._generate_impl(
                     lms[name], c, banned.to(dev),
                     torch.Generator(device=dev).manual_seed(1),
@@ -2535,7 +2947,17 @@ def drive_decode_vs_cpu(torch, device, main: dict, card: str) -> dict:
                 runs[name] = (out[0].cpu(), int(out[2]), st["decode_steps"])
             except _StopDecode:
                 runs[name] = None
+            finally:
+                decode.top_k_top_p_filter = real_filter
             runs[name + "_s"] = time.perf_counter() - t0
+            if name == "cuda":
+                card_steps.extend(trace.steps()[:, 0])
+                loop = next(ws.loop for ws in graphs.kept()
+                            if ws.pfx.k.device.type == "cuda")
+                if not loop.use_graphs or loop.replays + loop.captures == 0:
+                    raise RuntimeError("decode vs cpu: the card's loop did "
+                                       "not run through its graphs")
+                graphs.clear()  # its graphs hold the trace's buffer
             del c
     finally:
         decode.top_k_top_p_filter = real_filter
@@ -2549,7 +2971,8 @@ def drive_decode_vs_cpu(torch, device, main: dict, card: str) -> dict:
                                "differing step")
     tie = state["tie"]
     print(f"[decode vs cpu] 830M edit, greedy fp32 (TF32 off), from the CPU's "
-          f"fp32 prefill ({t_prefill:.1f} s): the card ran {n_card} steps in "
+          f"fp32 prefill ({t_prefill:.1f} s): the card ran {n_card} steps "
+          f"through its CUDA graphs in "
           f"{runs['cuda_s']:.2f} s, the CPU {state['held']} in "
           f"{runs['cpu_s']:.1f} s; codes identical for {state['held']} steps"
           + (f", then the first tie at step {tie['step']} (codebook "
@@ -2901,9 +3324,14 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     del kept
     prompt = _edit_prompt(torch, device, serving)
     lm, lcfg, _ = load_lm(serving["inputs"]["lm"], device)
-    logits = []
-    codes = _decode_with_logits(torch, lm, lcfg, prompt, device,
-                                lambda i, lg: logits.append(lg.cpu()))[0]
+    # one rank's loop replays its CUDA graphs: the logits recorded on the
+    # device, every step the ranks' eager loops take (no-op steps too)
+    with LogitTrace(torch) as trace:
+        codes = _decode_with_logits(torch, lm, lcfg, prompt, device,
+                                    lambda i, lg: None)[0]
+        logits = list(trace.steps()[:, 0])
+    from ssr_speech_tpu_torch.inference import graphs
+    graphs.clear()  # its graphs hold the trace's buffer
     torch.save(dict(logits=logits, codes=torch.from_numpy(np.asarray(codes))),
                d / "decode_ref.pt")
     del lm
@@ -3625,6 +4053,9 @@ def main() -> int:
         http_path = drive_http_path(torch, device, serving, tts_stream, card)
         gc.collect()
         torch.cuda.empty_cache()
+        graph = drive_graph_path(torch, device, serving, tts_stream, card)
+        gc.collect()
+        torch.cuda.empty_cache()
         training = drive_training_path(
             torch, device, argv, card,
             (batch["x"].shape[0], batch["x"].shape[1], batch["y"].shape[1]))
@@ -3675,6 +4106,7 @@ def main() -> int:
                                "continuous": continuous["launches"],
                                "stream": tts_stream["launches"],
                                "http": http_path["launches"],
+                               "graph": graph["launches"],
                                "training": training[fwd["name"]],
                                "prep_training": prep_run["launches"],
                                "remat": remat["launches"],
@@ -3699,6 +4131,7 @@ def main() -> int:
     print(json.dumps({"codec_train": codec_train}))
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"graph": graph["paths"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

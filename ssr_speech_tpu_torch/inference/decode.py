@@ -17,17 +17,25 @@ the flash kernel over rows with ragged text and prefix lengths, each with its
 own segment ids.
 
 JAX runs each loop as one compiled ``lax.while_loop`` over a telescoping
-cache; here it is a host loop over a cache preallocated at its full size (the
-same math: keys beyond the fill point are never attended). Frozen chains stay
-frozen, so the host tests ``done`` only every ``DONE_CHECK_EVERY`` steps.
-JAX clamps out-of-range gathers and drops out-of-range scatters where torch
+cache. Here each loop is a host loop over a body of ``graphs.UNROLL`` steps
+on the static buffers of a :class:`DecodeWorkspace` (the caches at their
+full size, the chain state, a step counter): the body evaluates JAX's loop
+condition on the device before every step and gates the step with it, so a
+step past the loop's end is a no-op, and it reads the caches through stage
+windows (``models.transformer.cache_stage_sizes``; the keys past the fill
+are masked, the same math). On one CUDA rank the body is captured as a CUDA
+graph per window and replayed (``inference/graphs.py``), with one host read
+of the loop's flag a replay; elsewhere, the CPU included, it runs eagerly.
+The prefill stays eager and writes into the workspace's cache. JAX clamps out-of-range gathers and drops out-of-range scatters where torch
 raises (a device-side assert on CUDA), so every such index is clamped here
 explicitly.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import threading
 import time
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -41,10 +49,10 @@ from ..ops import patterns
 from ..models import ssr as ssr_model
 from ..models import transformer as trf
 from ..ops.sampling import categorical, top_k_top_p_filter
+from . import graphs
 
 NEG = -10000.0
 POS = 10000.0
-DONE_CHECK_EVERY = 8  # host syncs on `done` once per this many steps
 # the prefill's text block, prefix block and cache are padded to these
 # multiples, as the JAX package pads them; the padding is banned (text) or
 # overwritten by the decode (prefix, cache) and never changes the output
@@ -62,9 +70,9 @@ def _bucket(n: int, m: int) -> int:
 @dataclass
 class ChainState:
     """Per-chain decode state ([S]-leading tensors). ``y_pos``, the audio
-    position of the token fed this step, is a host integer on the single
-    path and an [S] tensor on the device on the batched and multi-prompt
-    paths (each multi-prompt chain has its own)."""
+    position of the token fed this step, is an [S] tensor on the device
+    (each multi-prompt chain has its own; ``_advance_chains`` also takes a
+    host int)."""
 
     y_pos: Union[int, torch.Tensor]
     next_tokens: torch.Tensor  # [S, K] token to feed this step
@@ -92,7 +100,8 @@ def _init_chain_state(y_pos0, sentinel_ids: torch.Tensor, S: int, K: int,
     dev = sentinel_ids.device
     i32 = dict(dtype=torch.int64, device=dev)
     return ChainState(
-        y_pos=y_pos0 if isinstance(y_pos0, torch.Tensor) else int(y_pos0),
+        y_pos=(y_pos0.clone() if isinstance(y_pos0, torch.Tensor)
+               else torch.full((S,), int(y_pos0), **i32)),
         next_tokens=sentinel_ids[0].expand(S, K).clone(),
         out=torch.full((S, K, cap_total), ts.empty, **i32),
         out_len=torch.zeros(S, **i32),
@@ -145,14 +154,19 @@ def _advance_chains(s: ChainState, lg: torch.Tensor,
                     generator: torch.Generator, num_cfg: torch.Tensor, *, ts,
                     dec: DecodeConfig, num_task: int, length_cap, n_tasks,
                     sentinel_ids: torch.Tensor, static_ban: torch.Tensor,
-                    silence: torch.Tensor) -> ChainState:
+                    silence: torch.Tensor,
+                    go: Optional[torch.Tensor] = None) -> ChainState:
     """One step of per-chain constrained-sampling bookkeeping on the
     CFG-mixed logits ``lg`` [S, K, card]. ``length_cap`` and ``n_tasks`` are
     ints or [S] tensors (multi-prompt chains each have their own), as
     ``s.y_pos`` is. ``s.out`` is updated in place; frozen (done) chains keep
-    every field."""
+    every field. ``go`` ([1] bool on the device) is the loop's condition
+    before this step: where it is false every chain is frozen and ``y_pos``
+    stays, so the step is a no-op on the state, as the step JAX's loop
+    would not take."""
     S, K, card = lg.shape
     dev = lg.device
+    frozen = s.done if go is None else s.done | ~go
     rows = torch.arange(K, device=dev)[None, :, None]
     cols = torch.arange(card, device=dev)[None, None, :]
     srow = torch.arange(S, device=dev)
@@ -203,7 +217,7 @@ def _advance_chains(s: ChainState, lg: torch.Tensor,
                                      torch.zeros_like(s.consec_silence)))
     prev = torch.where(in_c1, s.prev_token, s0)
 
-    active = ~s.done
+    active = ~frozen
     cap = s.out.shape[2]
     # a frozen chain may sit at out_len == cap: JAX drops that write, here the
     # column is clamped and the (unchanged) current value written back
@@ -227,19 +241,254 @@ def _advance_chains(s: ChainState, lg: torch.Tensor,
     zero = torch.zeros_like(num_gen)
     num_gen = torch.where(span_done, zero, num_gen)
     num_eog = torch.where(span_done, zero, num_eog)
-    num_eog = torch.where(s.done, s.num_eog, num_eog)
+    num_eog = torch.where(frozen, s.num_eog, num_eog)
     prev = torch.where(span_done, torch.full_like(prev, -1),
-                       torch.where(s.done, s.prev_token, prev))
+                       torch.where(frozen, s.prev_token, prev))
     consec = torch.where(span_done, zero,
-                         torch.where(s.done, s.consec_silence, consec))
+                         torch.where(frozen, s.consec_silence, consec))
     num_cfg = torch.where(span_done, torch.ones_like(num_cfg),
-                          torch.where(s.done, s.num_cfg, num_cfg))
-    next_tokens = torch.where(s.done[:, None], s.next_tokens, next_tokens)
+                          torch.where(frozen, s.num_cfg, num_cfg))
+    next_tokens = torch.where(frozen[:, None], s.next_tokens, next_tokens)
     return ChainState(
-        y_pos=s.y_pos + 1, next_tokens=next_tokens, out=s.out, out_len=out_len,
+        y_pos=s.y_pos + (1 if go is None else go.long()),
+        next_tokens=next_tokens, out=s.out, out_len=out_len,
         span_idx=span_idx, span_end=span_end, num_gen=num_gen,
         num_eog=num_eog, prev_token=prev, consec_silence=consec,
         num_cfg=num_cfg, done=done)
+
+
+_BODY_FIELDS = ("top_k", "top_p", "temperature", "stop_repetition",
+                "silence_tokens", "cfg_coef", "cfg_stride", "aug_text",
+                "max_gen_per_span")
+
+
+def body_key(dec: DecodeConfig) -> tuple:
+    """The ``DecodeConfig`` fields a decode body is built on (a workspace
+    key part: a graph holds them as constants)."""
+    return tuple(getattr(dec, f) for f in _BODY_FIELDS)
+
+
+def _store_chains(dst: ChainState, src: ChainState) -> None:
+    """Copy ``src``'s per-chain fields into the static buffers of ``dst``
+    (``out`` is written in place by ``_advance_chains`` already)."""
+    for f in dataclasses.fields(ChainState):
+        if f.name != "out":
+            getattr(dst, f.name).copy_(getattr(src, f.name))
+
+
+def _reset_chains(s: ChainState, y_pos0, sentinel_ids: torch.Tensor,
+                  empty: int) -> None:
+    """Start every chain of the static state ``s`` afresh: ``y_pos0`` an int
+    or an [S] tensor, the first sentinel fed, nothing generated."""
+    if isinstance(y_pos0, torch.Tensor):
+        s.y_pos.copy_(y_pos0)
+    else:
+        s.y_pos.fill_(int(y_pos0))
+    s.next_tokens.copy_(sentinel_ids[0].expand_as(s.next_tokens))
+    s.out.fill_(empty)
+    for t in (s.out_len, s.span_idx, s.span_end, s.num_gen, s.num_eog,
+              s.consec_silence):
+        t.zero_()
+    s.prev_token.fill_(-1)
+    s.num_cfg.fill_(1)
+    s.done.fill_(False)
+
+
+class DecodeWorkspace:
+    """The static buffers of one decode bucket and the graphs captured over
+    them (``graphs.GraphLoop``): a prompt cache ``pfx`` (the single path's
+    whole cache), for the shared path a generated cache ``gen``, the chain
+    state, the banned keys, per-chain length caps and span counts, a step
+    counter ``step`` with its host bound ``limit``, the loop's ``flag`` and
+    the constants the body reads. Every tensor a graph reads lives here, so
+    a later request writes its inputs in place and replays the graphs.
+    ``lock`` serialises requests on one workspace."""
+
+    def __init__(self, params, cfg: SSRModelConfig, *, pfx_rows: int,
+                 rows: int, n_chains: int, tmax: int, gen_cap: int,
+                 banned: tuple, num_task: int, cap_total: int, dtype,
+                 silence, use_graphs: bool):
+        dev = params["text_emb"].device
+        par = trf.parallel_of(params)
+        i64 = dict(dtype=torch.int64, device=dev)
+        ts = cfg.tokens
+        self.pfx = trf.init_kv_cache(cfg, pfx_rows, tmax, dtype=dtype,
+                                     device=dev, par=par)
+        self.pfx.length = torch.zeros(1, **i64)
+        self.gen = None
+        if gen_cap:
+            self.gen = trf.init_kv_cache(cfg, rows, gen_cap, dtype=dtype,
+                                         device=dev, par=par)
+            self.gen.length = torch.zeros(1, **i64)
+        shape, bdtype = banned
+        self.banned = torch.zeros(shape, dtype=bdtype, device=dev)
+        self.state = _init_chain_state(
+            torch.zeros(n_chains, **i64),
+            torch.full((1,), ts.mts, **i64), n_chains, cfg.n_codebooks,
+            num_task, ts, cap_total)
+        self.length_cap = torch.zeros(n_chains, **i64)
+        self.n_tasks = torch.zeros(n_chains, **i64)
+        self.sentinels = torch.arange(ts.mts, ts.mts + ts.max_n_spans, **i64)
+        self.step = torch.zeros(1, **i64)
+        self.limit = torch.zeros(1, **i64)
+        self.flag = torch.zeros(1, dtype=torch.bool, device=dev)
+        self.pe = ssr_model.sine_table(cfg.max_position, cfg.d_model,
+                                       device=dev)
+        self.silence = torch.tensor(silence, **i64)
+        self.static_ban = _static_ban(ts, dev)
+        self.layers = trf.layer_params(params["decoder"])
+        self.windows = trf.cache_stage_sizes(gen_cap or tmax)
+        self.loop = graphs.GraphLoop(dev, use_graphs)
+        self.lock = threading.RLock()
+
+    def prefill_cache(self) -> trf.KVCache:
+        """The prompt cache, zeroed, for a prefill to fill from 0."""
+        self.pfx.k.zero_()
+        self.pfx.v.zero_()
+        return trf.KVCache(self.pfx.k, self.pfx.v, 0)
+
+    def load(self, cache: trf.KVCache) -> None:
+        """Take a prefilled prompt cache: copied in unless it is this
+        workspace's own; its fill goes to the device."""
+        if cache.k is not self.pfx.k:
+            self.pfx.k.copy_(cache.k)
+            self.pfx.v.copy_(cache.v)
+        self.pfx.length.fill_(int(cache.length))
+        if self.gen is not None:
+            self.gen.k.zero_()
+            self.gen.v.zero_()
+            self.gen.length.zero_()
+
+    def start(self, key_banned, y_pos0, sentinel_ids, length_cap, n_tasks,
+              limit: int, empty: int) -> None:
+        """A request's inputs into the static buffers."""
+        self.banned.copy_(key_banned)
+        self.sentinels.copy_(sentinel_ids)
+        for buf, val in ((self.length_cap, length_cap),
+                         (self.n_tasks, n_tasks)):
+            if isinstance(val, torch.Tensor):
+                buf.copy_(val)
+            else:
+                buf.fill_(int(val))
+        _reset_chains(self.state, y_pos0, self.sentinels, empty)
+        self.step.zero_()
+        self.limit.fill_(int(limit))
+        self.flag.fill_(True)
+
+
+def _workspace(params, cfg: SSRModelConfig, dec: DecodeConfig, kind: str, *,
+               pfx_rows: int, rows: int, n_chains: int, tmax: int, gen_cap: int,
+               banned: tuple, num_task: int, cap_total: int, dtype,
+               cuda_graphs: bool) -> DecodeWorkspace:
+    """The kept workspace of this bucket (``graphs.workspace``), made on
+    first use."""
+    dev = params["text_emb"].device
+    use = graphs.graphs_wanted(dev, params, cuda_graphs)
+    key = (kind, pfx_rows, rows, n_chains, tmax, gen_cap, banned, num_task,
+           cap_total, body_key(dec), dtype, use)
+    return graphs.workspace(params, key, lambda: DecodeWorkspace(
+        params, cfg, pfx_rows=pfx_rows, rows=rows, n_chains=n_chains,
+        tmax=tmax, gen_cap=gen_cap, banned=banned, num_task=num_task,
+        cap_total=cap_total, dtype=dtype, silence=dec.silence_tokens,
+        use_graphs=use))
+
+
+def single_workspace(params, cfg, dec, *, rows: int, tmax: int,
+                     num_task: int, cap_total: int, dtype,
+                     cuda_graphs: bool = True) -> DecodeWorkspace:
+    """The single path's workspace: one chain, ``rows`` cache rows (2 under
+    CFG), a cache of ``tmax`` positions."""
+    return _workspace(params, cfg, dec, "single", pfx_rows=rows, rows=rows,
+                      n_chains=1, tmax=tmax, gen_cap=0,
+                      banned=((rows, 2), torch.int64),
+                      num_task=num_task, cap_total=cap_total, dtype=dtype,
+                      cuda_graphs=cuda_graphs)
+
+
+def shared_workspace(params, cfg, dec, *, groups: int, n_chains: int,
+                     tmax: int, banned_bool: bool, num_task: int,
+                     cap_total: int, aug_text: bool, dtype,
+                     cuda_graphs: bool = True) -> DecodeWorkspace:
+    """The shared path's workspace: ``groups`` prompt rows of ``tmax``
+    positions, ``n_chains`` chains with their generated caches of
+    ``_bucket(cap_total + 8, 128)`` positions; the banned keys a [G, 2]
+    range, or a [G, tmax] mask (``banned_bool``, the multi-prompt form)."""
+    rows = n_chains * (2 if aug_text else 1)
+    banned = (((groups, tmax), torch.bool) if banned_bool
+              else ((groups, 2), torch.int64))
+    return _workspace(params, cfg, dec, "shared", pfx_rows=groups, rows=rows,
+                      n_chains=n_chains, tmax=tmax,
+                      gen_cap=_bucket(cap_total + 8, 128), banned=banned,
+                      num_task=num_task, cap_total=cap_total, dtype=dtype,
+                      cuda_graphs=cuda_graphs)
+
+
+def _chain_body(params, ws: DecodeWorkspace, *, cfg: SSRModelConfig,
+                dec: DecodeConfig, num_task: int, aug_text: bool, dtype):
+    """The U-step body of the single and shared paths (``ws.gen`` None:
+    the single path). A plain function of the workspace's buffers: before
+    each step the loop condition on the device (``go``: a chain is live and
+    fewer than ``ws.limit`` steps were taken, JAX's loop condition), then
+    the step, its heads, the CFG mix and ``_advance_chains`` gated by
+    ``go``; after ``UNROLL`` steps the state is copied into the buffers and
+    the condition for the next step into ``ws.flag``."""
+    S = ws.state.out.shape[0]
+    ts = cfg.tokens
+    n_tasks = num_task if ws.gen is None else ws.n_tasks
+
+    def body(window: int, generator) -> None:
+        cur = ws.state
+        step = ws.step
+        fill = ws.pfx.length if ws.gen is None else ws.gen.length
+        for _ in range(graphs.UNROLL):
+            go = ~cur.done.all() & (step < ws.limit)
+            h = _embed_step_tokens(params, cfg, cur.next_tokens, ws.pe,
+                                   cur.y_pos, aug_text, dtype)
+            if ws.gen is None:
+                out_h, _ = trf.transformer_decode_step(
+                    params["decoder"], h, trf.KVCache(ws.pfx.k, ws.pfx.v, fill),
+                    ws.banned, cfg, dtype=dtype, layers=ws.layers,
+                    window=window)
+            else:
+                out_h, _ = trf.transformer_decode_step_shared(
+                    params["decoder"], h, ws.pfx,
+                    trf.KVCache(ws.gen.k, ws.gen.v, fill), ws.banned, cfg,
+                    n_groups=ws.pfx.k.shape[1], dtype=dtype,
+                    layers=ws.layers, window=window)
+            logits = ssr_model.predict_logits(params, out_h)
+            lg, num_cfg = _mix_cfg(logits, cur, dec, S, aug_text)
+            cur = _advance_chains(
+                cur, lg, generator, num_cfg, ts=ts, dec=dec,
+                num_task=num_task, length_cap=ws.length_cap, n_tasks=n_tasks,
+                sentinel_ids=ws.sentinels, static_ban=ws.static_ban,
+                silence=ws.silence, go=go)
+            fill = fill + go.long()
+            step = step + go.long()
+        _store_chains(ws.state, cur)
+        (ws.pfx.length if ws.gen is None else ws.gen.length).copy_(fill)
+        ws.step.copy_(step)
+        ws.flag.copy_(~cur.done.all() & (step < ws.limit))
+
+    return body
+
+
+def _run_chains(params, ws: DecodeWorkspace, generator, *, start: int,
+                max_steps: int, cfg, dec, num_task: int, aug_text: bool,
+                dtype, stats: Optional[Dict]):
+    """Replay the body until the device condition stops it (one flag read a
+    replay). The window of a replay bounds the positions its steps read:
+    ``start`` plus the steps replayed plus ``UNROLL``. Returns the state's
+    (out, span_end, out_len), copied out of the workspace."""
+    body = _chain_body(params, ws, cfg=cfg, dec=dec, num_task=num_task,
+                       aug_text=aug_text, dtype=dtype)
+    graphs.loop_steps(
+        ws.loop, body, ws.flag, max_steps=max_steps, generator=generator,
+        window_for=lambda n: trf.stage_window(ws.windows,
+                                              start + n + graphs.UNROLL))
+    if stats is not None:
+        stats["decode_steps"] = int(ws.step.item())
+    s = ws.state
+    return s.out.clone(), s.span_end.clone(), s.out_len.clone()
 
 
 @torch.no_grad()
@@ -247,42 +496,35 @@ def _generate_impl(params, cache: trf.KVCache, key_banned: torch.Tensor,
                    generator: torch.Generator, sentinel_ids: torch.Tensor,
                    x_len: int, y_pos0: int, *, cfg: SSRModelConfig,
                    dec: DecodeConfig, num_task: int, cap_total: int,
-                   aug_text: bool, dtype, stats: Optional[Dict] = None):
-    """The decode loop. Runs until the chain is done, ``cap_total`` tokens
-    are out, or the cache is full (JAX's loop conditions). Returns
-    (out [K, CAP], span_end [num_task], out_len) as tensors."""
-    K = cfg.n_codebooks
-    ts = cfg.tokens
-    dev = cache.k.device
-    pe = ssr_model.sine_table(cfg.max_position, cfg.d_model, device=dev)
-    silence = torch.tensor(dec.silence_tokens, dtype=torch.int64, device=dev)
-    length_cap = x_len * dec.length_cap_mult
-    static_ban = _static_ban(ts, dev)
-    layers = trf.layer_params(params["decoder"])
-
-    s = _init_chain_state(y_pos0, sentinel_ids, 1, K, num_task, ts, cap_total)
+                   aug_text: bool, dtype, stats: Optional[Dict] = None,
+                   cuda_graphs: bool = True):
+    """The decode loop of one chain over ``cache`` (prefilled to its host
+    ``length``; copied into the bucket's workspace unless it is that
+    workspace's own). Runs until the chain is done, ``cap_total`` tokens
+    are out, or the cache is full (JAX's loop conditions, evaluated on the
+    device before every step). On one CUDA rank the body replays as CUDA
+    graphs (``cuda_graphs=False``: the same body eagerly, for comparison);
+    elsewhere it runs eagerly. ``stats["decode_steps"]`` gets the steps
+    JAX's loop takes. Returns (out [K, CAP], span_end [num_task], out_len)
+    as tensors."""
+    ws = single_workspace(params, cfg, dec, rows=cache.k.shape[1],
+                          tmax=cache.max_len, num_task=num_task,
+                          cap_total=cap_total, dtype=dtype,
+                          cuda_graphs=cuda_graphs)
+    start = int(cache.length)
     # before `done`, one active chain adds one token per step, so JAX's
     # `max(out_len) < cap_total` and `cache.length < size` bound the steps
-    max_steps = min(cap_total, cache.max_len - cache.length)
-    steps = 0
-    while steps < max_steps:
-        h = _embed_step_tokens(params, cfg, s.next_tokens, pe, s.y_pos,
-                               aug_text, dtype)
-        out_h, cache = trf.transformer_decode_step(
-            params["decoder"], h, cache, key_banned, cfg, dtype=dtype,
-            layers=layers)
-        logits = ssr_model.predict_logits(params, out_h)  # [B, K, card] fp32
-        lg, num_cfg = _mix_cfg(logits, s, dec, 1, aug_text)
-        s = _advance_chains(
-            s, lg, generator, num_cfg, ts=ts, dec=dec, num_task=num_task,
-            length_cap=length_cap, n_tasks=num_task, sentinel_ids=sentinel_ids,
-            static_ban=static_ban, silence=silence)
-        steps += 1
-        if steps % DONE_CHECK_EVERY == 0 and bool(s.done.all()):
-            break
-    if stats is not None:
-        stats["decode_steps"] = steps
-    return s.out[0], s.span_end[0], s.out_len[0]
+    max_steps = min(cap_total, cache.max_len - start)
+    with ws.lock:
+        ws.load(cache)
+        ws.start(key_banned, y_pos0, sentinel_ids,
+                 x_len * dec.length_cap_mult, num_task, max_steps,
+                 cfg.tokens.empty)
+        out, span_end, out_len = _run_chains(
+            params, ws, generator, start=start, max_steps=max_steps, cfg=cfg,
+            dec=dec, num_task=num_task, aug_text=aug_text, dtype=dtype,
+            stats=stats)
+    return out[0], span_end[0], out_len[0]
 
 
 @torch.no_grad()
@@ -292,7 +534,8 @@ def _generate_shared_impl(params, pfx: trf.KVCache, key_banned: torch.Tensor,
                           length_cap, n_tasks, *, cfg: SSRModelConfig,
                           dec: DecodeConfig, num_task: int, cap_total: int,
                           aug_text: bool, n_chains: int, dtype,
-                          stats: Optional[Dict] = None):
+                          stats: Optional[Dict] = None,
+                          cuda_graphs: bool = True):
     """The decode loop of S = ``n_chains`` chains over a shared prompt cache
     ``pfx`` [L, G, H, Tp, Dh] (the loop of JAX's ``_generate_batched_impl``
     and ``_generate_multi_impl``, which differ only in the arguments below).
@@ -303,61 +546,43 @@ def _generate_shared_impl(params, pfx: trf.KVCache, key_banned: torch.Tensor,
     audio position; ``length_cap`` and ``n_tasks`` are ints or [S]. Each
     chain's generated K/V go into a cache of ``_bucket(cap_total + 8, 128)``
     positions. Runs until every chain is done or ``cap_total`` tokens are
-    out (JAX's loop conditions; the cache never fills first). Returns (out
+    out (JAX's loop conditions, on the device; the cache never fills
+    first), replayed as CUDA graphs as ``_generate_impl`` says. Returns (out
     [S, K, CAP], span_end [S, num_task], out_len [S]) as tensors."""
-    K = cfg.n_codebooks
-    ts = cfg.tokens
-    dev = pfx.k.device
-    rows = n_chains * (2 if aug_text else 1)
-    gen = trf.init_kv_cache(cfg, rows, _bucket(cap_total + 8, 128),
-                            dtype=pfx.k.dtype, device=dev,
-                            par=trf.parallel_of(params))
-    pe = ssr_model.sine_table(cfg.max_position, cfg.d_model, device=dev)
-    silence = torch.tensor(dec.silence_tokens, dtype=torch.int64, device=dev)
-    static_ban = _static_ban(ts, dev)
-    layers = trf.layer_params(params["decoder"])
-
-    s = _init_chain_state(y_pos0, sentinel_ids, n_chains, K, num_task, ts,
-                          cap_total)
-    steps = 0
-    while steps < cap_total:  # an active chain adds one token a step
-        h = _embed_step_tokens(params, cfg, s.next_tokens, pe, s.y_pos,
-                               aug_text, dtype)
-        out_h, gen = trf.transformer_decode_step_shared(
-            params["decoder"], h, pfx, gen, key_banned, cfg,
-            n_groups=pfx.k.shape[1], dtype=dtype, layers=layers)
-        logits = ssr_model.predict_logits(params, out_h)  # [B, K, card] fp32
-        lg, num_cfg = _mix_cfg(logits, s, dec, n_chains, aug_text)
-        s = _advance_chains(
-            s, lg, generator, num_cfg, ts=ts, dec=dec, num_task=num_task,
-            length_cap=length_cap, n_tasks=n_tasks, sentinel_ids=sentinel_ids,
-            static_ban=static_ban, silence=silence)
-        steps += 1
-        if steps % DONE_CHECK_EVERY == 0 and bool(s.done.all()):
-            break
-    if stats is not None:
-        stats["decode_steps"] = steps
-    return s.out, s.span_end, s.out_len
+    ws = shared_workspace(
+        params, cfg, dec, groups=pfx.k.shape[1], n_chains=n_chains,
+        tmax=pfx.max_len, banned_bool=key_banned.dtype == torch.bool,
+        num_task=num_task, cap_total=cap_total, aug_text=aug_text,
+        dtype=dtype, cuda_graphs=cuda_graphs)
+    with ws.lock:
+        ws.load(pfx)
+        ws.start(key_banned, y_pos0, sentinel_ids, length_cap, n_tasks,
+                 cap_total, cfg.tokens.empty)
+        return _run_chains(params, ws, generator, start=0,
+                           max_steps=cap_total, cfg=cfg, dec=dec,
+                           num_task=num_task, aug_text=aug_text, dtype=dtype,
+                           stats=stats)
 
 
 def _generate_batched_impl(params, pfx, key_banned, generator, sentinel_ids,
                            x_len: int, y_pos0: int, *, cfg, dec, num_task,
-                           cap_total, aug_text, n_samples, dtype, stats=None):
+                           cap_total, aug_text, n_samples, dtype, stats=None,
+                           cuda_graphs=True):
     """S independent sampling chains over one prompt: the chains share the
     audio position and the length cap (JAX ``_generate_batched_impl``)."""
-    y_pos = torch.full((n_samples,), y_pos0, dtype=torch.int64,
-                       device=pfx.k.device)
     return _generate_shared_impl(
-        params, pfx, key_banned, generator, sentinel_ids, y_pos,
+        params, pfx, key_banned, generator, sentinel_ids, int(y_pos0),
         x_len * dec.length_cap_mult, num_task, cfg=cfg, dec=dec,
         num_task=num_task, cap_total=cap_total, aug_text=aug_text,
-        n_chains=n_samples, dtype=dtype, stats=stats)
+        n_chains=n_samples, dtype=dtype, stats=stats,
+        cuda_graphs=cuda_graphs)
 
 
 def _generate_multi_impl(params, pfx, key_banned, generator, sentinel_ids,
                          x_lens: torch.Tensor, p_lens: torch.Tensor,
                          n_tasks: torch.Tensor, *, cfg, dec, num_task,
-                         cap_total, aug_text, dtype, stats=None):
+                         cap_total, aug_text, dtype, stats=None,
+                         cuda_graphs=True):
     """S different prompts, each its own group: per-chain audio positions
     ``p_lens`` [S], length caps ``x_lens * length_cap_mult`` [S] and span
     counts ``n_tasks`` [S] (<= num_task; a chain finishes after its own
@@ -366,7 +591,8 @@ def _generate_multi_impl(params, pfx, key_banned, generator, sentinel_ids,
         params, pfx, key_banned, generator, sentinel_ids, p_lens,
         x_lens * dec.length_cap_mult, n_tasks, cfg=cfg, dec=dec,
         num_task=num_task, cap_total=cap_total, aug_text=aug_text,
-        n_chains=p_lens.shape[0], dtype=dtype, stats=stats)
+        n_chains=p_lens.shape[0], dtype=dtype, stats=stats,
+        cuda_graphs=cuda_graphs)
 
 
 def _check_positions(cfg: SSRModelConfig, prefill_need: int, gen_max: int,
@@ -449,8 +675,10 @@ def _trim_context(result, trim: int):
 def _prefill_impl(params, x: torch.Tensor, y_prefix: torch.Tensor, x_len: int,
                   p_len: int, *, cfg: SSRModelConfig, tmax: int, dtype,
                   cfg_pretrained: bool = False, aug_text: bool = False,
-                  uncond_row_start: int = 1):
-    """Fill a KV cache of ``tmax`` slots with [x ; y_prefix].
+                  uncond_row_start: int = 1,
+                  cache: Optional[trf.KVCache] = None):
+    """Fill a KV cache of ``tmax`` slots with [x ; y_prefix] (``cache``, a
+    workspace's zeroed cache of that size, or a new one).
 
     x: [B, Sx_pad] text ids; y_prefix: [K, P_pad] prefix tokens. Keys banned
     for the whole decode: text padding [x_len, sx) and, for cfg_pretrained
@@ -479,8 +707,9 @@ def _prefill_impl(params, x: torch.Tensor, y_prefix: torch.Tensor, x_len: int,
         lo[uncond_row_start:] = 1
     key_banned = torch.stack([lo, hi], dim=1)
 
-    cache = trf.init_kv_cache(cfg, B, tmax, dtype=dtype, device=dev,
-                              par=trf.parallel_of(params))
+    if cache is None:
+        cache = trf.init_kv_cache(cfg, B, tmax, dtype=dtype, device=dev,
+                                  par=trf.parallel_of(params))
     _, cache = trf.transformer_prefill(params["decoder"], h, cache, cfg,
                                        key_valid=seg, dtype=dtype)
     # true fill point: the padded text block stays (banned), the prefix is
@@ -526,22 +755,26 @@ def _one_prompt(params, cfg: SSRModelConfig, dec: DecodeConfig, x, y,
         sentinels=torch.arange(ts.mts, ts.mts + ts.max_n_spans, device=dev))
 
 
-def _prefill_then_decode(prefill, decode, dev: torch.device,
-                         stats: Optional[Dict], prefill_tokens: int):
-    """``decode(*prefill())`` -> (out, span_end) as numpy; ``stats``, when
-    given, receives the prefill's and the decode's wall times (the prefill
-    synchronised with the device), the prefill's padded length and the
-    sampled token stream (``out_tokens``)."""
-    t0 = time.perf_counter()
-    cache, key_banned = prefill()
-    if stats is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        stats.update(prefill_s=t1 - t0, prefill_tokens=prefill_tokens)
-    out, span_end, _ = decode(cache, key_banned)
-    out = out.cpu().numpy().astype(np.int32)
-    span_end = span_end.cpu().numpy()
+def _prefill_then_decode(ws: DecodeWorkspace, prefill, decode,
+                         dev: torch.device, stats: Optional[Dict],
+                         prefill_tokens: int):
+    """``decode(*prefill(cache))`` -> (out, span_end) as numpy, the prefill
+    writing into the workspace's zeroed prompt cache (the request holds the
+    workspace throughout); ``stats``, when given, receives the prefill's and
+    the decode's wall times (the prefill synchronised with the device), the
+    prefill's padded length and the sampled token stream
+    (``out_tokens``)."""
+    with ws.lock:
+        t0 = time.perf_counter()
+        cache, key_banned = prefill(ws.prefill_cache())
+        if stats is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            stats.update(prefill_s=t1 - t0, prefill_tokens=prefill_tokens)
+        out, span_end, _ = decode(cache, key_banned)
+        out = out.cpu().numpy().astype(np.int32)
+        span_end = span_end.cpu().numpy()
     if stats is not None:
         stats.update(decode_s=time.perf_counter() - t1, out_tokens=out)
     return out, span_end
@@ -552,7 +785,7 @@ def generate(params, cfg: SSRModelConfig, dec: DecodeConfig, x: np.ndarray,
              generator: torch.Generator, *, uncond_x: Optional[np.ndarray] = None,
              prompt_x: Optional[np.ndarray] = None,
              prompt_y: Optional[np.ndarray] = None,
-             stats: Optional[Dict] = None
+             stats: Optional[Dict] = None, cuda_graphs: bool = True
              ) -> Tuple[np.ndarray, np.ndarray, List[Tuple[int, int]],
                         List[Tuple[int, int]]]:
     """Span-infilling generation for one sample on ``params``' device.
@@ -563,7 +796,9 @@ def generate(params, cfg: SSRModelConfig, dec: DecodeConfig, x: np.ndarray,
     of the decoder's matmul weights (``lm_from_jax`` stores them in the
     device's compute dtype: fp32 on the CPU, bf16 on CUDA). ``stats``, when
     given, receives prefill/decode wall times, the decode step count and the
-    sampled token stream (``out_tokens`` [K, CAP])."""
+    sampled token stream (``out_tokens`` [K, CAP]). On one CUDA rank the
+    decode loop replays CUDA graphs (``cuda_graphs=False`` runs the same
+    body eagerly, for comparison)."""
     K = cfg.n_codebooks
     dev = params["text_emb"].device
     dtype = params["decoder"]["layers"]["qkv_w"].dtype
@@ -571,16 +806,20 @@ def generate(params, cfg: SSRModelConfig, dec: DecodeConfig, x: np.ndarray,
                     uncond_x, prompt_x, prompt_y, "generate")
     tmax = _bucket(p["sx_pad"] + p["p_pad"] + p["cap_total"] + p["num_task"]
                    + 8, TMAX_BUCKET)
+    ws = single_workspace(params, cfg, dec, rows=p["xb"].shape[0], tmax=tmax,
+                          num_task=p["num_task"], cap_total=p["cap_total"],
+                          dtype=dtype, cuda_graphs=cuda_graphs)
     out, span_end = _prefill_then_decode(
-        lambda: _prefill_impl(
+        ws,
+        lambda cache: _prefill_impl(
             params, p["xb"], p["prefix"], p["x_len"], p["p_len"], cfg=cfg,
             tmax=tmax, dtype=dtype, cfg_pretrained=dec.cfg_pretrained,
-            aug_text=dec.aug_text),
+            aug_text=dec.aug_text, cache=cache),
         lambda cache, key_banned: _generate_impl(
             params, cache, key_banned, generator, p["sentinels"], p["x_len"],
             p["p_len"], cfg=cfg, dec=dec, num_task=p["num_task"],
             cap_total=p["cap_total"], aug_text=dec.aug_text, dtype=dtype,
-            stats=stats),
+            stats=stats, cuda_graphs=cuda_graphs),
         dev, stats, p["sx_pad"] + p["p_pad"])
     return _trim_context(assemble_result(p["y"], p["nm"], out, span_end,
                                          p["num_task"], K), p["trim"])
@@ -593,14 +832,15 @@ def generate_batch(params, cfg: SSRModelConfig, dec: DecodeConfig,
                    uncond_x: Optional[np.ndarray] = None,
                    prompt_x: Optional[np.ndarray] = None,
                    prompt_y: Optional[np.ndarray] = None,
-                   tmax: Optional[int] = None, stats: Optional[Dict] = None):
+                   tmax: Optional[int] = None, stats: Optional[Dict] = None,
+                   cuda_graphs: bool = True):
     """``n_samples`` independent sampling chains of one prompt in one loop,
     as ``ssr_speech_tpu.inference.decode.generate_batch``. The prompt cache
     holds only the prompt (``tmax`` slots, by default the prompt's length
     bucketed to 256) and is shared by the chains of each CFG group. Returns a
     list of per-chain (codes, marks, out_intervals, nm_intervals), the
-    contract of :func:`generate`, aug_context included; ``stats`` as there
-    (``out_tokens`` [S, K, CAP])."""
+    contract of :func:`generate`, aug_context included; ``stats`` and
+    ``cuda_graphs`` as there (``out_tokens`` [S, K, CAP])."""
     K = cfg.n_codebooks
     dev = params["text_emb"].device
     dtype = params["decoder"]["layers"]["qkv_w"].dtype
@@ -608,16 +848,23 @@ def generate_batch(params, cfg: SSRModelConfig, dec: DecodeConfig,
                     uncond_x, prompt_x, prompt_y, "generate_batch")
     if tmax is None:
         tmax = _bucket(p["sx_pad"] + p["p_pad"] + 8, 256)
+    ws = shared_workspace(
+        params, cfg, dec, groups=p["xb"].shape[0], n_chains=n_samples,
+        tmax=tmax, banned_bool=False, num_task=p["num_task"],
+        cap_total=p["cap_total"], aug_text=dec.aug_text, dtype=dtype,
+        cuda_graphs=cuda_graphs)
     out, span_end = _prefill_then_decode(
-        lambda: _prefill_impl(
+        ws,
+        lambda cache: _prefill_impl(
             params, p["xb"], p["prefix"], p["x_len"], p["p_len"], cfg=cfg,
             tmax=tmax, dtype=dtype, cfg_pretrained=dec.cfg_pretrained,
-            aug_text=dec.aug_text),
+            aug_text=dec.aug_text, cache=cache),
         lambda pfx, key_banned: _generate_batched_impl(
             params, pfx, key_banned, generator, p["sentinels"], p["x_len"],
             p["p_len"], cfg=cfg, dec=dec, num_task=p["num_task"],
             cap_total=p["cap_total"], aug_text=dec.aug_text,
-            n_samples=n_samples, dtype=dtype, stats=stats),
+            n_samples=n_samples, dtype=dtype, stats=stats,
+            cuda_graphs=cuda_graphs),
         dev, stats, p["sx_pad"] + p["p_pad"])
     return [_trim_context(assemble_result(p["y"], p["nm"], out[i],
                                           span_end[i], p["num_task"], K),
@@ -649,8 +896,10 @@ def multi_dead_keys(x_lens: torch.Tensor, p_lens: torch.Tensor, sx: int,
 def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
                         x_lens: torch.Tensor, p_lens: torch.Tensor, *,
                         cfg: SSRModelConfig, tmax: int, dtype,
-                        cfg_pretrained: bool = False, aug_text: bool = False):
-    """Prefill for different prompts in one batch.
+                        cfg_pretrained: bool = False, aug_text: bool = False,
+                        cache: Optional[trf.KVCache] = None):
+    """Prefill for different prompts in one batch (into ``cache``, a
+    workspace's zeroed cache of ``tmax`` slots, or a new one).
 
     x: [R, Sx_pad] rows [cond_0..cond_{S-1} ; uncond_0..] with true lengths
     ``x_lens`` [R]; y_prefix: [S, K, P_pad] per-prompt prefixes with true
@@ -673,8 +922,9 @@ def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
 
     dead = multi_dead_keys(x_lens, p_lens, sx, P, aug_text=aug_text,
                            cfg_pretrained=cfg_pretrained)
-    cache = trf.init_kv_cache(cfg, R, tmax, dtype=dtype, device=dev,
-                              par=trf.parallel_of(params))
+    if cache is None:
+        cache = trf.init_kv_cache(cfg, R, tmax, dtype=dtype, device=dev,
+                                  par=trf.parallel_of(params))
     _, cache = trf.transformer_prefill(params["decoder"], h, cache, cfg,
                                        key_valid=(~dead).to(torch.int32),
                                        dtype=dtype)
@@ -685,15 +935,15 @@ def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
 
 def generate_multi(params, cfg: SSRModelConfig, dec: DecodeConfig, prompts,
                    generator: torch.Generator, *,
-                   stats: Optional[Dict] = None):
+                   stats: Optional[Dict] = None, cuda_graphs: bool = True):
     """Decode several different utterances in one loop, as
     ``ssr_speech_tpu.inference.decode.generate_multi``. Each prompt is
     ``(x, y, mask)`` or ``(x, y, mask, prompt_x, prompt_y)`` (the 5-tuple
     turns on the aug_context prepend, as in :func:`generate`); prompts may
     differ in span count, and a chain finishes after its own. Returns a list
-    of per-prompt (codes, marks, out_intervals, nm_intervals). ``stats`` as
-    in :func:`generate`, plus the prefill's layout (``x_lens`` [R],
-    ``p_lens`` [S], ``sx_pad``, ``p_pad``)."""
+    of per-prompt (codes, marks, out_intervals, nm_intervals). ``stats`` and
+    ``cuda_graphs`` as in :func:`generate`, ``stats`` with the prefill's
+    layout too (``x_lens`` [R], ``p_lens`` [S], ``sx_pad``, ``p_pad``)."""
     ts = cfg.tokens
     K = cfg.n_codebooks
     S = len(prompts)
@@ -737,17 +987,22 @@ def generate_multi(params, cfg: SSRModelConfig, dec: DecodeConfig, prompts,
     if stats is not None:
         stats.update(sx_pad=sx_pad, p_pad=p_pad, x_lens=x_lens_r.tolist(),
                      p_lens=p_lens.tolist())
+    ws = shared_workspace(
+        params, cfg, dec, groups=xb.shape[0], n_chains=S, tmax=tmax,
+        banned_bool=True, num_task=num_task, cap_total=cap_total,
+        aug_text=dec.aug_text, dtype=dtype, cuda_graphs=cuda_graphs)
     out, span_end = _prefill_then_decode(
-        lambda: _prefill_multi_impl(
+        ws,
+        lambda cache: _prefill_multi_impl(
             params, torch.from_numpy(xb).to(dev),
             torch.from_numpy(prefixes).to(dev), x_lens_r, p_lens_t, cfg=cfg,
             tmax=tmax, dtype=dtype, cfg_pretrained=dec.cfg_pretrained,
-            aug_text=dec.aug_text),
+            aug_text=dec.aug_text, cache=cache),
         lambda pfx, key_banned: _generate_multi_impl(
             params, pfx, key_banned, generator, sentinels, x_lens_r[:S],
             p_lens_t, torch.from_numpy(n_tasks).to(dev), cfg=cfg, dec=dec,
             num_task=num_task, cap_total=cap_total, aug_text=dec.aug_text,
-            dtype=dtype, stats=stats),
+            dtype=dtype, stats=stats, cuda_graphs=cuda_graphs),
         dev, stats, sx_pad + p_pad)
     return [_trim_context(assemble_result(y, nm, out[i], span_end[i], ntask, K),
                           trim)

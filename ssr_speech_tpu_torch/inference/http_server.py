@@ -26,8 +26,10 @@ serve_loop` (port of ``ssr_speech_tpu/inference/http_server.py``).
 Handler threads (``ThreadingHTTPServer``) validate and enqueue on the host
 and then block on a per-request emission queue; they touch no tensor on the
 device. One engine thread drives ``serve_loop``: it owns the CUDA device and
-its stream (``torch.cuda.set_device`` before its first launch), and all
-concurrency lives in the lane dimension of the batched LM and codec calls.
+its stream (``torch.cuda.set_device`` before its first launch), replays
+its decode chunk's CUDA graphs (captured by the first requests that reach
+each window), and all concurrency lives in the lane dimension of the
+batched LM and codec calls.
 A client that disconnects leaves its lane to finish its bounded utterance.
 Responses are HTTP/1.0 close-delimited bodies, so the first PCM bytes leave
 at the time to first audio.

@@ -18,12 +18,14 @@ the decode loop full instead:
   row reuse sound.
 
 JAX runs the chunk as one compiled ``lax.while_loop``; here it is a host
-loop over the same body that reads one device flag a step: the loop's stop
-test (any harvestable slot, no live chain left), so a chunk stops at the
-same step as JAX's and ``steps`` counts what JAX's counter counts. The
-splice is a set of in-place index writes on the device. Under greedy
-sampling, served outputs equal :func:`decode.generate`'s
-(``tests/test_torch_serving.py``).
+loop over a body of ``graphs.UNROLL`` steps that evaluates the loop's stop
+test (any harvestable slot, no live chain left, the budget) on the device
+before every step and gates the step with it, so a chunk stops at the same
+step as JAX's and ``steps`` counts what JAX's counter counts. On one CUDA
+rank the body is a CUDA graph per stage window of the generated cache,
+replayed with one flag read a replay. The splice is a set of in-place index
+writes into the same static buffers. Under greedy sampling, served outputs
+equal :func:`decode.generate`'s (``tests/test_torch_serving.py``).
 
 :func:`sorted_static_batches` is the static scheduler ``pipeline.
 inference_multi`` uses to batch more jobs than it has slots.
@@ -46,17 +48,21 @@ from ..models import transformer as trf
 from ..ops import patterns
 from ..parallel.dist import is_main, synced_clock
 from . import decode as dec_mod
+from . import graphs
 
 
 @dataclass
 class ServeState(dec_mod.ChainState):
     """Per-slot chain state ([S] tensors, ``y_pos`` among them) plus the
-    paged cache's write columns and the slots' occupancy."""
+    paged cache's write columns and the slots' occupancy, in static buffers
+    that the chunk's graphs read and write in place."""
 
     cache: trf.KVCache  # generated K/V [L, R, H, G, Dh], a column per row
     gen_len: torch.Tensor  # [R] write column of each row
     active: torch.Tensor  # [S] slot holds a live (unharvested) request
-    steps: int  # steps taken in this chunk (the admission budget)
+    steps: torch.Tensor  # [1] steps taken in this chunk (the admission budget)
+    budget: torch.Tensor  # [1] this chunk's step budget
+    flag: torch.Tensor  # [1] the chunk's loop condition after the last step
 
 
 def _chain_fields(s: dec_mod.ChainState) -> Dict:
@@ -64,56 +70,82 @@ def _chain_fields(s: dec_mod.ChainState) -> Dict:
             for f in dataclasses.fields(dec_mod.ChainState)}
 
 
+def _chunk_go(s: ServeState, done: torch.Tensor,
+              steps: torch.Tensor) -> torch.Tensor:
+    """JAX ``_serve_chunk_impl``'s loop condition on the device: a live
+    chain, none harvestable, and steps left in the budget ([1] bool)."""
+    live = s.active & ~done
+    harvestable = s.active & done
+    return live.any() & ~harvestable.any() & (steps < s.budget)
+
+
+def _serve_chunk_body(params, srv: "ContinuousBatcher"):
+    """The chunk's U-step body over the server's static buffers: before each
+    step the chunk's condition (:func:`_chunk_go`); then the embedded
+    tokens, the paged step through the stage window, the heads, the CFG mix,
+    ``_advance_chains`` and ``gen_len + 1`` on the rows of live chains (cond
+    and uncond), all gated by it, so a step after the chunk's exit is a
+    no-op and the chunk stops where JAX's stops. Parked slots
+    (``active=False``) ride along frozen."""
+    cfg, dec = srv.cfg, srv.dec
+    S, aug_text, dtype = srv.S, srv.aug, srv.dtype
+
+    def body(window: int, generator) -> None:
+        st = srv.state
+        cur, gen_len, steps = st, st.gen_len, st.steps
+        length_cap = srv._x_lens * dec.length_cap_mult
+        for _ in range(graphs.UNROLL):
+            live = st.active & ~cur.done
+            go = _chunk_go(st, cur.done, steps)
+            h = dec_mod._embed_step_tokens(params, cfg, cur.next_tokens,
+                                           srv._pe, cur.y_pos, aug_text, dtype)
+            out_h, _ = trf.transformer_decode_step_paged(
+                params["decoder"], h, srv._pfx, st.cache, srv._banned, gen_len,
+                cfg, dtype=dtype, read_len=window, layers=srv._layers)
+            logits = ssr_model.predict_logits(params, out_h)
+            lg, num_cfg = dec_mod._mix_cfg(logits, cur, dec, S, aug_text)
+            cur = dec_mod._advance_chains(
+                cur, lg, generator, num_cfg, ts=cfg.tokens, dec=dec,
+                num_task=srv.num_task, length_cap=length_cap,
+                n_tasks=srv._n_tasks, sentinel_ids=srv._sentinels_dev,
+                static_ban=srv._static_ban, silence=srv._silence, go=go)
+            adv = live & go
+            adv_r = torch.cat([adv, adv]) if aug_text else adv
+            gen_len = gen_len + adv_r.long()
+            steps = steps + go.long()
+        dec_mod._store_chains(st, cur)
+        st.gen_len.copy_(gen_len)
+        st.steps.copy_(steps)
+        st.flag.copy_(_chunk_go(st, cur.done, steps))
+
+    return body
+
+
 @torch.no_grad()
-def _serve_chunk_impl(params, pfx: trf.KVCache, key_banned: torch.Tensor,
-                      state: ServeState, x_lens: torch.Tensor,
-                      n_tasks: torch.Tensor, sentinel_ids: torch.Tensor,
-                      step_budget: int, generator: torch.Generator, *,
-                      cfg: SSRModelConfig, dec: DecodeConfig, num_task: int,
-                      aug_text: bool, n_slots: int, dtype, read_len,
-                      layers=None) -> ServeState:
+def _serve_chunk_impl(params, srv: "ContinuousBatcher",
+                      step_budget: int) -> int:
     """Decode until any live chain finishes, ``step_budget`` steps are taken,
     or no live chain is left (JAX ``_serve_chunk_impl``'s loop condition,
-    tested before every step). The body: the embedded tokens, the paged
-    step, the heads, the CFG mix, ``_advance_chains`` and ``gen_len + 1`` on
-    the rows of live chains (cond and uncond); parked slots
-    (``active=False``) ride along frozen. ``read_len`` [S] holds, per slot,
-    an upper bound on its rows' ``gen_len`` (steps since its fill), kept on
-    the host and advanced here; the step reads the generated cache up to
-    their max."""
-    S = n_slots
-    dev = pfx.k.device
-    ts = cfg.tokens
-    pe = ssr_model.sine_table(cfg.max_position, cfg.d_model, device=dev)
-    silence = torch.tensor(dec.silence_tokens, dtype=torch.int64, device=dev)
-    length_cap = x_lens * dec.length_cap_mult
-    static_ban = dec_mod._static_ban(ts, dev)
-    layers = layers or trf.layer_params(params["decoder"])
-    s = state
-    while s.steps < step_budget:
-        live = s.active & ~s.done
-        harvestable = s.active & s.done
-        if not bool((live.any() & ~harvestable.any()).item()):
-            break
-        h = dec_mod._embed_step_tokens(params, cfg, s.next_tokens, pe,
-                                       s.y_pos, aug_text, dtype)
-        out_h, cache = trf.transformer_decode_step_paged(
-            params["decoder"], h, pfx, s.cache, key_banned, s.gen_len, cfg,
-            dtype=dtype, read_len=max(max(read_len), 1), layers=layers)
-        logits = ssr_model.predict_logits(params, out_h)
-        lg, num_cfg = dec_mod._mix_cfg(logits, s, dec, S, aug_text)
-        upd = dec_mod._advance_chains(
-            s, lg, generator, num_cfg, ts=ts, dec=dec, num_task=num_task,
-            length_cap=length_cap, n_tasks=n_tasks,
-            sentinel_ids=sentinel_ids, static_ban=static_ban,
-            silence=silence)
-        adv_r = torch.cat([live, live]) if aug_text else live
-        gen_len = torch.where(adv_r, s.gen_len + 1, s.gen_len)
-        s = ServeState(**_chain_fields(upd), cache=cache, gen_len=gen_len,
-                       active=s.active, steps=s.steps + 1)
-        for i in range(S):
-            read_len[i] = min(read_len[i] + 1, cache.max_len)
-    return s
+    evaluated on the device before every step). The body replays as CUDA
+    graphs on one CUDA rank (``graphs.GraphLoop``), one flag read a replay;
+    each replay reads the generated cache through the stage window that
+    bounds its rows' write columns: per slot, the steps taken since its
+    fill (``srv._read_len``, kept on the host from each chunk's count) plus
+    the steps replayed in this chunk. Returns the steps taken."""
+    s = srv.state
+    s.steps.zero_()
+    s.budget.fill_(step_budget)
+    body = _serve_chunk_body(params, srv)
+    graphs.loop_steps(
+        srv._loop, body, s.flag, max_steps=step_budget,
+        generator=srv.generator,
+        window_for=lambda n: trf.stage_window(
+            srv._windows, max(srv._read_len) + n + graphs.UNROLL))
+    steps = int(s.steps.item())
+    for i in range(srv.S):
+        if srv._slot_req[i] is not None:
+            srv._read_len[i] = min(srv._read_len[i] + steps, srv._gen_cap)
+    return steps
 
 
 def _refill_impl(state: ServeState, pfx: trf.KVCache, key_banned, x_lens,
@@ -153,11 +185,19 @@ class ContinuousBatcher:
     lanes. The geometry (text and prefix pads, the span count, the
     per-request generation cap) is fixed at construction; requests beyond
     it are rejected, before any decoding. ``dtype`` is the compute dtype,
-    by default that of the decoder's matmul weights (bf16 on CUDA)."""
+    by default that of the decoder's matmul weights (bf16 on CUDA).
+
+    The server owns its static buffers (the prompt and generated caches,
+    the slots' state) and the CUDA graphs of its chunk, one a stage window
+    of the generated cache, captured on first use and replayed by every
+    later chunk, on one CUDA rank; ``cuda_graphs=False`` runs the same body
+    eagerly there, for comparison. Under tensor parallelism and on the CPU
+    the body runs eagerly."""
 
     def __init__(self, params, cfg: SSRModelConfig, dec: DecodeConfig,
                  n_slots: int, *, sx_pad: int = 128, p_pad: int = 512,
-                 num_task: int = 1, dtype: Optional[torch.dtype] = None):
+                 num_task: int = 1, dtype: Optional[torch.dtype] = None,
+                 cuda_graphs: bool = True):
         self.params = params
         self.cfg, self.dec = cfg, dec
         self.S = n_slots
@@ -175,6 +215,8 @@ class ContinuousBatcher:
         self._sentinels_dev = torch.from_numpy(self.sentinels).to(dev)
         R = n_slots * (2 if self.aug else 1)
         gen_cap = dec_mod._bucket(self.cap_total + 8, 128)
+        self._gen_cap = gen_cap
+        self._windows = trf.cache_stage_sizes(gen_cap)
         par = trf.parallel_of(params)
         self._pfx = trf.init_kv_cache(cfg, R, self.tmax, dtype=self.dtype,
                                       device=dev, par=par)
@@ -194,7 +236,9 @@ class ContinuousBatcher:
                                     device=dev, par=par),
             gen_len=torch.zeros(R, dtype=torch.int64, device=dev),
             active=torch.zeros(n_slots, dtype=torch.bool, device=dev),
-            steps=0)
+            steps=torch.zeros(1, dtype=torch.int64, device=dev),
+            budget=torch.zeros(1, dtype=torch.int64, device=dev),
+            flag=torch.zeros(1, dtype=torch.bool, device=dev))
         self.generator = torch.Generator(device=dev).manual_seed(0)
         # per slot, steps since its fill: a host bound on its rows' gen_len
         self._read_len = [0] * n_slots
@@ -204,6 +248,13 @@ class ContinuousBatcher:
         # each prefill, from a stream of its own
         self._uncond_gen = torch.Generator(device=dev).manual_seed(7)
         self._layers = trf.layer_params(params["decoder"])
+        self._pe = ssr_model.sine_table(cfg.max_position, cfg.d_model,
+                                        device=dev)
+        self._silence = torch.tensor(dec.silence_tokens, dtype=torch.int64,
+                                     device=dev)
+        self._static_ban = dec_mod._static_ban(ts, dev)
+        self._loop = graphs.GraphLoop(
+            dev, graphs.graphs_wanted(dev, params, cuda_graphs))
         self.stats: Optional[Dict] = None
 
     # ------------------------------------------------------------- internals
@@ -299,20 +350,14 @@ class ContinuousBatcher:
                      ts.empty, aug_text=self.aug, n_slots=self.S)
 
     def _run_chunk(self, step_budget: int):
-        """Reset the admission counter and run one chunk (the only call
+        """Run one chunk of at most ``step_budget`` steps (the only call
         site of ``_serve_chunk_impl``: ``run``, ``run_online`` and the TTS
         streamers all pace through here)."""
-        self.state.steps = 0
         t0 = time.perf_counter()
-        self.state = _serve_chunk_impl(
-            self.params, self._pfx, self._banned, self.state, self._x_lens,
-            self._n_tasks, self._sentinels_dev, step_budget, self.generator,
-            cfg=self.cfg, dec=self.dec, num_task=self.num_task,
-            aug_text=self.aug, n_slots=self.S, dtype=self.dtype,
-            read_len=self._read_len, layers=self._layers)
+        steps = _serve_chunk_impl(self.params, self, step_budget)
         if self.stats is not None:
             self.stats["decode_steps"] = (self.stats.get("decode_steps", 0)
-                                          + self.state.steps)
+                                          + steps)
             self.stats["decode_s"] = (self.stats.get("decode_s", 0.0)
                                       + time.perf_counter() - t0)
             self.stats["chunks"] = self.stats.get("chunks", 0) + 1
@@ -512,12 +557,14 @@ def serve_geometry(cfg: SSRModelConfig, dec: DecodeConfig, requests, *,
 
 
 def serve_requests(params, cfg, dec, requests, generator=None, *, n_slots=8,
-                   x_bucket=64, prefix_bucket=128, dtype=None, stats=None):
+                   x_bucket=64, prefix_bucket=128, dtype=None, stats=None,
+                   cuda_graphs=True):
     """One-shot convenience: size a :class:`ContinuousBatcher` to the
-    workload (pad buckets from the largest request) and run it."""
+    workload (pad buckets from the largest request) and run it
+    (``cuda_graphs`` as there)."""
     sx_pad, p_pad, num_task = serve_geometry(
         cfg, dec, requests, x_bucket=x_bucket, prefix_bucket=prefix_bucket)
     server = ContinuousBatcher(params, cfg, dec, min(n_slots, len(requests)),
                                sx_pad=sx_pad, p_pad=p_pad, num_task=num_task,
-                               dtype=dtype)
+                               dtype=dtype, cuda_graphs=cuda_graphs)
     return server.run(requests, generator, stats=stats)

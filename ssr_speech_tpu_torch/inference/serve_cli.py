@@ -20,7 +20,8 @@ The flags are the JAX CLI's plus ``--device`` (default ``cuda``; asking for
 it without a card is an error). Each job's word alignment comes from its
 ``alignment_file`` (CSV ``word,start,end``); a job without one is aligned on
 the host by ``--align_model`` / ``--whisper_model`` (``cli.resolve_alignment``
-per job, on ``--device``), as in the single-request CLI.
+per job, on ``--device``), as in the single-request CLI. On one CUDA rank
+every mode's decode loop replays CUDA graphs (``inference/graphs.py``).
 """
 
 from __future__ import annotations

@@ -52,10 +52,12 @@ class TTSStreamer:
                  chunk_frames: int = 25,
                  first_chunk_frames: Optional[int] = None, sx_pad: int = 128,
                  p_pad: int = 512, dtype: Optional[torch.dtype] = None,
-                 codec_dtype=torch.float32):
+                 codec_dtype=torch.float32, cuda_graphs: bool = True):
         """``chunk_frames`` is the steady emission cadence;
         ``first_chunk_frames`` (default ``chunk_frames // 2``) the first
-        chunk's size: smaller means earlier first audio."""
+        chunk's size: smaller means earlier first audio. The engine's
+        server holds the decode chunk's CUDA graphs (``cuda_graphs``: as
+        :class:`serve.ContinuousBatcher`), reused by every utterance."""
         if not codec_cfg.seanet.causal:
             raise ValueError("streaming TTS needs a causal codec "
                              "(codec_cfg.seanet.causal=True)")
@@ -68,7 +70,7 @@ class TTSStreamer:
         self.codec_dtype = codec_dtype
         self._server = serve_mod.ContinuousBatcher(
             lm_params, cfg, dec, 1, sx_pad=sx_pad, p_pad=p_pad, num_task=1,
-            dtype=dtype)
+            dtype=dtype, cuda_graphs=cuda_graphs)
 
     def stream(self, x, y_prompt, generator: Optional[torch.Generator] = None
                ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -163,14 +165,19 @@ class StreamingServer:
 
     Under greedy sampling each client's concatenated stream equals the
     offline generate -> causal decode -> crop pipeline
-    (``tests/test_torch_stream_tts.py``)."""
+    (``tests/test_torch_stream_tts.py``). The engine's server holds the
+    decode chunk's CUDA graphs (``cuda_graphs``: as
+    :class:`serve.ContinuousBatcher`): a chunk of ``chunk_frames`` steps
+    replays them ``ceil(chunk_frames / graphs.UNROLL)`` times, the steps
+    past the budget no-ops."""
 
     def __init__(self, lm_params, cfg: SSRModelConfig, dec: DecodeConfig,
                  codec_params, codec_cfg: CodecConfig, n_slots: int, *,
                  chunk_frames: int = 25,
                  first_chunk_frames: Optional[int] = None, sx_pad: int = 128,
                  p_pad: int = 512, dtype: Optional[torch.dtype] = None,
-                 codec_dtype=torch.float32, warm_chunk: int = 50):
+                 codec_dtype=torch.float32, warm_chunk: int = 50,
+                 cuda_graphs: bool = True):
         if not codec_cfg.seanet.causal:
             raise ValueError("streaming TTS needs a causal codec "
                              "(codec_cfg.seanet.causal=True)")
@@ -192,7 +199,7 @@ class StreamingServer:
                                                n_slots, dtype=codec_dtype)
         self._server = serve_mod.ContinuousBatcher(
             lm_params, cfg, dec, n_slots, sx_pad=sx_pad, p_pad=p_pad,
-            num_task=1, dtype=dtype)
+            num_task=1, dtype=dtype, cuda_graphs=cuda_graphs)
 
     @property
     def device(self) -> torch.device:

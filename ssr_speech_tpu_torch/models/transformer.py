@@ -46,7 +46,7 @@ import functools
 import math
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -418,14 +418,36 @@ def run_layers(layers, h: torch.Tensor, cfg: SSRModelConfig, *, bias=None,
     return h
 
 
+def cache_stage_sizes(tmax: int, max_buckets: int = 8):
+    """Stage capacities of a decode cache: up to ``max_buckets`` multiples of
+    a 128-aligned chunk ending at ``tmax`` (JAX ``cache_stage_sizes``). The
+    decode loops read their caches through these windows: a graph is
+    captured for each window, so a step reads at most one chunk of keys
+    beyond the fill."""
+    if tmax <= 128:
+        return [tmax]
+    raw = -(-tmax // max_buckets)  # ceil(tmax / max_buckets)
+    chunk = max(128, -(-raw // 128) * 128)  # round up to 128
+    n = -(-tmax // chunk)
+    return [min((i + 1) * chunk, tmax) for i in range(n)]
+
+
+def stage_window(sizes, need: int) -> int:
+    """The smallest of ``sizes`` that holds ``need`` keys (the last if none
+    does)."""
+    return next((w for w in sizes if w >= need), sizes[-1])
+
+
 @dataclass
 class KVCache:
     """Preallocated per-layer key/value buffers and the current fill length.
-    The buffers are written in place (JAX returns updated copies)."""
+    The buffers are written in place (JAX returns updated copies).
+    ``length`` is a host int, or a [1] int64 tensor on the buffers' device
+    (the decode loops' graphs read it there)."""
 
     k: torch.Tensor  # [L, B, H, Tmax, Dh]
     v: torch.Tensor  # [L, B, H, Tmax, Dh]
-    length: int  # number of filled positions
+    length: Union[int, torch.Tensor]  # number of filled positions
 
     @property
     def max_len(self) -> int:
@@ -468,41 +490,83 @@ def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
     return out, KVCache(cache.k, cache.v, start + s)
 
 
-def decode_bias(key_banned: torch.Tensor, length: int) -> torch.Tensor:
-    """[B, 2] banned key range [lo, hi) -> additive bias [B, 1, 1, length]."""
+def _write_at(buf: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
+    """buf [B, H, T, Dh] <- new [B, H, 1, Dh] at column ``pos`` ([1] int64 on
+    the device), clamped to the buffer as JAX drops an out-of-range write
+    (only a step past a loop's end writes there, and nothing reads it)."""
+    buf.index_copy_(2, pos.clamp(max=buf.shape[2] - 1), new.to(buf.dtype))
+
+
+def _as_pos(length, device) -> torch.Tensor:
+    """A cache fill as a [1] int64 tensor on ``device``."""
+    if isinstance(length, torch.Tensor):
+        return length.reshape(1)
+    return torch.full((1,), int(length), dtype=torch.int64, device=device)
+
+
+def _read_window(length, window: Optional[int], size: int) -> int:
+    """Keys a step reads: ``window`` when given, else the fill plus the new
+    token when the fill is a host int (the whole buffer when it is on the
+    device)."""
+    if window is not None:
+        return min(int(window), size)
+    if isinstance(length, torch.Tensor):
+        return size
+    return min(length + 1, size)
+
+
+def decode_bias(key_banned: torch.Tensor, length: int,
+                pos=None) -> torch.Tensor:
+    """[B, 2] banned key range [lo, hi) -> additive bias [B, 1, 1, length];
+    keys beyond ``pos`` (an int or a [1] tensor: the current token's
+    position) are banned too."""
     idx = torch.arange(length, device=key_banned.device)[None, :]
     banned = (idx >= key_banned[:, :1]) & (idx < key_banned[:, 1:2])
+    if pos is not None:
+        banned = banned | (idx > pos)
     zero = torch.zeros((), dtype=torch.float32, device=key_banned.device)
     return torch.where(banned, -1e9, zero)[:, None, None, :]
 
 
+def _step_scale(dh: int, dtype, device) -> torch.Tensor:
+    """JAX multiplies q by the scale as a weakly typed constant: in
+    ``dtype`` (a fill, so a captured graph holds no host copy)."""
+    return torch.full((), 1.0 / math.sqrt(dh), dtype=dtype, device=device)
+
+
 def transformer_decode_step(params, h_t: torch.Tensor, cache: KVCache,
                             key_banned: torch.Tensor, cfg: SSRModelConfig, *,
-                            dtype=torch.bfloat16,
-                            layers=None) -> Tuple[torch.Tensor, KVCache]:
-    """One-token decode: h_t [B, D] at position ``cache.length``.
+                            dtype=torch.bfloat16, layers=None,
+                            window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode: h_t [B, D] at position ``cache.length`` (a host int
+    or a [1] device tensor, which a captured graph reads there).
 
     key_banned: [B, 2] banned key range [lo, hi) per row (text padding and the
-    CFG-unconditional row's hidden prompt). The step reads keys
-    [0, length] only: JAX reads the whole buffer with the future masked,
-    which adds exact zeros to the same softmax. Returns (out [B, D], cache
-    advanced by one); the new K/V are written into the cache in place.
-    ``layers`` may pass ``layer_params(params)`` precomputed."""
+    CFG-unconditional row's hidden prompt). The step writes the new K/V at
+    the position with a device index and reads keys [0, ``window``)
+    (default: [0, length] for a host int, the whole buffer for a device
+    fill); keys past the position are masked with -1e9, which adds exact
+    zeros to the same softmax, as JAX's read of its whole stage buffer does.
+    Returns (out [B, D], cache advanced by one); the new K/V are written
+    into the cache in place. ``layers`` may pass ``layer_params(params)``
+    precomputed."""
     act = _ffn_act(cfg, deterministic=True)
     par = parallel_of(params)
     nhead = local_heads(cfg, par)
     pos = cache.length
-    if pos >= cache.max_len:
+    if not isinstance(pos, torch.Tensor) and pos >= cache.max_len:
         raise ValueError(f"KV cache full ({cache.max_len} positions)")
+    w = _read_window(pos, window, cache.max_len)
+    pos_t = _as_pos(pos, h_t.device)
     h = h_t.to(dtype)[:, None, :]
-    bias = decode_bias(key_banned, pos + 1)
+    bias = decode_bias(key_banned, w, pos_t)
     for l, lp in enumerate(layers or layer_params(params)):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
         q, k, v = _qkv(lp, hn, nhead, par)
-        cache.k[l, :, :, pos:pos + 1] = k
-        cache.v[l, :, :, pos:pos + 1] = v
-        attn = _attend(q, cache.k[l, :, :, :pos + 1],
-                       cache.v[l, :, :, :pos + 1], bias)
+        _write_at(cache.k[l], pos_t, k)
+        _write_at(cache.v[l], pos_t, v)
+        attn = _attend(q, cache.k[l, :, :, :w], cache.v[l, :, :, :w], bias)
         h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True,
                             par=par)
     out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
@@ -512,8 +576,9 @@ def transformer_decode_step(params, h_t: torch.Tensor, cache: KVCache,
 def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
                                    gen: KVCache, key_banned: torch.Tensor,
                                    cfg: SSRModelConfig, *, n_groups: int,
-                                   dtype=torch.bfloat16,
-                                   layers=None) -> Tuple[torch.Tensor, KVCache]:
+                                   dtype=torch.bfloat16, layers=None,
+                                   window: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode of ``n_groups * S`` chains over a shared prompt cache
     (JAX ``transformer_decode_step_shared``).
 
@@ -521,51 +586,60 @@ def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
     Dh] holds each group's prompt once, read once a step for its S chains;
     ``gen`` [L, B, H, Tg, Dh] holds each chain's generated positions, and the
     new K/V are written into it in place at ``gen.length``. ``key_banned``
-    is the banned prefix key range [G, 2] (keys at and beyond ``pfx.length``
-    are banned too) or a bool mask [G, Tp] that the multi-prompt prefill
-    builds True from ``pfx.length`` on. Keys [0, pfx.length) of the prefix
-    and [0, gen.length] of the generated cache are read: JAX reads both
-    whole buffers with the rest masked, which adds exact zeros to the same
-    softmax. The arithmetic is JAX's: q scaled (in ``dtype``) before the
-    products, fp32 scores and one softmax over [prefix ; generated],
-    probabilities in ``dtype``, the last residual ``(h + ff @ w2) + b2``.
-    Returns (out [B, D], gen advanced by one)."""
+    is the banned prefix key range [G, 2] or a bool mask [G, >= Tp] that the
+    multi-prompt prefill builds; keys at and beyond ``pfx.length`` are
+    banned too. Both lengths are host ints or [1] device tensors. Read: the
+    prefix [0, pfx.length) for a host int, else the whole prefix buffer;
+    the generated cache [0, ``window``) (default: [0, gen.length] for a
+    host int, else the whole buffer), keys past the current position masked
+    with -1e9: JAX reads both whole buffers with the rest masked, which adds
+    exact zeros to the same softmax. The arithmetic is JAX's: q scaled (in
+    ``dtype``) before the products, fp32 scores and one softmax over
+    [prefix ; generated], probabilities in ``dtype``, the last residual
+    ``(h + ff @ w2) + b2``. Returns (out [B, D], gen advanced by one)."""
     act = _ffn_act(cfg, deterministic=True)
     par = parallel_of(params)
     b, _ = h_t.shape
     s = b // n_groups
     nhead, dh = local_heads(cfg, par), cfg.head_dim
     d = nhead * dh
-    gpos, tp = gen.length, pfx.length
-    if gpos >= gen.max_len:
+    dev = h_t.device
+    gpos = gen.length
+    if not isinstance(gpos, torch.Tensor) and gpos >= gen.max_len:
         raise ValueError(f"generated KV cache full ({gen.max_len} positions)")
+    tp = (pfx.max_len if isinstance(pfx.length, torch.Tensor)
+          else min(pfx.length, pfx.max_len))
+    wg = _read_window(gpos, window, gen.max_len)
+    gpos_t = _as_pos(gpos, dev)
+    idx = torch.arange(tp, device=dev)[None, :]
     if key_banned.dtype == torch.bool:
         pfx_banned = key_banned[:, :tp]
     else:
-        idx = torch.arange(tp, device=key_banned.device)[None, :]
         pfx_banned = (idx >= key_banned[:, :1]) & (idx < key_banned[:, 1:2])
-    zero = torch.zeros((), dtype=torch.float32, device=h_t.device)
+    pfx_banned = pfx_banned | (idx >= pfx.length)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     pfx_bias = torch.where(pfx_banned, -1e9, zero)[:, None, None, :]
-    # JAX multiplies by the scale as a weakly typed constant: in ``dtype``
-    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=dtype, device=h_t.device)
+    gcols = torch.arange(wg, device=dev)
+    gen_bias = torch.where(gcols > gpos_t, -1e9, zero)  # [wg]
+    scale = _step_scale(dh, dtype, dev)
     h = h_t.to(dtype)[:, None, :]
     for l, lp in enumerate(layers or layer_params(params)):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
         q, k, v = _qkv(lp, hn, nhead, par)  # [B, H, 1, Dh]
-        gen.k[l, :, :, gpos:gpos + 1] = k
-        gen.v[l, :, :, gpos:gpos + 1] = v
+        _write_at(gen.k[l], gpos_t, k)
+        _write_at(gen.v[l], gpos_t, v)
         qs = q * scale
         # prefix scores: the group's K read once for its S chains [G, H, S, Tp]
         qg = qs.reshape(n_groups, s, nhead, dh).transpose(1, 2)
         sp = torch.matmul(qg.float(), pfx.k[l, :, :, :tp].float()
                           .transpose(-1, -2)) + pfx_bias
-        sg = torch.matmul(qs.float(), gen.k[l, :, :, :gpos + 1].float()
-                          .transpose(-1, -2))  # [B, H, 1, gpos + 1]
-        sg = sg.reshape(n_groups, s, nhead, gpos + 1).transpose(1, 2)
+        sg = torch.matmul(qs.float(), gen.k[l, :, :, :wg].float()
+                          .transpose(-1, -2)) + gen_bias  # [B, H, 1, wg]
+        sg = sg.reshape(n_groups, s, nhead, wg).transpose(1, 2)
         p = torch.softmax(torch.cat([sp, sg], dim=-1), dim=-1).to(dtype)
         out_p = torch.matmul(p[..., :tp], pfx.v[l, :, :, :tp])  # [G, H, S, Dh]
-        pg = p[..., tp:].transpose(1, 2).reshape(b, nhead, 1, gpos + 1)
-        out_g = torch.matmul(pg, gen.v[l, :, :, :gpos + 1])  # [B, H, 1, Dh]
+        pg = p[..., tp:].transpose(1, 2).reshape(b, nhead, 1, wg)
+        out_g = torch.matmul(pg, gen.v[l, :, :, :wg])  # [B, H, 1, Dh]
         attn = out_p.transpose(1, 2).reshape(b, nhead, 1, dh) + out_g
         h = _post_attention(lp, h, attn.reshape(b, 1, d), act, bias_last=True,
                             par=par)
@@ -595,14 +669,14 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
     ``key_banned`` and the last residual is ``(h + ff @ w2) + b2``.
 
     Reads: keys [0, pfx.length) of the prefix and columns [0, ``read_len``)
-    of the generated cache, where ``read_len`` (default: all of Tg) must be
-    at least ``max(gen_len)``; the caller passes a bound it keeps on the
-    host. JAX reads both whole buffers; the columns left out are masked
-    there, exact zeros of the same softmax. All layers' K/V land in one
-    scatter after the layer loop, at column ``gen_len[r]`` of each row r
-    (clamped to the buffer, where JAX drops an out-of-range write; a caller
-    never lets a row reach it). Returns (out [B, D], gen), the cache
-    written in place."""
+    of the generated cache, a static window (default: all of Tg) that must
+    hold ``max(gen_len)``; the server passes the stage window that bounds
+    it for the graph's steps. JAX reads both whole buffers; the columns
+    left out are masked there, exact zeros of the same softmax. All layers'
+    K/V land in one scatter after the layer loop, at column ``gen_len[r]``
+    of each row r (clamped to the buffer, where JAX drops an out-of-range
+    write; a caller never lets a row reach it). Returns (out [B, D], gen),
+    the cache written in place."""
     act = _ffn_act(cfg, deterministic=True)
     par = parallel_of(params)
     b, _ = h_t.shape
@@ -616,8 +690,7 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
     cols = torch.arange(rl, device=dev)[None, :]
     gen_bias = torch.where(cols < gen_len[:, None], zero,
                            -1e9)[:, None, None, :]  # [B, 1, 1, rl]
-    # JAX multiplies by the scale as a weakly typed constant: in ``dtype``
-    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=dtype, device=dev)
+    scale = _step_scale(dh, dtype, dev)
     h = h_t.to(dtype)[:, None, :]
     ks, vs = [], []
     for l, lp in enumerate(layers or layer_params(params)):

@@ -830,3 +830,130 @@ def test_served_on_card_is_deterministic(device, small_lm):
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
         assert a[2] == b[2]
+
+
+# ------------------------------------------------------- the decode graphs
+
+GRAPH_PATHS = ["single", "shared", "paged"]
+
+
+def _graph_requests(cfg):
+    rng = np.random.default_rng(3)
+    return [(rng.integers(0, cfg.text_vocab_size - 1, size=(sx,)),
+             rng.integers(0, 2048, size=(4, T)), mask)
+            for T, sx, mask in [(90, 30, [(30, 60)]), (60, 24, [(10, 25)]),
+                                (70, 26, [(10, 20), (40, 50)])]]
+
+
+def _decode_path(path, gpu, cfg, device, cuda_graphs, reqs=None):
+    """One request of the single path (``generate``), the shared path
+    (``generate_batch``, 3 chains) or the paged path (``serve_requests``, 3
+    requests through 2 lanes), greedy under CFG on the card."""
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import decode as tdecode
+    from ssr_speech_tpu_torch.inference import serve as tserve
+
+    reqs = reqs or _graph_requests(cfg)
+    dec = DecodeConfig(top_k=1, stop_repetition=2, aug_text=True,
+                       cfg_pretrained=True, cfg_stride=5, max_gen_per_span=120)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if path == "single":
+        return [tdecode.generate(gpu, cfg, dec, *reqs[0], gen,
+                                 cuda_graphs=cuda_graphs)]
+    if path == "shared":
+        return tdecode.generate_batch(gpu, cfg, dec, *reqs[0], gen, 3,
+                                      cuda_graphs=cuda_graphs)
+    return tserve.serve_requests(gpu, cfg, dec, reqs, gen, n_slots=2,
+                                 cuda_graphs=cuda_graphs)
+
+
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_decode_graphs_match_the_eager_loop(device, small_lm, path):
+    """Each decode path replayed as CUDA graphs against the same body run
+    eagerly on the card: every step's logits (recorded on the device,
+    ``chip_smoke.LogitTrace``) within 3e-2 of the max (bf16), the greedy
+    argmax the same at every step (``chip_smoke.compare_traces``; no tie)
+    and the codes identical."""
+    from chip_smoke import LogitTrace, compare_traces
+    from ssr_speech_tpu_torch.inference import graphs
+
+    cfg, _, gpu = small_lm
+    runs = {}
+    for use in (False, True):
+        graphs.clear()
+        with LogitTrace(torch) as trace:
+            outs = _decode_path(path, gpu, cfg, device, use)
+            runs[use] = (outs, trace.steps())
+        graphs.clear()
+    (eager, e_log), (graph, g_log) = runs[False], runs[True]
+    held = compare_traces(torch, e_log, g_log, path)
+    assert held["first_tie"] is None and held["held"] == len(e_log) > 0
+    assert held["max_logit_err"] <= 3e-2 * e_log.abs().max().item()
+    for a, b in zip(eager, graph):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        assert a[2] == b[2]
+
+
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_decode_graphs_reused_by_the_next_request(device, small_lm, path):
+    """A second request of the same bucket through the same workspace (for
+    the server: the same ContinuousBatcher) replays the graphs the first
+    captured: no new capture, more replays, the same codes."""
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.inference import serve as tserve
+
+    cfg, _, gpu = small_lm
+    graphs.clear()
+    if path == "paged":
+        dec = DecodeConfig(top_k=1, stop_repetition=2, aug_text=True,
+                           cfg_pretrained=True, cfg_stride=5,
+                           max_gen_per_span=120)
+        reqs = _graph_requests(cfg)
+        srv = tserve.ContinuousBatcher(gpu, cfg, dec, 2, sx_pad=64,
+                                       p_pad=128, num_task=2)
+        loops = [srv._loop]
+        first = srv.run(reqs, torch.Generator(device=device).manual_seed(0))
+    else:
+        first = _decode_path(path, gpu, cfg, device, True)
+        loops = [ws.loop for ws in graphs.kept()]
+    assert len(loops) == 1 and loops[0].use_graphs
+    captures, replays = loops[0].captures, loops[0].replays
+    assert captures >= 1
+    if path == "paged":
+        second = srv.run(reqs, torch.Generator(device=device).manual_seed(0))
+    else:
+        second = _decode_path(path, gpu, cfg, device, True)
+        assert [ws.loop for ws in graphs.kept()] == loops
+    assert loops[0].captures == captures
+    assert loops[0].replays > replays
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a[0], b[0])
+    graphs.clear()
+
+
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_decode_graph_capture_failure_raises(device, small_lm, path,
+                                             monkeypatch):
+    """A body that cannot be captured (here a host read inside it) raises
+    from the capture: the loop does not carry on eagerly."""
+    from ssr_speech_tpu_torch.inference import decode as tdecode
+    from ssr_speech_tpu_torch.inference import graphs
+
+    cfg, _, gpu = small_lm
+    real = tdecode.top_k_top_p_filter
+
+    def syncing(lgt, **kw):
+        float(lgt.sum().item())  # a host read: refused while capturing
+        return real(lgt, **kw)
+
+    graphs.clear()
+    monkeypatch.setattr(tdecode, "top_k_top_p_filter", syncing)
+    with pytest.raises(RuntimeError):
+        _decode_path(path, gpu, cfg, device, True)
+    monkeypatch.setattr(tdecode, "top_k_top_p_filter", real)
+    graphs.clear()
+    torch.cuda.synchronize()
+    assert _decode_path(path, gpu, cfg, device, True)  # the card still works
+    graphs.clear()

@@ -308,6 +308,32 @@ def test_sorted_static_batches_equal(n_slots):
     assert tserve.sorted_static_batches([], n_slots) == []
 
 
+@pytest.mark.parametrize("tmax,max_buckets", [
+    (1, 8), (64, 8), (128, 8), (129, 8), (256, 8), (640, 8), (1000, 8),
+    (1024, 8), (1536, 8), (2304, 8), (4096, 8), (10000, 8), (1024, 3),
+    (1536, 16)])
+def test_cache_stage_sizes_equal(tmax, max_buckets):
+    """The decode graphs' stage windows are JAX's telescoping-cache stages
+    (the port's copy of ``cache_stage_sizes``): the same sizes, each a
+    multiple of 128 but the last, ending at ``tmax``."""
+    from ssr_speech_tpu.models import transformer as jtrf
+    from ssr_speech_tpu_torch.models import transformer as ttrf
+
+    got = ttrf.cache_stage_sizes(tmax, max_buckets)
+    assert got == jtrf.cache_stage_sizes(tmax, max_buckets)
+    assert got[-1] == tmax and all(w % 128 == 0 for w in got[:-1])
+    assert ttrf.stage_window(got, tmax + 1) == tmax
+    assert all(ttrf.stage_window(got, w) == w for w in got)
+
+
+def test_graph_module_is_guarded():
+    """The decode loops' graph module is among the modules the import guard
+    loads and the source scan reads."""
+    assert "ssr_speech_tpu_torch.inference.graphs" in port_modules()
+    assert REPO / "ssr_speech_tpu_torch" / "inference" / "graphs.py" in \
+        scanned_sources()
+
+
 def test_text_norm_outputs_equal():
     for n in (0, 7, 13, 21, 100, 101, 999, 1000, 1234, 20005, 1000000, 987654321):
         assert ttext.num_to_words_en(n) == jtext.num_to_words_en(n)
