@@ -128,8 +128,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    read back by ``load_sharded`` in one process bit for bit. Prints ms and
    each rank's peak (the transport's times, not scaling numbers) and a
    ``{"parallel": ...}`` line.
-10. Print the kernel report (JSON; each kernel's launches are those of steps
-   4 to 9, counted from zero before each path, the flash forward's also by
+10. ``[bench]``: the port's benchmark (``ssr_speech_tpu_torch.bench``, the
+   JAX package's ``bench.py`` workloads) at the e830M width: en TTS (8 s
+   after a 3 s prompt), the 4 s edit of an 8 s utterance with the watermark
+   splice, the same edit in the Mandarin configuration (CFG stride 1) and 8
+   chains of the TTS in one loop, each warmed up and run twice, EOG
+   disabled. Gates: finite positive RTFs, the generated frames of the
+   benchmark's arithmetic, 16 K1 launches a run, no capture in a timed run
+   and the zh edit's own captures, the edits' wavs finite at 16 kHz and
+   their codes' length. Prints the benchmark's JSON line.
+11. ``[rehearsal]``: the port's train->serve lifecycle rehearsal at
+   ``tests/test_lifecycle.py``'s step counts (a tiny watermark codec trained
+   500 steps, prep through it, a tiny LM overfit 220 steps, CLI TTS and
+   edit, ``detect_cli``, the greedy token match), gated by that test's
+   thresholds; the prep rehearsal ``--tiny --n_utts 12``; ``eval_quality``
+   over the lifecycle's wavs (SI-SNR finite). Head width 16: K1 launches 0
+   times (the einsum prefill). Prints a ``{"rehearsal": ...}`` line.
+12. Print the kernel report (JSON; each kernel's launches are those of steps
+   4 to 11, counted from zero before each path, the flash forward's also by
    path; ``bound_ms`` is the least time the
    card could take for the same work, from the inputs' bytes and operations
    and the published peaks below), the card line, and as the last line
@@ -4002,6 +4018,167 @@ def drive_int8_probe(torch, card: str) -> dict:
     return launches
 
 
+BENCH_FRAMES = dict(tts=400, edit=200, zh_edit=200, batch=8 * 400)
+
+
+def _finite_positive(x) -> bool:
+    return isinstance(x, float) and math.isfinite(x) and x > 0
+
+
+def np_finite(a) -> bool:
+    import numpy as np
+
+    return a is not None and bool(np.isfinite(a).all())
+
+
+def drive_bench_path(torch, device, card: str) -> dict:
+    """``[bench]``: the port's benchmark (``ssr_speech_tpu_torch.bench``) at
+    the e830M width: en TTS, edit, zh edit (CFG stride 1) and the 8-chain
+    batch, each warmed up once and run twice timed. Gates: finite positive
+    RTFs; every run's generated frames those of the JAX benchmark's
+    arithmetic (TTS ``codes.shape[2] - 150`` = 400, the edits' ``marks.sum()``
+    = 200, the batch 8 x 400); K1 launched 16 times a run (one prefill);
+    no graph captured in a timed run, and the zh edit capturing its own
+    graphs in its warm-up (its stride-1 body is never the edit's); the
+    edits' wavs finite, at the codec's 16 kHz and the codes' length. Prints
+    the benchmark's JSON line and a ``{"bench": ...}`` line."""
+    from ssr_speech_tpu_torch import bench
+    from ssr_speech_tpu_torch.config import CodecConfig
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    cfg, codec_cfg = bench.e830m_config(), CodecConfig()
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    line, report = bench.run_bench(cfg, codec_cfg, device, bench.Sizes())
+    launches = fa.launches
+    seconds = time.perf_counter() - t0
+    for key in ("value", "edit_rtf", "zh_edit_rtf", "aggregate_rtf_s8"):
+        if not _finite_positive(line[key]):
+            raise RuntimeError(f"[bench] {key} = {line[key]!r}")
+    for name, want in BENCH_FRAMES.items():
+        got = report[name]["frames"]
+        if got != [want] * len(got):
+            raise RuntimeError(f"[bench] {name}: generated frames {got}, "
+                               f"the benchmark's arithmetic gives {want}")
+        runs = report[name]["runs"]
+        k1 = [r["k1_launches"] for r in runs]
+        if k1 != [cfg.num_layers] * len(runs):
+            raise RuntimeError(f"[bench] {name}: K1 launches {k1} a run, "
+                               f"expected {cfg.num_layers} (one prefill)")
+        if any(r["captures"] for r in runs[1:]):
+            raise RuntimeError(f"[bench] {name}: a timed run captured graphs "
+                               f"{[r['captures'] for r in runs]}")
+    if not report["zh_edit"]["runs"][0]["captures"]:
+        raise RuntimeError("[bench] the zh edit captured no graph of its own")
+    hop = codec_cfg.hop_length
+    for name in ("edit", "zh_edit"):
+        run = report[name]["last"]
+        codes = run.results[0][0]
+        if codec_cfg.sample_rate != 16000 or not np_finite(run.wav) \
+                or run.wav.shape[1] != codes.shape[2] * hop:
+            raise RuntimeError(f"[bench] {name}: output not a finite 16 kHz "
+                               f"wav of {codes.shape[2] * hop} samples")
+    summary = {name: dict(frames=report[name]["frames"][0],
+                          elapsed_s=report[name]["elapsed_s"],
+                          runs=report[name]["runs"]) for name in report}
+    print(f"[bench] all four requests in {seconds:.1f} s; K1 {launches} "
+          f"launches; en TTS {line['value']}x, edit {line['edit_rtf']}x, zh "
+          f"edit {line['zh_edit_rtf']}x, aggregate S=8 "
+          f"{line['aggregate_rtf_s8']}x [{card}]")
+    print(json.dumps(line))
+    del report
+    graphs.clear()
+    return dict(launches=launches, seconds=seconds, line=line,
+                requests=summary)
+
+
+REHEARSAL_CODEC_STEPS = 500  # tests/test_lifecycle.py's step counts
+REHEARSAL_LM_STEPS = 220
+
+
+def drive_rehearsal_path(torch, device, work: Path, card: str) -> dict:
+    """``[rehearsal]``: the port's train->serve lifecycle rehearsal at the
+    JAX test's step counts on the card, gated by exactly the thresholds of
+    ``tests/test_lifecycle.py``; then the data-prep rehearsal (``--tiny
+    --n_utts 12``) and the quality-eval CLI over the lifecycle's TTS and
+    edit wavs against the original (SI-SNR finite). Its LM has head width
+    16, so K1 must launch 0 times (the einsum route, prefill and training).
+    Prints a ``{"rehearsal": ...}`` line."""
+    import contextlib
+    import io
+
+    from ssr_speech_tpu_torch import (eval_quality, lifecycle_rehearsal,
+                                      prep_rehearsal)
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    out = work / "rehearsal"
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    life = lifecycle_rehearsal.main([
+        "--out", str(out / "lifecycle"), "--device", str(device),
+        "--codec_steps", str(REHEARSAL_CODEC_STEPS),
+        "--lm_steps", str(REHEARSAL_LM_STEPS)])
+    t_life = time.perf_counter() - t0
+    ms, me = life["edit_mask"]
+    gates = {
+        "token_match >= 0.9": life["token_match"] >= 0.9,
+        "|token_gen_frames - token_truth_frames| <= 3":
+            abs(life["token_gen_frames"] - life["token_truth_frames"]) <= 3,
+        "tts_flagged": life["tts_flagged"] is True,
+        "tts_wm_fraction >= 0.85": life["tts_wm_fraction"] >= 0.85,
+        "not clean_flagged": life["clean_flagged"] is False,
+        "clean_wm_fraction <= 0.15": life["clean_wm_fraction"] <= 0.15,
+        "edit_prefix_fp <= 0.15": life["edit_prefix_fp"] <= 0.15,
+        "edit_suffix_fp <= 0.15": life["edit_suffix_fp"] <= 0.15,
+        "edit_gen_coverage >= 0.8": life["edit_gen_coverage"] >= 0.8,
+        "0 < ms < me": 0 < ms < me,
+        "edit_gen_len > 0": life["edit_gen_len"] > 0,
+    }
+    missed = [name for name, ok in gates.items() if not ok]
+    print(f"[rehearsal] lifecycle in {t_life:.1f} s (codec "
+          f"{life['codec_train_s']} s, LM {life['lm_train_s']} s): token match "
+          f"{life['token_match']:.4f}, TTS watermark {life['tts_wm_fraction']}, "
+          f"clean {life['clean_wm_fraction']}, edit {life['edit_mask']} "
+          f"coverage {life['edit_gen_coverage']:.4f} fp "
+          f"{life['edit_prefix_fp']:.4f}/{life['edit_suffix_fp']:.4f} [{card}]")
+    t1 = time.perf_counter()
+    prep = prep_rehearsal.main(["--out", str(out / "prep"), "--tiny",
+                                "--n_utts", "12", "--device", str(device)])
+    t_prep = time.perf_counter() - t1
+    print(f"[rehearsal] prep --tiny --n_utts 12 in {t_prep:.1f} s: kept "
+          f"{prep['kept_utts']}, encode {prep['encode_s']} s "
+          f"({prep['encode_audio_hours_per_chip_hour']} audio h per device h), "
+          f"phonemize {prep['phonemize_s']} s, train {prep['train_smoke_s']} s")
+    lc = out / "lifecycle"
+    pairs = out / "pairs.jsonl"
+    orig = str(lc / "wavs" / "utt00000.wav")
+    pairs.write_text("\n".join(json.dumps(dict(ref=orig, gen=str(
+        lc / "cli_out" / f"{name}.wav"))) for name in ("tts", "edit")))
+    with contextlib.redirect_stdout(io.StringIO()):
+        quality = eval_quality.main(["--pairs", str(pairs),
+                                     "--device", str(device)])
+    print(f"[rehearsal] eval_quality over the TTS and edit wavs: SI-SNR "
+          f"{quality.get('si_snr_db')} dB, skipped {quality['skipped']}")
+    launches = fa.launches
+    if not prep["ok"] or prep["kept_utts"] < 1:
+        raise RuntimeError(f"[rehearsal] prep rehearsal: {prep}")
+    if quality["n"] != 2 or not math.isfinite(quality.get("si_snr_db",
+                                                          math.nan)):
+        raise RuntimeError(f"[rehearsal] eval_quality: {quality}")
+    if launches:
+        raise RuntimeError(f"[rehearsal] K1 launched {launches} times; the "
+                           f"head-width-16 LM takes the einsum route")
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"rehearsal": dict(lifecycle=life, prep=prep,
+                                        quality=quality, seconds=seconds,
+                                        missed=missed)}))
+    if missed:
+        raise RuntimeError(f"[rehearsal] tests/test_lifecycle.py thresholds "
+                           f"missed: {missed}")
+    return dict(launches=launches, seconds=seconds)
+
+
 def main() -> int:
     if not (REPO / "ssr_speech_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4087,6 +4264,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         parallel = check_parallel(torch, device, cfg, batch, serving, work,
                                   card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bench_run = drive_bench_path(torch, device, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rehearsal = drive_rehearsal_path(torch, device, work, card)
     finally:
         if prep_run is not None and prep_run["cpu"][0].poll() is None:
             prep_run["cpu"][0].kill()
@@ -4111,7 +4294,9 @@ def main() -> int:
                                "prep_training": prep_run["launches"],
                                "remat": remat["launches"],
                                "endurance": endurance["launches"],
-                               "parallel": parallel["launches"][fwd["name"]]}
+                               "parallel": parallel["launches"][fwd["name"]],
+                               "bench": bench_run["launches"],
+                               "rehearsal": rehearsal["launches"]}
     fwd["paged_step"] = paged
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     # the top-level numbers are the serving prefill's; every path's shape here
@@ -4132,6 +4317,9 @@ def main() -> int:
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"graph": graph["paths"]}))
+    print(json.dumps({"bench": dict(line=bench_run["line"],
+                                    seconds=bench_run["seconds"],
+                                    requests=bench_run["requests"])}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,16 @@ default).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
-    """``"cpu"``, ``"cuda"`` or ``"cuda:N"`` -> a checked ``torch.device``."""
+    """``"cpu"``, ``"cuda"`` or ``"cuda:N"`` -> a checked ``torch.device``.
+    A CUDA device is initialised here: the allocator's statistics calls
+    (``reset_peak_memory_stats``, which the CLIs make first) refuse a device
+    of a process that has not touched CUDA yet."""
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -25,6 +30,7 @@ def resolve_device(name: str | torch.device) -> torch.device:
             raise RuntimeError(f"device {str(name)!r} requested but only "
                                f"{torch.cuda.device_count()} CUDA device(s)")
         dev = torch.device("cuda", index)
+        torch.cuda.init()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(name)!r} (cpu or cuda)")
     return dev
@@ -42,3 +48,28 @@ def set_precision_policy() -> None:
 def compute_dtype(device: torch.device) -> torch.dtype:
     """Activation/weight dtype of the LM decoder on ``device``."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Deterministic kernels inside the block, process-wide, restored after:
+    cuDNN's deterministic convolution algorithms and PyTorch's deterministic
+    implementations where it has them (an op without one warns and runs as
+    before), so that a run repeats on one machine as a JAX run does. Memory
+    is not filled on allocation."""
+    import torch.utils.deterministic as det
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark, det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         det.fill_uninitialized_memory) = before[2:]

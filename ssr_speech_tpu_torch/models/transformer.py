@@ -9,8 +9,10 @@ in fp32 whatever the compute dtype, as in JAX.
 
 The full-sequence attention of the prefill and of the training forward goes
 through ``ops.flash_attention.flash_attend_xy`` (the hand-written Hopper
-kernels on CUDA, forward and backward); the one-token decode attention stays
-plain matmul/softmax, as JAX leaves it to XLA einsums.
+kernels on CUDA, forward and backward) where its inputs are bf16 at head width
+128, and through the einsum ``_attend`` otherwise (the prefill decides by
+``prefill_uses_kernel``, training by ``cfg.attn_impl``); the one-token decode
+attention stays plain matmul/softmax, as JAX leaves it to XLA einsums.
 
 Matmul weights are cast to the activations' dtype at each use, as JAX casts
 them: a no-op for the serving path's stored bf16 (or fp32) weights, and the
@@ -55,7 +57,7 @@ from torch.utils import checkpoint as ckpt
 from ..config import SSRModelConfig
 
 from ..ops import scaling
-from ..ops.flash_attention import flash_attend_xy
+from ..ops.flash_attention import HEAD_DIM, flash_attend_xy
 from ..parallel import collectives as col
 
 LAYER_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b", "ln2_w",
@@ -463,19 +465,43 @@ def init_kv_cache(cfg: SSRModelConfig, batch: int, max_len: int,
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
+def prefill_uses_kernel(cfg: SSRModelConfig, dtype) -> bool:
+    """Whether the prefill's attention is the flash kernel: where its inputs
+    are what the kernel takes, bf16 at head width 128. Every other prefill
+    (fp32, or another head width) is the einsum ``_attend``, as JAX's
+    prefill is at any shape and dtype."""
+    return dtype == torch.bfloat16 and cfg.head_dim == HEAD_DIM
+
+
+def prefill_bias(key_valid: torch.Tensor) -> torch.Tensor:
+    """JAX's prefill mask as an additive fp32 bias [B, 1, S, S]: -1e9 on the
+    keys after the query and on the banned keys (``key_valid`` 0) for every
+    query, 0 elsewhere."""
+    s = key_valid.shape[1]
+    idx = torch.arange(s, device=key_valid.device)
+    banned = (idx[None, :] > idx[:, None])[None] | (key_valid == 0)[:, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=key_valid.device)
+    return torch.where(banned, -1e9, zero)[:, None]
+
+
 def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
                         cfg: SSRModelConfig, *, key_valid: torch.Tensor,
                         dtype=torch.bfloat16) -> Tuple[torch.Tensor, KVCache]:
     """Forward over the prompt while filling the cache at ``cache.length``.
 
-    Every layer's attention runs through ``flash_attend_xy`` with segment ids
-    ``key_valid`` [B, S] (1 = attendable key, 0 = banned): a query of
-    segment 1 attends exactly the causal prefix minus the banned keys, which
-    is the JAX prefill's additive mask for every row whose output is read.
+    ``key_valid`` [B, S]: 1 = attendable key, 0 = banned. The route is taken
+    once, before the layer loop (:func:`prefill_uses_kernel`). On the kernel's
+    route every layer's attention is ``flash_attend_xy`` with ``key_valid`` as
+    segment ids: a query of segment 1 attends exactly the causal prefix minus
+    the banned keys, which is the JAX prefill's additive mask for every row
+    whose output is read. Otherwise it is ``_attend`` over
+    :func:`prefill_bias`, JAX's mask on every row.
     Returns (hidden [B, S, D], cache)."""
     act = _ffn_act(cfg, deterministic=True)
     par = parallel_of(params)
     nhead = local_heads(cfg, par)
+    use_kernel = prefill_uses_kernel(cfg, dtype)
+    bias = None if use_kernel else prefill_bias(key_valid)
     h = h.to(dtype)
     start, s = cache.length, h.shape[1]
     for l, lp in enumerate(layer_params(params)):
@@ -483,7 +509,8 @@ def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
         q, k, v = (t.contiguous() for t in _qkv(lp, hn, nhead, par))
         cache.k[l, :, :, start:start + s] = k
         cache.v[l, :, :, start:start + s] = v
-        attn = flash_attend_xy(q, k, v, key_valid)
+        attn = (flash_attend_xy(q, k, v, key_valid) if use_kernel
+                else _attend(q, k, v, bias))
         h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True,
                             par=par)
     out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])

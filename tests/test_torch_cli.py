@@ -1,5 +1,6 @@
 """The port's CLI against the JAX CLI on the CPU, on tiny random bundles (the
 recipe of tests/test_cli_integration.py): the same edit and TTS requests,
+English and Mandarin (``--language zh``: a char-level diff, CFG stride 1),
 greedy, with the JAX decode pinned to fp32, must write the same wav, and so
 must ``--sample_batch_size 3``'s three. Also: the port's bundles load in the
 JAX package, its init matches the JAX init's structure, its CLI imports no
@@ -41,12 +42,17 @@ CODEC = CodecConfig(
     rvq=RVQConfig(dimension=16, n_q=CFG.n_codebooks,
                   bins=CFG.tokens.audio_vocab_size))
 WORDS = ["but", "when", "i", "had", "approached", "so", "near", "to", "them"]
+# the Mandarin requests (tests/test_cli_integration.py's zh edit): one phone
+# id a character, a character-level alignment
+ZH_CHARS = "今天气很好不错"
+ZH_ORIG = "今天天气很好"
 
 
 @pytest.fixture(scope="module")
 def artifacts(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_cli")
-    phn2num = {c: i for i, c in enumerate("abcdefghijklmnopqrstuvwxyz_.!?,' ")}
+    phn2num = {c: i for i, c in enumerate(
+        "abcdefghijklmnopqrstuvwxyz_.!?,' " + ZH_CHARS)}
     lm_path = str(d / "bundle.pkl")
     ckpt.save_bundle(lm_path, params=jssr.init_ssr(jax.random.PRNGKey(0), CFG),
                      model_config=dataclasses.asdict(CFG), phn2num=phn2num)
@@ -67,8 +73,16 @@ def artifacts(tmp_path_factory):
         w.writerow(["word", "start", "end"])
         for i, word in enumerate(WORDS):
             w.writerow([word, round(i * step + 0.05, 3), round((i + 1) * step, 3)])
+    # a character-level alignment of a Mandarin transcript over the same wav
+    zh_align = str(d / "zh_align.csv")
+    step = dur / (len(ZH_ORIG) + 1)
+    with open(zh_align, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["word", "start", "end"])
+        for i, ch in enumerate(ZH_ORIG):
+            w.writerow([ch, round(i * step + 0.05, 3), round((i + 1) * step, 3)])
     return dict(lm=lm_path, codec=codec_path, wav=wav_path, align=align_path,
-                dir=d)
+                zh_align=zh_align, dir=d)
 
 
 def _argv(a, out_dir, name, *extra):
@@ -86,17 +100,27 @@ REQUESTS = {
                            "--cfg_stride", "5"],
     "tts": ["--target_transcript", "a brand new sentence to speak", "--tts",
             "--prompt_length", "2.0"],
+    # Mandarin: a char-level diff, the CFG combine every step (stride 1)
+    "zh_edit_cfg_stride1": ["--language", "zh", "--orig_transcript", ZH_ORIG,
+                            "--target_transcript", "今天天气不错",
+                            "--alignment_file", "{zh_align}",
+                            "--use_watermark", "--aug_text",
+                            "--cfg_pretrained", "--cfg_stride", "1"],
+    "zh_tts": ["--language", "zh", "--orig_transcript", ZH_ORIG,
+               "--target_transcript", "不错", "--alignment_file", "{zh_align}",
+               "--tts", "--prompt_length", "1.5"],
 }
 
 
 @pytest.mark.parametrize("name", sorted(REQUESTS))
 def test_cli_matches_jax_cli(artifacts, monkeypatch, name):
     out = artifacts["dir"] / "out"
+    extra = [arg.format(**artifacts) for arg in REQUESTS[name]]
     stats = tcli.main(_argv(artifacts, out, f"torch_{name}", "--device", "cpu",
-                            *REQUESTS[name]))
+                            *extra))
     monkeypatch.setattr(jdecode, "generate", functools.partial(
         jdecode.generate, dtype_name="float32"))
-    jcli.main(_argv(artifacts, out, f"jax_{name}", *REQUESTS[name]))
+    jcli.main(_argv(artifacts, out, f"jax_{name}", *extra))
     got, sr = audio_io.read_wav(str(out / f"torch_{name}.wav"))
     want, sr_j = audio_io.read_wav(str(out / f"jax_{name}.wav"))
     assert sr == sr_j == 16000

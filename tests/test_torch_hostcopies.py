@@ -21,6 +21,7 @@ config classes instead of the reference's.
 
 import dataclasses
 import importlib
+import importlib.util
 import inspect
 import json
 import re
@@ -133,12 +134,20 @@ LIFECYCLE_MODULES = {
         "models.codec.external", "train_codec")}
 
 
+# the benchmark, the rehearsals and the quality-eval CLI: each is imported
+# below and scanned by (b)
+YARDSTICK_MODULES = {
+    "ssr_speech_tpu_torch." + m for m in (
+        "bench", "eval_quality", "prep_rehearsal", "lifecycle_rehearsal")}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = port_modules()
     assert len(mods) > 40 and "ssr_speech_tpu_torch.int8_probe" in mods
     assert {"ssr_speech_tpu_torch.train_codec",
             "ssr_speech_tpu_torch.inference.detect_cli"} <= set(mods)
     assert LIFECYCLE_MODULES <= set(mods)
+    assert YARDSTICK_MODULES <= set(mods)
     code = ("import importlib, sys; sys.path.insert(0, 'tools'); "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "import chip_smoke, torch_profile_generate; " + NO_JAX_PACKAGE)
@@ -155,6 +164,8 @@ IMPORT_OF_JAX_PACKAGE = re.compile(
 
 def scanned_sources():
     files = sorted((REPO / "ssr_speech_tpu_torch").rglob("*.py"))
+    assert {REPO / "ssr_speech_tpu_torch" / f"{m.rsplit('.', 1)[1]}.py"
+            for m in YARDSTICK_MODULES} <= set(files)
     files += [REPO / "chip_smoke.py", REPO / "tools" / "torch_profile_generate.py",
               REPO / "tests" / "test_torch_cuda.py"]
     return files
@@ -674,3 +685,104 @@ def test_prep_helpers_write_the_same(tmp_path):
             == (tmp_path / "j" / "train.txt").read_bytes())
     assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
 
+
+
+# ------------------------- the host code copied from tools/ (slice 15)
+
+def _tool(name):
+    """A ``tools/`` script as a module (loaded from its file)."""
+    spec = importlib.util.spec_from_file_location(
+        f"tool_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _same_tree(a: Path, b: Path):
+    """Every file under ``a`` and ``b`` the same, the roots' paths in the
+    text files swapped."""
+    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(b) for p in b.rglob("*")
+                           if p.is_file())
+    for rel in files:
+        got, want = (b / rel).read_bytes(), (a / rel).read_bytes()
+        if rel.suffix != ".wav":
+            got = got.replace(str(b).encode(), str(a).encode())
+        assert got == want, rel
+    return files
+
+
+@pytest.mark.parametrize("tool,port,kwargs", [
+    ("prep_rehearsal", "prep_rehearsal", dict(n_utts=9)),
+    ("prep_rehearsal", "prep_rehearsal", dict(n_utts=8, tiny=True, seed=3)),
+    ("lifecycle_rehearsal", "lifecycle_rehearsal", dict(n_utts=3)),
+], ids=["prep", "prep-tiny", "lifecycle"])
+def test_rehearsal_corpora_are_the_same(tmp_path, tool, port, kwargs):
+    """The rehearsals' synthetic corpora: the same wavs, manifests and
+    returned values as the tools' (paths aside)."""
+    tmod = importlib.import_module(f"ssr_speech_tpu_torch.{port}")
+    a, b = tmp_path / "jax", tmp_path / "torch"
+    want = _tool(tool).synth_corpus(str(a), **kwargs)
+    got = tmod.synth_corpus(str(b), **kwargs)
+    assert json.dumps(got).replace(str(b), str(a)) == json.dumps(want)
+    assert len(_same_tree(a, b)) == kwargs["n_utts"] + (3 if port.startswith(
+        "lifecycle") else 2)
+    if port.startswith("lifecycle"):
+        assert tmod.WORDS == _tool(tool).WORDS
+        assert tmod.TINY_CODEC == _tool(tool).TINY_CODEC
+    else:
+        for name in ("WORDS", "GARBAGE_TAGS", "PUNCT_TAGS"):
+            assert getattr(tmod, name) == getattr(_tool(tool), name)
+
+
+def test_rehearsal_alignment_writer_is_the_same(tmp_path):
+    from ssr_speech_tpu_torch import lifecycle_rehearsal as tlife
+
+    words = ["the", "tpu", "rebuild", "speaks", "for", "itself"]
+    for dur in (2.56, 1.0, 7.3):
+        _tool("lifecycle_rehearsal").write_alignment(
+            str(tmp_path / "j.csv"), words, dur)
+        tlife.write_alignment(str(tmp_path / "t.csv"), words, dur)
+        assert (tmp_path / "t.csv").read_bytes() == \
+            (tmp_path / "j.csv").read_bytes()
+
+
+def test_eval_manifest_is_read_the_same(tmp_path, monkeypatch):
+    """``tools/eval_quality.py`` and the port's CLI hand ``evaluate_pairs``
+    the same pairs, rate, transcripts and reference texts (mono mixes of
+    mono and stereo files; rows with both, one or no transcript)."""
+    from ssr_speech_tpu_torch import eval_quality as teval
+
+    rng = np.random.default_rng(17)
+    for trial, (channels, extras) in enumerate([
+            (1, [{"text": "a b", "hyp": "a c"}, {"text": "d", "hyp": "d"}]),
+            (2, [{"text": "only a reference"}, {"text": "x"}]),
+            (1, [{"text": "a", "hyp": "b"}, {}])]):
+        rows = []
+        for i, extra in enumerate(extras):
+            paths = {}
+            for role in ("ref", "gen"):
+                path = tmp_path / f"{trial}_{role}{i}.wav"
+                taudio.write_wav(str(path), rng.normal(
+                    size=(channels, 4000)).astype(np.float32) * 0.1, 16000)
+                paths[role] = str(path)
+            rows.append({**paths, **extra})
+        manifest = tmp_path / f"pairs{trial}.jsonl"
+        manifest.write_text("\n".join(json.dumps(r) for r in rows))
+        calls = []
+
+        def record(pairs, sr, **kw):
+            calls.append((pairs, sr, kw))
+            return {"n": len(pairs)}
+
+        monkeypatch.setattr(jquality, "evaluate_pairs", record)
+        monkeypatch.setattr(tquality, "evaluate_pairs", record)
+        _tool("eval_quality").main(["--pairs", str(manifest)])
+        teval.main(["--pairs", str(manifest), "--device", "cpu"])
+        (pj, srj, kwj), (pt, srt, kwt) = calls
+        assert srj == srt == 16000 and len(pj) == len(pt) == len(rows)
+        for (rj, gj), (rt, gt) in zip(pj, pt):
+            np.testing.assert_array_equal(rt, rj)
+            np.testing.assert_array_equal(gt, gj)
+            assert rt.shape == (4000,)
+        assert kwt == kwj
