@@ -36,12 +36,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (``scaled_dot_product_attention`` and its autograd backward), and beside
    K7, K8's bf16 mode and the megakernel ``torch._weight_int8pack_mm`` (16
    chained calls for a chain), are timed as yardsticks; the port never
-   calls them. Then hold a small LM's
+   calls them. ``[prng]``: JAX's threefry draw (``utils/prng.py``, which
+   every init here uses) on the card against the CPU's draw of the same
+   key at e830M's ``qkv_w`` shape, ``uniform`` bit for bit and ``normal``
+   within 3 ulp. Then hold a small LM's
    prefill and the codec, and a 4-layer training step (loss and gradients),
    against the port's fp32 CPU path, and train that LM a few steps: the loss
    must fall.
 4. Serving: write full-width random-weight bundles (the 830M e830M LM, the
-   default encodec_large_nq4_s320 codec) from the port's seeded init, a seeded
+   default encodec_large_nq4_s320 codec) drawn as JAX draws them from
+   ``PRNGKey(0)`` and ``PRNGKey(1)`` (``utils/prng.py``), a seeded
    16 kHz synthetic wav and a word alignment, then drive the port's CLI: a
    watermarked edit (CFG stride 5) and a TTS request, each twice, greedy
    (--top_k 1). Each run must give a finite 16 kHz wav of the expected length,
@@ -115,8 +119,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    host memory), at the e830M width on the first 4 rows of step 5's first
    batch. One-rank references first, in this process: the bf16 step's loss
    and gradients (dropout off), the same at gradient accumulation 4, the
-   fp32 step's gradients (the bf16 step's own rounding, leaf by leaf) and
-   the greedy decode of the edit with its logits. Then the ranks: the tp=2
+   bf16 step through the plain attention and head, the fp32 step's
+   gradients (the bf16 steps' own rounding, leaf by leaf: the larger of
+   the two) and the greedy decode of the edit with its logits. Then the ranks: the tp=2
    step's loss and gathered gradients, and the same with sequence
    parallelism, against the one-rank step (loss within 2e-3; each leaf
    within 3 times the bf16 step's own distance from fp32, plus 1e-3 of its
@@ -125,7 +130,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    on both ranks; the pp=2 step over 4 microbatches against the
    accumulation step; the tp=2 greedy decode of the edit against the
    one-rank decode under ``[decode vs cpu]``'s rule; a tp=2 ``save_sharded``
-   read back by ``load_sharded`` in one process bit for bit. Prints ms and
+   read back by ``load_sharded`` in one process bit for bit; a dp = 2 and
+   an fsdp = 2 step with the update (the layer stacks shared out over dp),
+   each loss within 2e-3 of the one-rank step, fsdp's peak a rank below
+   dp's, printed beside the saving predicted from bytes. Prints ms and
    each rank's peak (the transport's times, not scaling numbers) and a
    ``{"parallel": ...}`` line.
 10. ``[bench]``: the port's benchmark (``ssr_speech_tpu_torch.bench``, the
@@ -182,6 +190,14 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def init_key(seed: int, device="cpu"):
+    """JAX's ``PRNGKey(seed)`` as the port's threefry key: every seeded init
+    of the smoke draws the parameters JAX's init draws from that seed."""
+    from ssr_speech_tpu_torch.utils import prng
+
+    return prng.PRNGKey(seed, device)
 
 
 def prefill_segments(torch, b: int, s: int, sx: int, x_len: int,
@@ -482,8 +498,9 @@ def multi_layout(torch, cfg, device):
 
 
 def write_inputs(torch, device, work: Path, cfg, codec_cfg) -> dict:
-    """Full-width random-weight bundles from the port's seeded init, a seeded
-    6 s 16 kHz wav and a word alignment spanning it."""
+    """Full-width random-weight bundles, JAX's draws from ``PRNGKey(0)``
+    (LM) and ``PRNGKey(1)`` (codec), a seeded 6 s 16 kHz wav and a word
+    alignment spanning it."""
     import csv
 
     import numpy as np
@@ -496,15 +513,15 @@ def write_inputs(torch, device, work: Path, cfg, codec_cfg) -> dict:
 
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = tssr.init_ssr(gen, cfg, device)
+    params = tssr.init_ssr(init_key(0), cfg, device)
     n_params = sum(t.numel() for t in tree_leaves(params))
     lm = work / "lm.pkl"
     save_bundle(str(lm), params=params, model_config=cfg,
                 phn2num={c: i for i, c in enumerate(PHONES)})
     del params
     codec = work / "codec.pkl"
-    save_bundle(str(codec), params=twm.init_wmencodec(gen, codec_cfg, device),
+    save_bundle(str(codec), params=twm.init_wmencodec(init_key(1), codec_cfg,
+                                                      device),
                 config=codec_cfg)
     rng = np.random.default_rng(0)
     sr, dur = 16000, WAV_SECONDS
@@ -1112,7 +1129,7 @@ def drive_continuous_path(torch, device, main: dict, layout: dict, work: Path,
 
 def write_causal_codec(torch, device, work: Path):
     """A causal bundle at the default codec's widths (encodec_large_nq4_s320,
-    ``seanet.causal``, constant padding), from the port's seeded init."""
+    ``seanet.causal``, constant padding), JAX's draw from ``PRNGKey(4)``."""
     import dataclasses
 
     from ssr_speech_tpu_torch.config import CodecConfig
@@ -1123,8 +1140,7 @@ def write_causal_codec(torch, device, work: Path):
     cfg = dataclasses.replace(base, seanet=dataclasses.replace(
         base.seanet, causal=True, pad_mode="constant"))
     path = work / "causal_codec.pkl"
-    gen = torch.Generator(device=device).manual_seed(4)
-    save_bundle(str(path), params=twm.init_wmencodec(gen, cfg, device),
+    save_bundle(str(path), params=twm.init_wmencodec(init_key(4), cfg, device),
                 config=cfg)
     return str(path)
 
@@ -1613,6 +1629,46 @@ def drive_graph_path(torch, device, main: dict, stream: dict,
     return dict(paths=report, launches=fa.launches)
 
 
+PRNG_NORMAL_ULPS = 3  # tests/test_torch_prng.py's bound on normal draws
+
+
+def check_prng(torch, device, card: str) -> dict:
+    """``[prng]``: JAX's threefry draw (``utils/prng.py``) on the card
+    against the CPU's draw of the same key, at e830M's ``qkv_w`` shape
+    [2048, 6144]: ``uniform`` (xavier's bound) bit for bit, ``normal``
+    within PRNG_NORMAL_ULPS (the card's float64 ``log1p`` and division may
+    round an ulp apart from the CPU's); every init of the smoke draws this
+    way."""
+    from ssr_speech_tpu_torch.utils import prng
+
+    shape = (2048, 3 * 2048)
+    limit = math.sqrt(6.0 / (2048 + 3 * 2048))
+    key = prng.split(init_key(0), 6)[3]
+    out = {}
+    for name, draw in (("uniform", lambda k: prng.uniform(k, shape, -limit,
+                                                          limit)),
+                       ("normal", lambda k: prng.normal(k, shape))):
+        draw(key.to(device))  # warm
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        got = draw(key.to(device))
+        _sync(torch, device)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = draw(key)
+        ulps = (got.cpu().view(torch.int32).long()
+                - want.view(torch.int32).long()).abs()
+        out[name] = dict(ms=ms, max_ulps=int(ulps.max()),
+                         inexact=int((ulps > 0).sum()))
+        print(f"[prng] {name} {list(shape)} on the card against the CPU's "
+              f"draw of the same key: {out[name]['inexact']} of "
+              f"{got.numel()} inexact, at most {out[name]['max_ulps']} ulp; "
+              f"{ms:.1f} ms on the card [{card}]")
+    if out["uniform"]["max_ulps"] or out["normal"]["max_ulps"] > PRNG_NORMAL_ULPS:
+        raise RuntimeError(f"[prng] the card's draw differs from the CPU's: "
+                           f"{out}")
+    return out
+
+
 def check_small_reference(torch, device) -> None:
     """What comes out is right: on small inputs, the card's results agree
     with the port's own fp32 CPU results (which the CPU tests hold against
@@ -1634,7 +1690,7 @@ def check_small_reference(torch, device) -> None:
     cfg = SSRModelConfig(d_model=256, nhead=2, num_layers=4, n_codebooks=4,
                          audio_embedding_dim=256, text_vocab_size=30,
                          head_hidden=64, max_position=1024)
-    params = tssr.init_ssr(torch.Generator().manual_seed(1), cfg)
+    params = tssr.init_ssr(init_key(1), cfg)
     rng = np.random.default_rng(1)
     sx, P, x_len, p_len = 64, 256, 41, 200
     x = np.full((2, sx), cfg.text_pad_token, np.int64)
@@ -1668,7 +1724,7 @@ def check_small_reference(torch, device) -> None:
         raise RuntimeError("LM prefill on the card disagrees with the CPU")
 
     ccfg = CodecConfig()
-    cparams = twm.init_wmencodec(torch.Generator().manual_seed(2), ccfg)
+    cparams = twm.init_wmencodec(init_key(2), ccfg)
     wav = torch.from_numpy((rng.standard_normal((1, 16000, 1)) * 0.1
                             ).astype(np.float32))
     res = {}
@@ -2112,7 +2168,7 @@ def check_small_train_step(torch, device) -> None:
     from ssr_speech_tpu_torch.training.trainer import make_train_step
 
     cfg, batch = small_train_batch()
-    params = tssr.init_ssr(torch.Generator().manual_seed(3), cfg)
+    params = tssr.init_ssr(init_key(3), cfg)
     params["decoder"]["layers"]["qkv_w"] *= QKV_SCALE
 
     def run(dev, dtype):
@@ -2267,8 +2323,11 @@ def drive_training_path(torch, device, argv, card: str, checked) -> dict:
             "fused_ce_bwd_dw2": steps}
     if launches != want:
         raise RuntimeError(f"training launches {launches}, expected {want}")
-    init = tssr.init_ssr(torch.Generator(device=device).manual_seed(
-        trainer.tcfg.seed + 1), cfg, device)
+    from ssr_speech_tpu_torch.utils import prng
+
+    # the trainer's init: JAX's, the second key of split(PRNGKey(seed))
+    init = tssr.init_ssr(prng.split(init_key(trainer.tcfg.seed))[1], cfg,
+                         device)
     for key in ("head2_w", "text_emb"):
         if torch.equal(init[key], trainer.model[key].detach()):
             raise RuntimeError(f"training left {key} at its init")
@@ -2618,9 +2677,8 @@ def check_remat(torch, device, cfg, batch, card: str) -> dict:
     from ssr_speech_tpu_torch.utils.tree import tree_leaves
 
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = trainable_lm_from_jax(tssr.init_ssr(
-        torch.Generator(device=device).manual_seed(2), cfg, device), cfg,
-        device=device)
+    model = trainable_lm_from_jax(tssr.init_ssr(init_key(2), cfg, device),
+                                  cfg, device=device)
     leaves = tree_leaves(model.tree())
     b = {k: torch.as_tensor(batch[k]).to(device)
          for k in ("x", "x_lens", "y", "y_lens")}
@@ -3010,7 +3068,11 @@ PARALLEL_N_MICRO = 4  # the pp=2 step's microbatches (one row each)
 # dropout off: the loss within PARALLEL_LOSS_REL; each gradient leaf's max
 # |err| over its max |g| at most PARALLEL_NOISE_MULT times as far as the
 # one-rank bf16 step's leaf lies from the one-rank fp32 step's (the step's
-# own bf16 rounding: tp rounds at other points), plus PARALLEL_GRAD_FLOOR
+# own bf16 rounding: tp rounds at other points), plus PARALLEL_GRAD_FLOOR.
+# That distance is the larger of two bf16 samples, the kernels' step and the
+# plain attention and head's: a leaf that is the small rest of a large sum
+# (the positional scales) has a rounding error that one sample may show
+# near zero
 PARALLEL_LOSS_REL, PARALLEL_NOISE_MULT, PARALLEL_GRAD_FLOOR = 2e-3, 3.0, 1e-3
 # pp=2 against the one-rank step at gradient accumulation 4: the same
 # per-microbatch products (the loss equal up to PP_LOSS_REL); the gradients
@@ -3095,6 +3157,16 @@ def _decode_with_logits(torch, lm, cfg, prompt, device, hook):
         decode.top_k_top_p_filter = real
 
 
+def fsdp_saving_gib(cfg) -> float:
+    """The peak a rank that fsdp = 2 saves against dp = 2, from bytes: half
+    of the layer stacks' fp32 parameters, gradients and ScaledAdam's two
+    moments (16 bytes a weight), less two gathered layers (the one in use
+    and the one its backward's recompute broadcasts)."""
+    d, f = cfg.d_model, cfg.ffn_dim
+    layer = 4 * d + d * 3 * d + 3 * d + d * d + d + d * f + f + f * d + d
+    return (cfg.num_layers * layer * 16 / 2 - 2 * layer * 4) / 2 ** 30
+
+
 def parallel_rank(spec: dict) -> dict:
     """One rank of ``[parallel]`` (spawned twice on the one card, gloo):
     the tp=2 gradients against the one-rank step (dropout off, then with
@@ -3160,8 +3232,7 @@ def parallel_rank(spec: dict) -> dict:
             out["shapes"][name] = sorted(set(seen))
 
     def init():
-        return tssr.init_ssr(torch.Generator(device=device).manual_seed(
-            PARALLEL_SEED), cfg, device)
+        return tssr.init_ssr(init_key(PARALLEL_SEED), cfg, device)
 
     # ---- tp=2: gradients against the one-rank step, then under SP
     if cuda:
@@ -3228,6 +3299,30 @@ def parallel_rank(spec: dict) -> dict:
     del model, opt, step, grads, whole, ref
     if cuda:
         torch.cuda.empty_cache()
+    # ---- dp=2, then fsdp=2 (the layer stacks shared out over dp): one
+    # step each with the update, dropout off, the peak a rank over the step
+    # (parameters and ScaledAdam's state resident, then gradients and
+    # activations)
+    dmesh = meshlib.make_mesh(tp=1)
+    for name, fsdp in (("dp", False), ("fsdp", True)):
+        model = meshlib.shard_model(dmesh, init(), meshlib.ssr_param_specs(
+            fsdp=fsdp), dmesh.parallel(fsdp=fsdp), cfg=cfg0)
+        opt, _ = build_optimizer(tcfg.optim)
+        opt.set_sharding(meshlib.shard_groups(dmesh, model.specs))
+        state = opt.init(model.tree())
+        step = make_train_step(cfg0, tcfg, opt, device, mesh=dmesh)
+        if cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        resident = (torch.cuda.memory_allocated(device) if cuda else 0)
+        m = measure(name, lambda: step(model, state, batch, gens()[0]))
+        out[name] = dict(loss=float(m["loss"]), skipped=m["skipped"],
+                         peak_gib=_peak(torch, device) / 2 ** 30,
+                         resident_gib=resident / 2 ** 30)
+        del model, opt, state, step
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
     # ---- tp=2 greedy decode of the edit against the one-rank logits
     lm, lcfg, _ = load_lm(spec["lm"], device)
     lm = meshlib.shard_params_for_serving(mesh, lm)
@@ -3274,8 +3369,9 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     -> 8 a rank, 16 layers) on the first PARALLEL_ROWS rows of train-830M's
     first batch. The one-rank references run here first: the bf16 step's
     loss and gradients (dropout off), the same at gradient accumulation 4,
-    the fp32 step's gradients (the bf16 step's own rounding, leaf by leaf),
-    and the greedy decode of the edit with each step's logits. Gates: tp=2
+    the bf16 step through the plain attention and head, the fp32 step's
+    gradients (the bf16 steps' own rounding, leaf by leaf: the larger of the
+    two samples), and the greedy decode of the edit with each step's logits. Gates: tp=2
     and tp=2 + sequence parallelism within PARALLEL_LOSS_REL and the
     noise-scaled gradient bound, pp=2 within PP_LOSS_REL and the same bound,
     every
@@ -3303,18 +3399,18 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     b, sx = rows["x"].shape
     sy = rows["y"].shape[1]
     cfg0 = _no_dropout(cfg)
-    init = lambda: tssr.init_ssr(torch.Generator(device=device).manual_seed(  # noqa: E731
-        PARALLEL_SEED), cfg, device)
+    init = lambda: tssr.init_ssr(init_key(PARALLEL_SEED), cfg, device)  # noqa: E731
     t0 = time.perf_counter()
     refs = {}
     kept = {}
-    for name, accum, prec in (("tp_ref", 1, "bfloat16"),
-                              ("pp_ref", PARALLEL_N_MICRO, "bfloat16"),
-                              ("fp32_ref", 1, "float32")):
+    plain = dataclasses.replace(cfg0, attn_impl="einsum", ce_impl="unfused")
+    for name, accum, prec, mcfg in (
+            ("tp_ref", 1, "bfloat16", cfg0),
+            ("pp_ref", PARALLEL_N_MICRO, "bfloat16", cfg0),
+            ("plain_bf16_ref", 1, "bfloat16", plain),
+            # the kernels take bf16: the fp32 step is the plain attention and head
+            ("fp32_ref", 1, "float32", plain)):
         tcfg = _parallel_tcfg(accum, prec)
-        # the kernels take bf16: the fp32 step is the plain attention and head
-        mcfg = (cfg0 if prec == "bfloat16" else dataclasses.replace(
-            cfg0, attn_impl="einsum", ce_impl="unfused"))
         model = trainable_lm_from_jax(init(), mcfg, device=device)
         opt, _ = build_optimizer(tcfg.optim)
         step = make_train_step(mcfg, tcfg, opt, device)
@@ -3328,8 +3424,14 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
         refs[name + "_ms"] = (time.perf_counter() - ts) * 1e3
         refs[name + "_loss"] = float(m["loss"])
         leaves = [g.detach().float().cpu() for g in tree_leaves(grads)]
-        if name == "fp32_ref":  # the bf16 step's own rounding, leaf by leaf
-            refs["noise"] = _leaf_errors(torch, kept["tp_ref"], leaves)
+        if name == "plain_bf16_ref":
+            kept[name] = leaves
+        elif name == "fp32_ref":
+            # the bf16 step's own rounding, leaf by leaf: the larger of two
+            # samples (the kernels' bf16 step and the plain bf16 step)
+            refs["noise"] = [max(a, b) for a, b in zip(
+                _leaf_errors(torch, kept["tp_ref"], leaves),
+                _leaf_errors(torch, kept["plain_bf16_ref"], leaves))]
         else:
             torch.save(dict(loss=float(m["loss"]), grads=leaves), d / f"{name}.pt")
             kept[name] = leaves
@@ -3375,10 +3477,13 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     del whole
     L, nh = cfg.num_layers, cfg.nhead // 2
     local = (b, nh, sx + sy, cfg.d_model // cfg.nhead)
+    dp_local = (b // 2, cfg.nhead, sx + sy, cfg.d_model // cfg.nhead)
+    fsdp_saving = fsdp_saving_gib(cfg)
     noise = refs["noise"]
     bound = [PARALLEL_NOISE_MULT * n + PARALLEL_GRAD_FLOOR for n in noise]
     names = res[0]["leaf_names"]
-    print(f"[parallel] one-rank bf16 step against fp32, worst leaves: "
+    print(f"[parallel] one-rank bf16 steps (kernels, plain) against fp32, "
+          f"the larger a leaf, worst leaves: "
           f"{_worst_leaves(names, noise)} of their max (the bound of a leaf "
           f"is {PARALLEL_NOISE_MULT} x its value + {PARALLEL_GRAD_FLOOR})")
 
@@ -3426,6 +3531,29 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
         if r["launches"]["pp"]["flash_attention_bwd"] != \
                 PARALLEL_N_MICRO * L // 2:
             fails.append(f"rank {r['rank']} pp launches {r['launches']['pp']}")
+        dp, fs = r["dp"], r["fsdp"]
+        print(f"[parallel] rank {r['rank']} dp=2 / fsdp=2 step with the "
+              f"update: loss {dp['loss']!r} / {fs['loss']!r} vs one rank "
+              f"{r['ref_loss']!r}; peak {dp['peak_gib']:.2f} / "
+              f"{fs['peak_gib']:.2f} GiB (resident at the step's start "
+              f"{dp['resident_gib']:.2f} / {fs['resident_gib']:.2f}): fsdp "
+              f"saves {dp['peak_gib'] - fs['peak_gib']:.2f} GiB (predicted "
+              f"{fsdp_saving:.2f}); {r['ms']['dp']:.0f} / "
+              f"{r['ms']['fsdp']:.0f} ms; launches {r['launches']['fsdp']}")
+        for name in ("dp", "fsdp"):
+            rel = abs(r[name]["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+            if rel > PARALLEL_LOSS_REL or r[name]["skipped"]:
+                fails.append(f"rank {r['rank']} {name}: loss rel {rel:.2e}, "
+                             f"skipped {r[name]['skipped']}")
+            if r["launches"][name] != want:
+                fails.append(f"rank {r['rank']} {name} launches "
+                             f"{r['launches'][name]}, expected {want}")
+            if r["shapes"][name] != [dp_local]:
+                fails.append(f"rank {r['rank']} {name}: K1 at "
+                             f"{r['shapes'][name]}, expected {dp_local}")
+        if fs["peak_gib"] >= dp["peak_gib"]:
+            fails.append(f"rank {r['rank']}: fsdp's peak {fs['peak_gib']:.2f} "
+                         f"GiB is not below dp's {dp['peak_gib']:.2f}")
         steps = [r[f"tp_step{i}_loss"] for i in range(PARALLEL_TIMED_STEPS)]
         print(f"[parallel] rank {r['rank']} tp=2 steps with dropout and the "
               f"update: losses {steps}, "
@@ -3462,8 +3590,10 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     launches = {k: sum(r["launches"][p][k] for r in res
                        for p in r["launches"])
                 for k in res[0]["launches"]["tp"]}
-    return dict(launches=launches, ranks=[{k: r[k] for k in (
-        "rank", "ms", "launches", "peak_gib_tp", "peak_gib_pp")} | dict(
+    return dict(launches=launches, fsdp_saving_predicted_gib=fsdp_saving,
+                ranks=[{k: r[k] for k in (
+        "rank", "ms", "launches", "peak_gib_tp", "peak_gib_pp", "dp",
+        "fsdp")} | dict(
             tp_grad_err=max(r["tp"]["grad_err"]),
             tp_sp_grad_err=max(r["tp_sp"]["grad_err"]),
             pp_grad_err=max(r["pp"]["grad_err"]), decode=r["decode"])
@@ -3557,8 +3687,8 @@ def check_small_codec_step(torch, device) -> dict:
 
     cfg = codec_tiny_config()
     cpu = torch.device("cpu")
-    init, _ = tct.init_codec_train_state(torch.Generator().manual_seed(0),
-                                         cfg, lr=1e-3, disc_scales=2)
+    init, _ = tct.init_codec_train_state(init_key(0), cfg, lr=1e-3,
+                                         disc_scales=2)
     init = codec_train_state_to_numpy(init)
     rng = np.random.default_rng(0)
     hop, frames = cfg.hop_length, 8
@@ -4215,6 +4345,7 @@ def main() -> int:
                    *check_fused_ce(torch, device, ce_case),
                    *check_int8(torch, device)]
         del attn_case, ce_case
+        prng_check = check_prng(torch, device, card)
         check_small_reference(torch, device)
         check_small_train_step(torch, device)
         serving = drive_main_path(torch, device, work, card)
@@ -4316,6 +4447,7 @@ def main() -> int:
     print(json.dumps({"codec_train": codec_train}))
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"prng": prng_check}))
     print(json.dumps({"graph": graph["paths"]}))
     print(json.dumps({"bench": dict(line=bench_run["line"],
                                     seconds=bench_run["seconds"],

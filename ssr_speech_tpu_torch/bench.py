@@ -112,7 +112,8 @@ def decode_configs(cfg: SSRModelConfig, sizes: Sizes, frames: int,
 
 def bench_models(cfg: SSRModelConfig, codec_cfg: CodecConfig,
                  device: torch.device):
-    """(LM, codec): the port's seeded inits (LM seed 0, codec seed 1), the
+    """(LM, codec): the root ``bench.py``'s parameters, JAX's draws from
+    ``PRNGKey(0)`` (LM) and ``PRNGKey(1)`` (codec) made on ``device``, the
     decoder's matrix weights in the device's compute dtype, and the EOG
     logit biased to -1e9 in every codebook, so that each request generates
     its configured budget."""
@@ -121,15 +122,14 @@ def bench_models(cfg: SSRModelConfig, codec_cfg: CodecConfig,
     from .models import ssr
     from .models.codec import wmencodec as wm
     from .models.from_jax import codec_from_jax, lm_from_jax
+    from .utils import prng
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    lm = lm_from_jax(ssr.init_ssr(gen, cfg, device), cfg, device=device,
-                     dtype=compute_dtype(device))
+    lm = lm_from_jax(ssr.init_ssr(prng.PRNGKey(0), cfg, device), cfg,
+                     device=device, dtype=compute_dtype(device))
     with torch.no_grad():
         lm["head2_b"][:, cfg.tokens.eog] = -1e9
-    gen = torch.Generator(device=device).manual_seed(1)
-    codec = codec_from_jax(wm.init_wmencodec(gen, codec_cfg, device), codec_cfg,
-                           device=device)
+    codec = codec_from_jax(wm.init_wmencodec(prng.PRNGKey(1), codec_cfg,
+                                             device), codec_cfg, device=device)
     return lm, AudioTokenizer(codec, codec_cfg)
 
 

@@ -349,10 +349,10 @@ class ContinuousBatcher:
                      meta["p_len"], meta["ntask"], int(self.sentinels[0]),
                      ts.empty, aug_text=self.aug, n_slots=self.S)
 
-    def _run_chunk(self, step_budget: int):
+    def _run_chunk(self, step_budget: int) -> int:
         """Run one chunk of at most ``step_budget`` steps (the only call
         site of ``_serve_chunk_impl``: ``run``, ``run_online`` and the TTS
-        streamers all pace through here)."""
+        streamers all pace through here). Returns the steps taken."""
         t0 = time.perf_counter()
         steps = _serve_chunk_impl(self.params, self, step_budget)
         if self.stats is not None:
@@ -361,6 +361,7 @@ class ContinuousBatcher:
             self.stats["decode_s"] = (self.stats.get("decode_s", 0.0)
                                       + time.perf_counter() - t0)
             self.stats["chunks"] = self.stats.get("chunks", 0) + 1
+        return steps
 
     def _park(self, slot: int) -> None:
         """Free a harvested slot: its rows ride along frozen, unread."""

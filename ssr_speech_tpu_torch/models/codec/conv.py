@@ -15,32 +15,36 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-
-def _uniform(gen, shape, bound, device):
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    return t.uniform_(-bound, bound, generator=gen)
+from ...utils import prng
 
 
-def init_conv(gen, kernel: int, cin: int, cout: int, weight_norm: bool = True,
-              device="cpu") -> Dict[str, torch.Tensor]:
-    """torch Conv1d default init on [K, Cin, Cout]; with weight norm the gain
-    is per output channel, stored as [1, 1, Cout]."""
+def _uniform(key, shape, bound):
+    return prng.uniform(key, shape, -bound, bound)
+
+
+def init_conv(key, kernel: int, cin: int, cout: int, weight_norm: bool = True
+              ) -> Dict[str, torch.Tensor]:
+    """torch Conv1d default init on [K, Cin, Cout], JAX's draw from the
+    threefry ``key`` (on its device); with weight norm the gain is per
+    output channel, stored as [1, 1, Cout]."""
+    kw, kb = prng.split(key)
     bound = 1.0 / math.sqrt(cin * kernel)
-    w = _uniform(gen, (kernel, cin, cout), bound, device)
-    b = _uniform(gen, (cout,), bound, device)
+    w = _uniform(kw, (kernel, cin, cout), bound)
+    b = _uniform(kb, (cout,), bound)
     if weight_norm:
         return dict(v=w, g=w.square().sum(dim=(0, 1), keepdim=True).sqrt(), b=b)
     return dict(w=w, b=b)
 
 
-def init_conv_transpose(gen, kernel: int, cin: int, cout: int,
-                        weight_norm: bool = True,
-                        device="cpu") -> Dict[str, torch.Tensor]:
-    """Transposed-conv weights in the JAX [K, Cin, Cout] pre-flipped layout;
-    with weight norm the gain is per input channel, stored as [1, Cin, 1]."""
+def init_conv_transpose(key, kernel: int, cin: int, cout: int,
+                        weight_norm: bool = True) -> Dict[str, torch.Tensor]:
+    """Transposed-conv weights in the JAX [K, Cin, Cout] pre-flipped layout,
+    JAX's draw from ``key``; with weight norm the gain is per input channel,
+    stored as [1, Cin, 1]."""
+    kw, kb = prng.split(key)
     bound = 1.0 / math.sqrt(cin * kernel)
-    w = _uniform(gen, (kernel, cin, cout), bound, device)
-    b = _uniform(gen, (cout,), bound, device)
+    w = _uniform(kw, (kernel, cin, cout), bound)
+    b = _uniform(kb, (cout,), bound)
     if weight_norm:
         return dict(v=w, g=w.square().sum(dim=(0, 2), keepdim=True).sqrt(), b=b)
     return dict(w=w, b=b)
@@ -121,14 +125,19 @@ def conv_transpose1d(p, x: torch.Tensor, stride: int, causal: bool = False,
     return y[:, left:y.shape[1] - right]
 
 
-def init_lstm(gen, dim: int, num_layers: int, device="cpu"):
-    """torch nn.LSTM default init: U(-1/sqrt(H), 1/sqrt(H)) on all tensors."""
+def init_lstm(key, dim: int, num_layers: int):
+    """torch nn.LSTM default init: U(-1/sqrt(H), 1/sqrt(H)) on all tensors,
+    JAX's draw from ``key`` (five keys a layer, the last carried on)."""
     bound = 1.0 / math.sqrt(dim)
-    return dict(layers=[dict(
-        wih=_uniform(gen, (4 * dim, dim), bound, device),
-        whh=_uniform(gen, (4 * dim, dim), bound, device),
-        bih=_uniform(gen, (4 * dim,), bound, device),
-        bhh=_uniform(gen, (4 * dim,), bound, device)) for _ in range(num_layers)])
+    layers = []
+    for _ in range(num_layers):
+        k1, k2, k3, k4, key = prng.split(key, 5)
+        layers.append(dict(
+            wih=_uniform(k1, (4 * dim, dim), bound),
+            whh=_uniform(k2, (4 * dim, dim), bound),
+            bih=_uniform(k3, (4 * dim,), bound),
+            bhh=_uniform(k4, (4 * dim,), bound)))
+    return dict(layers=layers)
 
 
 def lstm_skip(p, x: torch.Tensor) -> torch.Tensor:

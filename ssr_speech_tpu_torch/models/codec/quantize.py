@@ -8,12 +8,13 @@ from typing import Optional
 import torch
 
 from ...config import RVQConfig
+from ...utils import prng
 
 
-def init_rvq(gen, cfg: RVQConfig, device="cpu"):
-    """Codebooks [n_q, bins, dim], standard normal (random weights)."""
-    return dict(embed=torch.randn((cfg.n_q, cfg.bins, cfg.dimension),
-                                  generator=gen, device=device))
+def init_rvq(key, cfg: RVQConfig):
+    """Codebooks [n_q, bins, dim], standard normal (random weights): JAX's
+    draw from the threefry ``key``, on its device."""
+    return dict(embed=prng.normal(key, (cfg.n_q, cfg.bins, cfg.dimension)))
 
 
 def nearest_code(codebook: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

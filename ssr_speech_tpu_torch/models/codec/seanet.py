@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from ...config import SEANetConfig
+from ...utils import prng
 
 from . import conv as cv
 
@@ -19,12 +20,13 @@ def act(x: torch.Tensor) -> torch.Tensor:
     return F.elu(x)  # alpha = 1.0
 
 
-def init_resblock(gen, dim: int, cfg: SEANetConfig, norm: bool, device):
+def init_resblock(key, dim: int, cfg: SEANetConfig, norm: bool):
     hidden = dim // cfg.compress
+    k1, k2 = prng.split(key)
     return dict(
-        conv1=cv.init_conv(gen, cfg.residual_kernel_size, dim, hidden,
-                           weight_norm=norm, device=device),
-        conv2=cv.init_conv(gen, 1, hidden, dim, weight_norm=norm, device=device))
+        conv1=cv.init_conv(k1, cfg.residual_kernel_size, dim, hidden,
+                           weight_norm=norm),
+        conv2=cv.init_conv(k2, 1, hidden, dim, weight_norm=norm))
 
 
 def resblock(p, x: torch.Tensor, cfg: SEANetConfig, dilation: int) -> torch.Tensor:
@@ -35,7 +37,13 @@ def resblock(p, x: torch.Tensor, cfg: SEANetConfig, dilation: int) -> torch.Tens
     return x + h
 
 
-def init_encoder(gen, cfg: SEANetConfig, device="cpu"):
+def _key_iter(key, n_ratios: int, cfg: SEANetConfig):
+    """JAX's key list of an encoder or decoder: one a conv, res-block and
+    LSTM in draw order."""
+    return iter(prng.split(key, 3 + n_ratios * (cfg.n_residual_layers + 1)))
+
+
+def init_encoder(key, cfg: SEANetConfig):
     ratios = list(reversed(cfg.ratios))
     n_blocks = len(ratios) + 2
     wn = cfg.norm == "weight_norm"
@@ -43,25 +51,24 @@ def init_encoder(gen, cfg: SEANetConfig, device="cpu"):
     def blk_norm(i):  # block index, 1 = conv-in
         return wn and not (cfg.disable_norm_outer_blocks >= i)
 
+    ki = _key_iter(key, len(ratios), cfg)
     mult = 1
-    params = dict(conv_in=cv.init_conv(gen, cfg.kernel_size, cfg.channels,
-                                       cfg.n_filters, weight_norm=blk_norm(1),
-                                       device=device), groups=[])
+    params = dict(conv_in=cv.init_conv(next(ki), cfg.kernel_size, cfg.channels,
+                                       cfg.n_filters, weight_norm=blk_norm(1)),
+                  groups=[])
     for i, ratio in enumerate(ratios):
         norm = blk_norm(i + 2)
-        res = [init_resblock(gen, mult * cfg.n_filters, cfg, norm, device)
+        res = [init_resblock(next(ki), mult * cfg.n_filters, cfg, norm)
                for _ in range(cfg.n_residual_layers)]
-        down = cv.init_conv(gen, ratio * 2, mult * cfg.n_filters,
-                            mult * cfg.n_filters * 2, weight_norm=norm,
-                            device=device)
+        down = cv.init_conv(next(ki), ratio * 2, mult * cfg.n_filters,
+                            mult * cfg.n_filters * 2, weight_norm=norm)
         params["groups"].append(dict(res=res, down=down))
         mult *= 2
     if cfg.lstm:
-        params["lstm"] = cv.init_lstm(gen, mult * cfg.n_filters, cfg.lstm, device)
+        params["lstm"] = cv.init_lstm(next(ki), mult * cfg.n_filters, cfg.lstm)
     params["conv_out"] = cv.init_conv(
-        gen, cfg.last_kernel_size, mult * cfg.n_filters, cfg.dimension,
-        weight_norm=wn and cfg.disable_norm_outer_blocks != n_blocks,
-        device=device)
+        next(ki), cfg.last_kernel_size, mult * cfg.n_filters, cfg.dimension,
+        weight_norm=wn and cfg.disable_norm_outer_blocks != n_blocks)
     return params
 
 
@@ -88,32 +95,32 @@ def encode(p, x: torch.Tensor, cfg: SEANetConfig, return_taps: bool = False):
     return h
 
 
-def init_decoder(gen, cfg: SEANetConfig, device="cpu"):
+def init_decoder(key, cfg: SEANetConfig):
     n_blocks = len(cfg.ratios) + 2
     wn = cfg.norm == "weight_norm"
 
     def blk_norm_up(i):  # i-th up-stage; norm off for the last N blocks
         return wn and not (cfg.disable_norm_outer_blocks >= n_blocks - (i + 1))
 
+    ki = _key_iter(key, len(cfg.ratios), cfg)
     mult = int(2 ** len(cfg.ratios))
     params = dict(conv_in=cv.init_conv(
-        gen, cfg.kernel_size, cfg.dimension, mult * cfg.n_filters,
-        weight_norm=wn and cfg.disable_norm_outer_blocks != n_blocks,
-        device=device), groups=[])
+        next(ki), cfg.kernel_size, cfg.dimension, mult * cfg.n_filters,
+        weight_norm=wn and cfg.disable_norm_outer_blocks != n_blocks),
+        groups=[])
     if cfg.lstm:
-        params["lstm"] = cv.init_lstm(gen, mult * cfg.n_filters, cfg.lstm, device)
+        params["lstm"] = cv.init_lstm(next(ki), mult * cfg.n_filters, cfg.lstm)
     for i, ratio in enumerate(cfg.ratios):
         norm = blk_norm_up(i)
-        up = cv.init_conv_transpose(gen, ratio * 2, mult * cfg.n_filters,
-                                    mult * cfg.n_filters // 2, weight_norm=norm,
-                                    device=device)
-        res = [init_resblock(gen, mult * cfg.n_filters // 2, cfg, norm, device)
+        up = cv.init_conv_transpose(next(ki), ratio * 2, mult * cfg.n_filters,
+                                    mult * cfg.n_filters // 2, weight_norm=norm)
+        res = [init_resblock(next(ki), mult * cfg.n_filters // 2, cfg, norm)
                for _ in range(cfg.n_residual_layers)]
         params["groups"].append(dict(up=up, res=res))
         mult //= 2
     params["conv_out"] = cv.init_conv(
-        gen, cfg.last_kernel_size, cfg.n_filters, cfg.channels,
-        weight_norm=wn and cfg.disable_norm_outer_blocks < 1, device=device)
+        next(ki), cfg.last_kernel_size, cfg.n_filters, cfg.channels,
+        weight_norm=wn and cfg.disable_norm_outer_blocks < 1)
     return params
 
 
@@ -156,26 +163,27 @@ def decode(p, z: torch.Tensor, cfg: SEANetConfig) -> torch.Tensor:
     return _decoder_tail(p, h, cfg)
 
 
-def init_wm_decoder(gen, cfg: SEANetConfig, device="cpu"):
-    """Decoder + skip/wm encoders + label embedding + fusion projections."""
+def init_wm_decoder(key, cfg: SEANetConfig):
+    """Decoder + skip/wm encoders + label embedding + fusion projections,
+    JAX's draw from ``key`` (ten keys, as JAX splits them)."""
     dim, nf = cfg.dimension, cfg.n_filters
     emb_dim = dim // 16
     n_up = len(cfg.ratios)
+    ks = prng.split(key, 10)
     params = dict(
-        decoder=init_decoder(gen, cfg, device),
-        skip_encoder=init_encoder(gen, cfg, device),
-        wm_encoder=init_encoder(gen, cfg, device),
-        wm_embed=torch.randn((2, emb_dim), generator=gen, device=device))
+        decoder=init_decoder(ks[0], cfg),
+        skip_encoder=init_encoder(ks[1], cfg),
+        wm_encoder=init_encoder(ks[2], cfg),
+        wm_embed=prng.normal(ks[3], (2, emb_dim)))
     mult = int(2 ** n_up)
-    params["projs"] = [dict(conv=cv.init_conv(gen, 1, dim + emb_dim, dim,
-                                              weight_norm=False, device=device))]
-    for _ in range(1, n_up):
+    params["projs"] = [dict(conv=cv.init_conv(ks[4], 1, dim + emb_dim, dim,
+                                              weight_norm=False))]
+    for i in range(1, n_up):
         mult //= 2
         params["projs"].append(dict(conv=cv.init_conv(
-            gen, 1, mult * nf + emb_dim, mult * nf, weight_norm=False,
-            device=device)))
-    params["predictor"] = dict(conv=cv.init_conv(gen, 1, dim, 2,
-                                                 weight_norm=False, device=device))
+            ks[4 + i], 1, mult * nf + emb_dim, mult * nf, weight_norm=False)))
+    params["predictor"] = dict(conv=cv.init_conv(ks[8], 1, dim, 2,
+                                                 weight_norm=False))
     return params
 
 

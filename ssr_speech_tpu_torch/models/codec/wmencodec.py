@@ -12,19 +12,22 @@ import numpy as np
 import torch
 
 from ...config import CodecConfig
+from ...utils import prng
 
 from . import quantize as q
 from . import seanet
 
 
-def init_wmencodec(gen: torch.Generator, cfg: CodecConfig, device="cpu"):
-    """Random codec parameters with the JAX init's structure and
-    distributions (a bundle-ready pytree of fp32 tensors on ``device``)."""
+def init_wmencodec(key: torch.Tensor, cfg: CodecConfig, device="cpu"):
+    """Random codec parameters, JAX's ``init_wmencodec(key, cfg)`` drawn
+    from the same threefry key (``utils.prng``): a bundle-ready pytree of
+    fp32 tensors, drawn on ``device``."""
+    k1, k2, k3, k4 = prng.split(key.to(device), 4)
     return dict(
-        encoder=seanet.init_encoder(gen, cfg.seanet, device),
-        decoder=seanet.init_decoder(gen, cfg.seanet, device),
-        wmdecoder=seanet.init_wm_decoder(gen, cfg.seanet, device),
-        quantizer=q.init_rvq(gen, cfg.rvq, device))
+        encoder=seanet.init_encoder(k1, cfg.seanet),
+        decoder=seanet.init_decoder(k2, cfg.seanet),
+        wmdecoder=seanet.init_wm_decoder(k3, cfg.seanet),
+        quantizer=q.init_rvq(k4, cfg.rvq))
 
 
 def preprocess(wav: torch.Tensor, cfg: CodecConfig

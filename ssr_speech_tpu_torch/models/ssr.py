@@ -28,6 +28,7 @@ from ..config import SSRModelConfig
 from ..ops.fused_ce import fused_ce_head
 from ..ops.masking import make_pad_mask, xy_attn_bias
 from ..parallel import collectives as col
+from ..utils import prng
 from . import transformer as trf
 
 
@@ -42,22 +43,28 @@ def sine_table(max_len: int, d_model: int, device="cpu") -> torch.Tensor:
     return pe
 
 
-def init_ssr(gen: torch.Generator, cfg: SSRModelConfig,
+def init_ssr(key: torch.Tensor, cfg: SSRModelConfig,
              device="cpu") -> Dict[str, object]:
-    """Random LM parameters with the JAX ``init_ssr`` distributions and
-    structure (a bundle-ready pytree of fp32 tensors on ``device``). The
-    numbers differ from JAX's: the stream is ``gen``'s."""
+    """Random LM parameters, JAX's ``init_ssr(key, cfg)`` drawn from the
+    same threefry key (``utils.prng``; ``PRNGKey(seed)`` gives JAX's
+    ``jax.random.PRNGKey(seed)``): a bundle-ready pytree of fp32 tensors,
+    drawn on ``device``."""
     cfg.validate()
     d, card, hh, K = cfg.d_model, cfg.cardinality, cfg.head_hidden_dim, cfg.n_codebooks
-    text_emb = torch.randn((cfg.n_text_tokens, d), generator=gen, device=device)
-    audio_emb = torch.randn((K, card, d), generator=gen, device=device)
-    h1_w, h1_b = trf._linear_init(gen, d, (K, d, hh), (K, hh), device)
-    h2_w, h2_b = trf._linear_init(gen, hh, (K, hh, card), (K, card), device)
+    k = prng.split(key.to(device), 6)
+    text_emb = prng.normal(k[0], (cfg.n_text_tokens, d))
+    audio_emb = prng.normal(k[1], (K, card, d))
+    heads = []
+    for hk in prng.split(k[2], K):
+        a, b = prng.split(hk)
+        heads.append(trf._linear_init(a, d, (d, hh), (hh,))
+                     + trf._linear_init(b, hh, (hh, card), (card,)))
+    h1_w, h1_b, h2_w, h2_b = (torch.stack(ts) for ts in zip(*heads))
     return dict(
         text_emb=text_emb, audio_emb=audio_emb,
         text_pos_alpha=torch.ones((1,), device=device),
         audio_pos_alpha=torch.ones((1,), device=device),
-        decoder=trf.init_transformer(gen, cfg, device),
+        decoder=trf.init_transformer(k[3], cfg),
         head1_w=h1_w, head1_b=h1_b, head2_w=h2_w, head2_b=h2_b)
 
 

@@ -26,8 +26,11 @@ the two column-parallel products and ``reduce_from_tp`` after the two
 row-parallel ones, before their biases. With ``sequence_parallel`` the
 residual stream, its norms and dropouts run on the rank's block of the
 sequence, with ``gather_seq`` / ``scatter_seq`` around attention and FFN. With
-an fsdp group each layer is broadcast from the rank that holds it just before
-use. Dropout under tp: the residual masks come from ``generator``, the same on
+an fsdp group each layer is broadcast from the rank that holds it inside the
+layer's checkpointed body: under every remat mode but ``none`` the gathered
+layer dies with the layer's forward and the recompute broadcasts it again;
+``none`` keeps it for the products' backward (``_GatheredLayers``). Dropout
+under tp: the residual masks come from ``generator``, the same on
 every tp rank (under sequence parallelism the whole sequence's mask is drawn
 and the rank's block kept), the FFN-hidden masks from ``hidden_generator``,
 which differs by tp rank. Without ``par`` every path is the single-device one.
@@ -59,6 +62,7 @@ from ..config import SSRModelConfig
 from ..ops import scaling
 from ..ops.flash_attention import HEAD_DIM, flash_attend_xy
 from ..parallel import collectives as col
+from ..utils import prng
 
 LAYER_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b", "ln2_w",
               "ln2_b", "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b")
@@ -68,36 +72,41 @@ MATMUL_KEYS = ("qkv_w", "qkv_b", "out_w", "out_b", "ffn1_w", "ffn1_b",
                "ffn2_w", "ffn2_b")
 
 
-def _uniform(gen, shape, bound, device):
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    return t.uniform_(-bound, bound, generator=gen)
+def _uniform(key, shape, bound):
+    return prng.uniform(key, shape, -bound, bound)
 
 
-def _linear_init(gen, fan_in, shape_w, shape_b, device):
+def _linear_init(key, fan_in, shape_w, shape_b):
     """torch nn.Linear default init: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    kw, kb = prng.split(key)
     bound = 1.0 / math.sqrt(fan_in)
-    return (_uniform(gen, shape_w, bound, device),
-            _uniform(gen, shape_b, bound, device))
+    return _uniform(kw, shape_w, bound), _uniform(kb, shape_b, bound)
 
 
-def init_transformer(gen: torch.Generator, cfg: SSRModelConfig,
-                     device) -> Dict[str, object]:
-    """Stacked parameters for L pre-norm layers + final norm, with the JAX
-    init's distributions (xavier-uniform packed QKV, zero QKV bias, torch
-    Linear default elsewhere)."""
+def init_transformer(key: torch.Tensor, cfg: SSRModelConfig
+                     ) -> Dict[str, object]:
+    """Stacked parameters for L pre-norm layers + final norm, JAX's
+    ``init_transformer`` draw from the same threefry ``key`` (a key a
+    layer; xavier-uniform packed QKV, zero QKV bias, torch Linear default
+    elsewhere), on the key's device."""
     d, f, L = cfg.d_model, cfg.ffn_dim, cfg.num_layers
+    device = key.device
     limit = math.sqrt(6.0 / (d + 3 * d))
     ones = lambda *s: torch.ones(s, device=device)
     zeros = lambda *s: torch.zeros(s, device=device)
-    out_w, out_b = _linear_init(gen, d, (L, d, d), (L, d), device)
-    ffn1_w, ffn1_b = _linear_init(gen, d, (L, d, f), (L, f), device)
-    ffn2_w, ffn2_b = _linear_init(gen, f, (L, f, d), (L, d), device)
-    layers = dict(
-        ln1_w=ones(L, d), ln1_b=zeros(L, d),
-        qkv_w=_uniform(gen, (L, d, 3 * d), limit, device),
-        qkv_b=zeros(L, 3 * d), out_w=out_w, out_b=out_b,
-        ln2_w=ones(L, d), ln2_b=zeros(L, d),
-        ffn1_w=ffn1_w, ffn1_b=ffn1_b, ffn2_w=ffn2_w, ffn2_b=ffn2_b)
+    per_layer = {k: [] for k in ("qkv_w", "out_w", "out_b", "ffn1_w",
+                                 "ffn1_b", "ffn2_w", "ffn2_b")}
+    for k in prng.split(key, L):
+        k1, k2, k3, k4 = prng.split(k, 4)
+        drawn = dict(qkv_w=_uniform(k1, (d, 3 * d), limit))
+        drawn["out_w"], drawn["out_b"] = _linear_init(k2, d, (d, d), (d,))
+        drawn["ffn1_w"], drawn["ffn1_b"] = _linear_init(k3, d, (d, f), (f,))
+        drawn["ffn2_w"], drawn["ffn2_b"] = _linear_init(k4, f, (f, d), (d,))
+        for name, t in drawn.items():
+            per_layer[name].append(t)
+    layers = {name: torch.stack(ts) for name, ts in per_layer.items()}
+    layers.update(ln1_w=ones(L, d), ln1_b=zeros(L, d), qkv_b=zeros(L, 3 * d),
+                  ln2_w=ones(L, d), ln2_b=zeros(L, d))
     return dict(layers=layers, final_ln_w=ones(d), final_ln_b=zeros(d))
 
 
@@ -191,7 +200,16 @@ def local_heads(cfg: SSRModelConfig, par: Optional[col.Parallel]) -> int:
 
 class _GatheredLayers:
     """Layer l of stacks the fsdp group shares out, broadcast from its
-    owner each time it is read (so the whole stack is never held)."""
+    owner each time it is read (so the whole stack is never held).
+
+    ``run_layers`` reads layer l inside layer l's checkpointed body. Under
+    ``full`` and ``dots_masks`` no gathered layer outlives its layer's
+    forward (the products' saved inputs are dropped, and the recompute in
+    the backward broadcasts the layer again). Under ``none`` the products
+    keep their gathered weights for the backward, so every gathered layer
+    lives until its backward: ``none`` is the mode that trades memory for
+    no recompute, and a re-broadcast at unpack would be the recompute that
+    ``none`` declines."""
 
     def __init__(self, stacked, par: col.Parallel):
         self.stacked, self.par = stacked, par
@@ -415,8 +433,10 @@ def run_layers(layers, h: torch.Tensor, cfg: SSRModelConfig, *, bias=None,
     mode = remat if torch.is_grad_enabled() else "none"
     gens = (generator, hidden_generator) if tp > 1 else generator
     h = h.to(dtype)
-    for lp in layers:
-        h = checkpoint_layer(functools.partial(layer, lp), mode, gens)(h)
+    for l in range(len(layers)):
+        # the layer is read inside the checkpointed body: under fsdp that
+        # read is the broadcast, which a recompute repeats
+        h = checkpoint_layer(lambda x, l=l: layer(layers[l], x), mode, gens)(h)
     return h
 
 

@@ -25,7 +25,8 @@ layer's input gradient over two ranks:
 - :func:`gather_replicated`: all-gather forward, this rank's block of the
   gradient backward (in front of a computation every rank repeats whole);
 - :func:`fsdp_layer`: one layer of a stack that the dp ranks share out,
-  broadcast from its owner; the backward sums the gradient onto the owner.
+  broadcast from its owner; the backward sums the layer's gradient onto the
+  owner, into its slot of the stack's ``.grad`` in place.
 
 Sums of floating-point tensors are taken in fp32 and cast back, so two bf16
 partial sums are added exactly and rounded once.
@@ -257,20 +258,27 @@ class _GatherReplicated(torch.autograd.Function):
 
 
 class _FsdpLayer(torch.autograd.Function):
+    """Layer ``slot`` of the owner's stack, broadcast over the group. The
+    backward sums the layer's gradient onto the owner and adds it in place
+    into that slot of the owner's ``stack.grad`` (one buffer of the local
+    stack, made at the step's first layer backward), and hands autograd no
+    gradient: a layer's backward allocates one layer, where a gradient
+    returned for ``stack`` would be a zero stack a layer."""
+
     @staticmethod
     def forward(ctx, stack, owner, slot, group):
-        ctx.owner, ctx.slot, ctx.group = owner, slot, group
-        ctx.shape, ctx.dtype = stack.shape, stack.dtype
+        ctx.stack, ctx.owner, ctx.slot, ctx.group = stack, owner, slot, group
         return broadcast(stack[slot], owner, group)
 
     @staticmethod
     def backward(ctx, g):
         total = reduce_to(g, ctx.owner, ctx.group)
-        if dist.get_rank(ctx.group) != ctx.owner:
-            return None, None, None, None
-        out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
-        out[ctx.slot] = total
-        return out, None, None, None
+        stack = ctx.stack
+        if dist.get_rank(ctx.group) == ctx.owner:
+            if stack.grad is None:
+                stack.grad = torch.zeros_like(stack)
+            stack.grad[ctx.slot].add_(total.to(stack.dtype))
+        return None, None, None, None
 
 
 def copy_to_tp(x, par: Optional[Parallel]):
@@ -300,7 +308,12 @@ def gather_replicated(x, par: Optional[Parallel], dim: int):
 
 def fsdp_layer(stack: torch.Tensor, layer: int, par: Parallel) -> torch.Tensor:
     """Layer ``layer`` of a stack whose leading dim the fsdp group shares out
-    in contiguous blocks (rank r holds layers [r * n, (r + 1) * n))."""
+    in contiguous blocks (rank r holds layers [r * n, (r + 1) * n)). The
+    layer's gradient is summed onto its owner's ``stack.grad`` in place, so
+    a stack that takes gradients must be a leaf."""
+    if stack.requires_grad and not stack.is_leaf:
+        raise ValueError("fsdp_layer adds gradients into the stack's .grad: "
+                         "the stack must be a leaf tensor")
     n = stack.shape[0]
     owner, slot = divmod(layer, n)
     return _FsdpLayer.apply(stack, owner, slot, par.fsdp_group)

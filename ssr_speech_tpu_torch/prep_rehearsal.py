@@ -77,21 +77,20 @@ def synth_corpus(out: str, n_utts: int, sr: int = 16000, seed: int = 0,
 
 
 def make_codec_bundle(out: str, tiny: bool = False) -> str:
-    """A random-init codec bundle from the port's init (seed 1): the
-    default geometry, or a tiny one with the default's 4 codebooks of
-    2048."""
-    import torch
-
+    """A random-init codec bundle, JAX's draw from ``PRNGKey(1)`` as the
+    root tool's: the default geometry, or a tiny one with the default's 4
+    codebooks of 2048."""
     from .config import CodecConfig, RVQConfig, SEANetConfig
     from .models.codec import wmencodec as wm
     from .models.pretrained import save_bundle
+    from .utils import prng
 
     cfg = (CodecConfig(seanet=SEANetConfig(dimension=16, n_filters=2,
                                            n_residual_layers=1,
                                            ratios=(8, 5, 4, 2), lstm=1),
                        rvq=RVQConfig(dimension=16, n_q=4, bins=2048))
            if tiny else CodecConfig())
-    params = wm.init_wmencodec(torch.Generator().manual_seed(1), cfg)
+    params = wm.init_wmencodec(prng.PRNGKey(1), cfg)
     path = os.path.join(out, "codec.pkl")
     save_bundle(path, params=params, config=cfg)
     return path

@@ -146,6 +146,7 @@ def main(argv=None):
     from .models.codec import wmencodec as wm
     from .training import codec_trainer
     from .utils import checkpoint as ckpt
+    from .utils import prng
     from .utils.profiler import Profiler
     from .utils.sample_manager import SampleManager
     from .utils.tree import tree_map
@@ -181,9 +182,8 @@ def main(argv=None):
     if args.loss_weights:
         bw = {k: float(v) for k, v in
               (kv.split("=") for kv in args.loss_weights.split(","))}
-    gen = torch.Generator(device=device).manual_seed(args.seed)
     state, opts = codec_trainer.init_codec_train_state(
-        gen, cfg, lr=args.lr, pretrained=pretrained, balance_weights=bw,
+        prng.PRNGKey(args.seed, device), cfg, lr=args.lr, pretrained=pretrained, balance_weights=bw,
         disc_scales=args.disc_scales, device=device)
     logger.info("compute precision: %s", args.precision)
     step_fn = codec_trainer.make_codec_train_step(

@@ -42,6 +42,7 @@ from ..config import CodecConfig
 from ..models.codec import quantize as q
 from ..models.codec import seanet
 from ..models.codec import wmencodec as wm
+from ..utils import prng
 from ..utils.tree import tree_leaves, tree_map
 from . import discriminators as disc_mod
 from . import losses as L
@@ -107,21 +108,24 @@ def _constant(tree, device):
     return tree_map(lambda t: torch.as_tensor(t).to(device), tree)
 
 
-def init_codec_train_state(gen: torch.Generator, cfg: CodecConfig,
+def init_codec_train_state(key: torch.Tensor, cfg: CodecConfig,
                            lr: float = 5e-4,
                            pretrained: Optional[Dict[str, Any]] = None,
                            balance_weights: Optional[Dict[str, float]] = None,
                            disc_scales: Optional[int] = None, device="cpu"):
     """-> (state, (g_opt, d_opt)). ``pretrained`` is a codec params tree
-    (numpy or torch leaves); without it the codec is drawn from ``gen``.
+    (numpy or torch leaves); without it the codec is drawn from the first
+    half of the threefry ``key``'s split, the discriminator from the second,
+    as JAX's ``init_codec_train_state`` draws them.
     ``disc_scales`` < 5 trains against the first N MS-STFT scales."""
+    k1, k2 = prng.split(key.to(device))
     params = (pretrained if pretrained is not None
-              else wm.init_wmencodec(gen, cfg, device))
+              else wm.init_wmencodec(k1, cfg, device))
     wm_params = _trainable(params["wmdecoder"], device)
     frozen = _constant({k: params[k] for k in ("encoder", "decoder",
                                                "quantizer")}, device)
     disc = _trainable(disc_mod.init_msstftd(
-        gen, n_scales=disc_scales or len(disc_mod.N_FFTS), device=device),
+        k2, n_scales=disc_scales or len(disc_mod.N_FFTS), device=device),
         device)
     g_opt_t, d_opt_t = make_optimizers(lr)
     state = CodecTrainState(
@@ -352,17 +356,19 @@ def make_compression_train_step(cfg: CodecConfig, optimizers,
     return train_step
 
 
-def init_compression_train_state(gen: torch.Generator, cfg: CodecConfig,
+def init_compression_train_state(key: torch.Tensor, cfg: CodecConfig,
                                  lr: float = 5e-4, pretrained=None,
                                  balance_weights=None, device="cpu"):
     """State of the plain-codec step: the generator's optimizer tracks the
-    (encoder, decoder) tree, which trains in place inside ``frozen``."""
+    (encoder, decoder) tree, which trains in place inside ``frozen``. The
+    codec and discriminator are JAX's draw from ``key``."""
+    k1, k2 = prng.split(key.to(device))
     params = (pretrained if pretrained is not None
-              else wm.init_wmencodec(gen, cfg, device))
+              else wm.init_wmencodec(k1, cfg, device))
     frozen = dict(encoder=_trainable(params["encoder"], device),
                   decoder=_trainable(params["decoder"], device),
                   quantizer=_constant(params["quantizer"], device))
-    disc = _trainable(disc_mod.init_msstftd(gen, device=device), device)
+    disc = _trainable(disc_mod.init_msstftd(k2, device=device), device)
     g_opt_t, d_opt_t = make_optimizers(lr)
     wm_params = _constant(params["wmdecoder"], device)
     state = CodecTrainState(
@@ -377,23 +383,22 @@ def init_compression_train_state(gen: torch.Generator, cfg: CodecConfig,
     return state, (g_opt_t, d_opt_t)
 
 
-def _choice(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
-    """k distinct indices of range(n), drawn from ``gen``."""
-    return torch.randperm(n, generator=gen)[:k]
-
-
 @torch.no_grad()
-def kmeans_init_codebooks(gen: torch.Generator, cfg: CodecConfig,
+def kmeans_init_codebooks(key: torch.Tensor, cfg: CodecConfig,
                           embeddings: torch.Tensor,
                           iters: int = 50) -> torch.Tensor:
     """k-means codebooks from encoder embeddings [N, D] (50 iterations, as
     the reference's kmeans_init); each residual stage is fitted on the
-    residuals of the stages before. Returns [n_q, bins, D]."""
+    residuals of the stages before, from starting rows drawn as JAX draws
+    them (``choice(replace=False)`` on a key split off ``key`` a stage).
+    Returns [n_q, bins, D]."""
     n_q, bins = cfg.rvq.n_q, cfg.rvq.bins
     resid = embeddings.float()
+    key = key.to(resid.device)
     books = []
     for _ in range(n_q):
-        idx = _choice(gen, resid.shape[0], bins).to(resid.device)
+        key, sub = prng.split(key)
+        idx = prng.choice(sub, resid.shape[0], bins)
         means = resid[idx]
         for _ in range(iters):
             assign = q.nearest_code(means, resid)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import stft as stft_ops
+from ..utils import prng
 
 Params = Dict[str, Any]
 
@@ -34,23 +35,25 @@ LEAKY_SLOPE = 0.3
 MPD_PERIODS = (2, 3, 5, 7, 11)
 
 
-def _init_wn(gen, shape, fan_in: int, device) -> Params:
-    """Weight-normed conv of torch's default init: v and b uniform in
-    +-1/sqrt(fan_in), g = ||v|| per output channel (axis 0)."""
+def _init_wn(key, jax_shape, fan_in: int) -> Params:
+    """Weight-normed conv of torch's default init, JAX's draw from the
+    threefry ``key``: v (in JAX's HWIO / WIO layout, moved to OIHW / OIW)
+    and b uniform in +-1/sqrt(fan_in), g = ||v|| per output channel."""
+    kkey, bkey = prng.split(key)
     bound = 1.0 / math.sqrt(fan_in)
-    uniform = lambda s: torch.empty(s, device=device).uniform_(
-        -bound, bound, generator=gen)
-    v = uniform(shape)
-    g = v.square().sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
-    return dict(v=v, g=g, b=uniform((shape[0],)))
+    w = prng.uniform(kkey, jax_shape, -bound, bound)
+    n = w.dim()
+    v = w.permute((n - 1, n - 2) + tuple(range(n - 2))).contiguous()
+    g = v.square().sum(dim=tuple(range(1, n)), keepdim=True).sqrt()
+    return dict(v=v, g=g, b=prng.uniform(bkey, (jax_shape[-1],), -bound, bound))
 
 
-def _init_conv2d(gen, cin, cout, kh, kw, device) -> Params:
-    return _init_wn(gen, (cout, cin, kh, kw), cin * kh * kw, device)
+def _init_conv2d(key, cin, cout, kh, kw) -> Params:
+    return _init_wn(key, (kh, kw, cin, cout), cin * kh * kw)
 
 
-def _init_conv1d(gen, cin, cout, k, groups=1, device="cpu") -> Params:
-    return _init_wn(gen, (cout, cin // groups, k), (cin // groups) * k, device)
+def _init_conv1d(key, cin, cout, k, groups=1) -> Params:
+    return _init_wn(key, (k, cin // groups, cout), (cin // groups) * k)
 
 
 def _wn_weight(p: Params, dtype: torch.dtype) -> torch.Tensor:
@@ -114,22 +117,24 @@ def conv_to_jax(tree):
 
 # -------------------------------------------------------------------- MS-STFT
 
-def init_msstftd(gen, filters: int = 32, in_channels: int = 1,
+def init_msstftd(key, filters: int = 32, in_channels: int = 1,
                  max_filters: int = 1024, dilations=(1, 2, 4),
                  n_scales: int = len(N_FFTS), device="cpu") -> Params:
     """``n_scales`` < 5 keeps the first N scales of the shipped n_fft list;
-    the forward follows the number of sub-discriminators."""
+    the forward follows the number of sub-discriminators. JAX's draw from
+    the threefry ``key``, on ``device``."""
     subs = []
-    for _ in range(n_scales):
-        convs = [_init_conv2d(gen, 2 * in_channels, filters, 3, 9, device)]
+    for sk in prng.split(key.to(device), n_scales):
+        ks = prng.split(sk, len(dilations) + 3)
+        convs = [_init_conv2d(ks[0], 2 * in_channels, filters, 3, 9)]
         in_chs = min(filters, max_filters)
-        for _ in dilations:
+        for i, _ in enumerate(dilations):
             out_chs = min(filters, max_filters)
-            convs.append(_init_conv2d(gen, in_chs, out_chs, 3, 9, device))
+            convs.append(_init_conv2d(ks[1 + i], in_chs, out_chs, 3, 9))
             in_chs = out_chs
-        convs.append(_init_conv2d(gen, in_chs, in_chs, 3, 3, device))
+        convs.append(_init_conv2d(ks[-2], in_chs, in_chs, 3, 3))
         subs.append(dict(convs=convs,
-                         post=_init_conv2d(gen, in_chs, 1, 3, 3, device)))
+                         post=_init_conv2d(ks[-1], in_chs, 1, 3, 3)))
     return dict(subs=subs)
 
 
@@ -183,16 +188,17 @@ def _msd_layout(filters=16, max_filters=1024, downsample_scales=(4, 4, 4, 4),
     return layers, post
 
 
-def init_msd(gen, n_scales: int = 3, device="cpu") -> Params:
+def init_msd(key, n_scales: int = 3, device="cpu") -> Params:
     """Multi-scale waveform discriminator (filters 16, inner groups cin // 4,
-    downsample scales 4, 4, 4, 4)."""
+    downsample scales 4, 4, 4, 4), JAX's draw from ``key``."""
     layers, post = _msd_layout()
     subs = []
-    for _ in range(n_scales):
-        convs = [_init_conv1d(gen, cin, cout, k, groups=gr, device=device)
-                 for cin, cout, k, _, _, gr in layers]
+    for sk in prng.split(key.to(device), n_scales):
+        ks = prng.split(sk, len(layers) + 1)
+        convs = [_init_conv1d(ks[i], cin, cout, k, groups=gr)
+                 for i, (cin, cout, k, _, _, gr) in enumerate(layers)]
         subs.append(dict(convs=convs, post=_init_conv1d(
-            gen, post[0], post[1], post[2], device=device)))
+            ks[-1], post[0], post[1], post[2])))
     return dict(subs=subs)
 
 
@@ -217,21 +223,22 @@ def msd_forward(params: Params, wav: torch.Tensor):
     return logits, fmaps
 
 
-def init_mpd(gen, periods=MPD_PERIODS, n_layers: int = 5, kernel_sizes=(5, 3),
+def init_mpd(key, periods=MPD_PERIODS, n_layers: int = 5, kernel_sizes=(5, 3),
              filters: int = 8, filters_scale: int = 4, max_filters: int = 1024,
              device="cpu") -> Params:
-    """Multi-period discriminator (filters 8, scale 4, 5 layers)."""
+    """Multi-period discriminator (filters 8, scale 4, 5 layers), JAX's
+    draw from ``key``."""
     subs = []
-    for _ in periods:
+    for sk in prng.split(key.to(device), len(periods)):
+        ks = prng.split(sk, n_layers + 1)
         convs = []
         in_chs = 1
         for i in range(n_layers):
             out_chs = min(filters * (filters_scale ** (i + 1)), max_filters)
-            convs.append(_init_conv2d(gen, in_chs, out_chs, kernel_sizes[0], 1,
-                                      device))
+            convs.append(_init_conv2d(ks[i], in_chs, out_chs, kernel_sizes[0], 1))
             in_chs = out_chs
         subs.append(dict(convs=convs, post=_init_conv2d(
-            gen, in_chs, 1, kernel_sizes[1], 1, device)))
+            ks[-1], in_chs, 1, kernel_sizes[1], 1)))
     return dict(subs=subs)
 
 
@@ -259,12 +266,12 @@ def mpd_forward(params: Params, wav: torch.Tensor, periods=MPD_PERIODS,
     return logits, fmaps
 
 
-def get_adversary(name: str, gen, device="cpu", **kwargs):
-    """(params, forward) of the named adversary."""
+def get_adversary(name: str, key, device="cpu", **kwargs):
+    """(params, forward) of the named adversary, drawn from ``key``."""
     if name == "msstftd":
-        return init_msstftd(gen, device=device, **kwargs), msstftd_forward
+        return init_msstftd(key, device=device, **kwargs), msstftd_forward
     if name == "msd":
-        return init_msd(gen, device=device, **kwargs), msd_forward
+        return init_msd(key, device=device, **kwargs), msd_forward
     if name == "mpd":
-        return init_mpd(gen, device=device, **kwargs), mpd_forward
+        return init_mpd(key, device=device, **kwargs), mpd_forward
     raise ValueError(name)

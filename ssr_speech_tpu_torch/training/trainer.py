@@ -14,7 +14,9 @@ step and the host training loop, on one device or over a rank mesh.
   ``load_bundle`` for ``--resume`` and ``--load_model_from``, and
   ``benchmark_no_load``.
 
-The dropout stream is a ``torch.Generator`` on the device seeded from
+The parameters are JAX's ``Trainer``'s: ``init_ssr`` on the second key of
+``split(PRNGKey(tcfg.seed))`` (``utils.prng``, JAX's threefry draw). The
+dropout stream is a ``torch.Generator`` on the device seeded from
 ``tcfg.seed``; its state travels in the bundle as ``torch_rng_state`` (JAX's
 key is ``rng_state``, so each package ignores the other's stream). Each
 decoder layer is checkpointed as ``cfg.remat`` says (``models.transformer``).
@@ -51,6 +53,7 @@ from ..parallel import mesh as meshlib
 from ..parallel.dist import is_main
 from ..utils.checkpoint import load_bundle, save_bundle, save_step_checkpoint
 from ..utils.logging_utils import MetricsWriter
+from ..utils import prng
 from ..utils.metrics import AverageMeter
 from ..utils.profiler import Profiler, annotate
 from ..utils.tree import to_numpy_tree, tree_leaves, tree_map
@@ -275,9 +278,10 @@ class Trainer:
     """Host-side training loop (the JAX ``Trainer``).
 
     ``device`` is a required keyword: a caller names the card or the CPU.
-    Parameters start from the port's ``init_ssr`` with a generator seeded
-    ``tcfg.seed + 1`` on ``device`` (``load_bundle`` replaces them); the
-    dropout generator is seeded ``tcfg.seed``. ``history`` keeps one record
+    Parameters start from JAX's ``Trainer``'s draw: ``init_ssr`` on the
+    second key of ``split(PRNGKey(tcfg.seed))``, made on ``device``
+    (``load_bundle`` replaces them); the dropout generator is seeded
+    ``tcfg.seed``. ``history`` keeps one record
     per step: step, loss, ntokens, skipped, wall seconds (the step ends in a
     host sync, the skip decision, so they cover the device's work), the batch
     shape (B, Sx, Sy) and its unpadded positions.
@@ -322,8 +326,11 @@ class Trainer:
         if mesh is not None and mesh.size("tp") > 1:
             self.hidden_generator = torch.Generator(device=self.device)
             self.hidden_generator.manual_seed(seed + 7919 * (1 + mesh.rank("tp")))
-        init_gen = torch.Generator(device=self.device).manual_seed(tcfg.seed + 1)
-        params = ssr_model.init_ssr(init_gen, cfg, self.device)
+        # the parameters are JAX's: PRNGKey(seed), split, init from the
+        # second key (the first is JAX's dropout stream, which the port
+        # draws from the generators above)
+        init_key = prng.split(prng.PRNGKey(tcfg.seed, self.device))[1]
+        params = ssr_model.init_ssr(init_key, cfg, self.device)
         total = tcfg.num_steps or 100000
         self.optimizer, self.schedule = optimlib.build_optimizer(tcfg.optim, total)
         if mesh is None:

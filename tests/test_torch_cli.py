@@ -31,6 +31,7 @@ from ssr_speech_tpu_torch.inference import cli as tcli
 from ssr_speech_tpu_torch.models import pretrained as tpretrained
 from ssr_speech_tpu_torch.models import ssr as tssr
 from ssr_speech_tpu_torch.models.codec import wmencodec as twm
+from ssr_speech_tpu_torch.utils import prng
 from tests.test_torch_hostcopies import NO_JAX_PACKAGE, port_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -134,9 +135,10 @@ def test_cli_matches_jax_cli(artifacts, monkeypatch, name):
 
 def test_port_bundles_load_in_jax(tmp_path):
     """A bundle written by the port's save_bundle from its own init is a JAX
-    bundle: the JAX loader reads it, with the JAX init's tree structure."""
-    gen = torch.Generator().manual_seed(0)
-    params = tssr.init_ssr(gen, port_config(CFG))
+    bundle: the JAX loader reads it, with the JAX init's tree structure and,
+    from the same seed, JAX's values (uniform draws bit for bit, normal
+    ones within 3 ulp: ``tests/test_torch_prng.py``)."""
+    params = tssr.init_ssr(prng.PRNGKey(0), port_config(CFG))
     path = str(tmp_path / "lm.pkl")
     tpretrained.save_bundle(path, params=params, model_config=port_config(CFG),
                             phn2num={"a": 0})
@@ -146,6 +148,7 @@ def test_port_bundles_load_in_jax(tmp_path):
     assert (jax.tree.structure(jparams) == jax.tree.structure(ref))
     for a, b in zip(jax.tree.leaves(jparams), jax.tree.leaves(ref)):
         assert a.shape == b.shape and a.dtype == np.float32
+        np.testing.assert_allclose(a, b, rtol=4e-7, atol=0)
     model, _, _ = tpretrained.load_lm(path, torch.device("cpu"))
     np.testing.assert_array_equal(model["decoder"]["layers"]["qkv_w"].numpy(),
                                   params["decoder"]["layers"]["qkv_w"].numpy())
@@ -154,12 +157,16 @@ def test_port_bundles_load_in_jax(tmp_path):
 @pytest.mark.parametrize("cfg", [tiny_codec_config(), CODEC],
                          ids=["tiny", "cli"])
 def test_codec_init_structure_matches_jax(cfg):
-    ours = twm.init_wmencodec(torch.Generator().manual_seed(0), port_config(cfg))
+    """The port's codec init from the same seed: JAX's tree, and JAX's
+    values within 1e-6 relative (draws within 3 ulp, weight norm's gains a
+    reduction order apart)."""
+    ours = twm.init_wmencodec(prng.PRNGKey(0), port_config(cfg))
     ref = jwm.init_wmencodec(jax.random.PRNGKey(0), cfg)
     ours = jax.tree.map(lambda t: t.numpy(), ours)
     assert jax.tree.structure(ours) == jax.tree.structure(ref)
     for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(ref)):
         assert a.shape == b.shape
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=0)
 
 
 ALIGN = [(w, round(i * 0.3 + 0.05, 3), round((i + 1) * 0.3, 3))

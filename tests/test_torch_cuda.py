@@ -671,9 +671,10 @@ def small_lm(device):
     from ssr_speech_tpu_torch.config import SSRModelConfig
     from ssr_speech_tpu_torch.models import ssr as tssr
     from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
+    from ssr_speech_tpu_torch.utils import prng
 
     cfg = SSRModelConfig(**SMALL)
-    params = tssr.init_ssr(torch.Generator().manual_seed(0), cfg)
+    params = tssr.init_ssr(prng.PRNGKey(0), cfg)
     return (cfg, lm_from_jax(params, cfg),
             lm_from_jax(params, cfg, device=device, dtype=torch.bfloat16))
 

@@ -31,6 +31,7 @@ NO_DROPOUT = dict(trm_dropout=0.0, text_embedding_dropout=0.0,
                   audio_positional_embedding_dropout=0.0)
 CFG = tiny_ssr_config(nhead=4, num_layers=2, **NO_DROPOUT)
 CFG_DROP = tiny_ssr_config(nhead=4, num_layers=2)
+CFG_4 = tiny_ssr_config(nhead=4, num_layers=4, **NO_DROPOUT)  # 2 a rank
 
 
 def _tcfg(name):
@@ -74,7 +75,8 @@ CASES = (
        _case("scaledadam_2x2", 2, 2, step=True),
        _case("adamw_2x2", 2, 2, step=True, tcfg=_tcfg("adamw")),
        _case("poison_2x1", 2, 1, step=True, poison=CFG.text_vocab_size - 1),
-       _case("dropout_2x2", 2, 2, step=True, sp=True, cfg=CFG_DROP)])
+       _case("dropout_2x2", 2, 2, step=True, sp=True, cfg=CFG_DROP),
+       _case("memory_2x1", 2, 1, memory=True, cfg=CFG_4)])
 
 
 @pytest.fixture(scope="module")
@@ -283,6 +285,35 @@ def test_fsdp_layer_broadcast_sums_gradients_onto_the_owner(collectives):
         np.testing.assert_allclose(r["fsdp"]["dstack"],
                                    len(collectives) * stack.grad.numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots_masks"])
+def test_fsdp_memory_against_dp(port, remat):
+    """fsdp = 2 against dp = 2 on a 4-layer LM (2 layers a rank): the local
+    parameters' layer stacks are halved; under ``full`` and ``dots_masks``
+    no gathered layer of the forward is alive when the backward starts, and
+    autograd saves the same bytes as dp; under ``none`` the products keep
+    every gathered layer for the backward (documented in
+    ``models/transformer.py::_GatheredLayers``). Every ``_FsdpLayer``
+    backward allocates one layer (the reduce), plus, once a stack, the
+    owner's local gradient buffer, never a stack a layer."""
+    for r in port["memory_2x1"]:
+        dp, fs = r[f"dp {remat}"], r[f"fsdp {remat}"]
+        layer, n = r["layer_bytes"], r["layers"]
+        assert dp["local_bytes"] - fs["local_bytes"] == n // 2 * layer
+        assert fs["gathered"] == 12 * n and dp["gathered"] == 0
+        if remat == "none":  # at least each layer's four matrices
+            assert fs["alive"] >= 4 * n
+            assert 0 < fs["saved"] - dp["saved"] <= n * layer
+        else:
+            assert fs["alive"] == 0 and fs["alive_bytes"] == 0
+            assert fs["saved"] == dp["saved"]
+        calls = fs["calls"]
+        assert len(calls) == 12 * n and not dp["calls"]
+        for c in calls:
+            assert c["stack"] == n // 2 * c["layer"]
+            assert c["bytes"] == c["layer"] + (c["stack"] if c["made"] else 0)
+        assert sum(c["made"] for c in calls) == 12  # one buffer a stack
 
 
 @pytest.fixture(scope="module")

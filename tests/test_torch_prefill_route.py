@@ -124,8 +124,9 @@ def _lm(cfg, dtype):
     from ssr_speech_tpu_torch.models import ssr
     from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
 
-    return lm_from_jax(ssr.init_ssr(torch.Generator().manual_seed(0), cfg),
-                       cfg, dtype=dtype)
+    from ssr_speech_tpu_torch.utils import prng
+
+    return lm_from_jax(ssr.init_ssr(prng.PRNGKey(0), cfg), cfg, dtype=dtype)
 
 
 @pytest.mark.parametrize("geometry,dtype,kernel", [
@@ -194,6 +195,7 @@ def test_head16_cli_edit_on_the_card_matches_its_cpu_run(tmp_path):
     from ssr_speech_tpu_torch.models.pretrained import save_bundle
     from ssr_speech_tpu_torch.ops import flash_attention as fa
     from ssr_speech_tpu_torch.utils import audio as audio_io
+    from ssr_speech_tpu_torch.utils import prng
 
     cfg = tiny_ssr_config()  # head width 16
     codec_cfg = CodecConfig(
@@ -201,12 +203,13 @@ def test_head16_cli_edit_on_the_card_matches_its_cpu_run(tmp_path):
                             ratios=(8, 5, 4, 2), lstm=1),
         rvq=RVQConfig(dimension=16, n_q=cfg.n_codebooks,
                       bins=cfg.tokens.audio_vocab_size))
-    gen = torch.Generator().manual_seed(0)
-    save_bundle(str(tmp_path / "lm.pkl"), params=ssr.init_ssr(gen, cfg),
+    save_bundle(str(tmp_path / "lm.pkl"),
+                params=ssr.init_ssr(prng.PRNGKey(0), cfg),
                 model_config=cfg,
                 phn2num={c: i for i, c in enumerate("abcdefghijklmnopqrstuvwxyz_")})
     save_bundle(str(tmp_path / "codec.pkl"),
-                params=wm.init_wmencodec(gen, codec_cfg), config=codec_cfg)
+                params=wm.init_wmencodec(prng.PRNGKey(1), codec_cfg),
+                config=codec_cfg)
     words = ["but", "when", "i", "had", "approached", "so", "near", "to", "them"]
     rng = np.random.default_rng(0)
     audio_io.write_wav(str(tmp_path / "in.wav"),

@@ -227,6 +227,28 @@ def test_train_lm_cli_resume_and_bundles_interoperate(tmp_path):
         _jax_loss(jparams, cfg, tcfg, batch), rel=1e-5)
 
 
+def test_trainer_starts_from_jax_trainers_parameters(tmp_path):
+    """``Trainer(seed)`` in both packages: PRNGKey(seed), split, ``init_ssr``
+    from the second key, so the port starts from JAX's parameters (uniform
+    leaves bit for bit, the two embeddings within 3 ulp:
+    ``tests/test_torch_prng.py``)."""
+    from ssr_speech_tpu_torch.config import TrainConfig as TTrainConfig
+    from ssr_speech_tpu_torch.training.trainer import Trainer
+
+    jtr = JTrainer(CFG, TrainConfig(seed=5, num_steps=1), None,
+                   exp_dir=str(tmp_path / "jax"))
+    ttr = Trainer(port_config(CFG), TTrainConfig(seed=5, num_steps=1), None,
+                  device=torch.device("cpu"), exp_dir=str(tmp_path / "port"))
+    want = jax.tree.leaves(jtr.params)
+    got = [t.detach().numpy() for t in tree_leaves(ttr.model.tree())]
+    assert len(got) == len(want)
+    ulps = [np.abs(g.view(np.int32).astype(np.int64)
+                   - np.asarray(w).view(np.int32).astype(np.int64))
+            for g, w in zip(got, want)]
+    assert max(int(u.max()) for u in ulps) <= 3
+    assert sum(int(u.max() > 0) for u in ulps) <= 2  # the embeddings
+
+
 def test_trainer_needs_a_device():
     """The port's Trainer runs where its caller says: no default device."""
     from ssr_speech_tpu_torch.training.trainer import Trainer

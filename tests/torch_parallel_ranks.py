@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ssr_speech_tpu_torch.models import ssr as tssr
 from ssr_speech_tpu_torch.parallel import collectives as col
@@ -105,6 +107,9 @@ def lm_cases(cases, params_np, batch_np):
     for case in cases:
         if case["dp"] * case["tp"] != world:
             continue
+        if case.get("memory"):
+            out[case["name"]] = fsdp_memory(case["cfg"], batch_np)
+            continue
         mesh = meshlib.make_mesh(tp=case["tp"])
         cfg, tcfg = case["cfg"], case["tcfg"]
         params = params_np
@@ -141,6 +146,103 @@ def lm_cases(cases, params_np, batch_np):
         res["ntokens"] = float(m["ntokens"])
         res["coords"] = mesh.coords
         out[case["name"]] = res
+    return out
+
+
+class _Allocations(TorchDispatchMode):
+    """Bytes of the new tensors the ops under it make (an op's output on
+    storage none of its inputs hold)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        held = {t.untyped_storage().data_ptr() for t in
+                pytree.tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)}
+        for t in pytree.tree_leaves(out):
+            if (isinstance(t, torch.Tensor)
+                    and t.untyped_storage().data_ptr() not in held):
+                held.add(t.untyped_storage().data_ptr())
+                self.bytes += t.untyped_storage().nbytes()
+        return out
+
+
+def fsdp_memory(cfg, batch_np):
+    """What an fsdp step holds and allocates, against dp, on dp = world
+    ranks: for fsdp in (False, True) and each remat mode, one forward and
+    backward of the LM (no dropout) with
+
+    - ``saved``: the bytes autograd keeps for the backward outside the
+      parameters (``saved_tensors_hooks`` around the forward; storages
+      counted once; a checkpointed layer's own saves are the checkpoint's);
+    - ``alive``: the gathered layers of the forward still alive when the
+      backward starts, and their bytes (weak references);
+    - ``calls``: per ``_FsdpLayer.backward`` call, the bytes it allocates,
+      the layer's bytes, the local stack's bytes and whether the call made
+      the stack's ``.grad`` buffer.
+
+    Also the bytes of one layer and of the local parameters."""
+    import dataclasses
+    import weakref
+
+    from ssr_speech_tpu_torch.training.trainer import dp_rows
+    from ssr_speech_tpu_torch.utils import prng
+
+    mesh = meshlib.make_mesh(tp=1)
+    params_np = as_numpy(tssr.init_ssr(prng.PRNGKey(0), cfg))
+    batch = {k: torch.as_tensor(v) for k, v in dp_rows(batch_np, mesh).items()}
+    gather, backward = col.fsdp_layer, col._FsdpLayer.backward
+    out = {}
+    for fsdp in (False, True):
+        for remat in ("none", "full", "dots_masks"):
+            c = dataclasses.replace(cfg, remat=remat)
+            model = _model(mesh, params_np, c, fsdp=fsdp)
+            params = tree_leaves(model.tree())
+            own = {p.untyped_storage().data_ptr() for p in params}
+            gathered, calls, saved = [], [], {}
+            forward = [True]
+
+            def spy_gather(stack, layer, par):
+                t = gather(stack, layer, par)
+                if forward[0]:
+                    gathered.append((weakref.ref(t), t.nbytes))
+                return t
+
+            def spy_backward(ctx, g):
+                before = ctx.stack.grad is None
+                with _Allocations() as a:
+                    res = backward(ctx, g)
+                made = before and ctx.stack.grad is not None
+                calls.append(dict(bytes=a.bytes, made=made,
+                                  layer=ctx.stack[0].nbytes,
+                                  stack=ctx.stack.nbytes))
+                return res
+
+            def pack(t):
+                ptr = t.untyped_storage().data_ptr()
+                if ptr not in own:
+                    saved[ptr] = t.untyped_storage().nbytes()
+                return t
+
+            col.fsdp_layer, col._FsdpLayer.backward = spy_gather, spy_backward
+            try:
+                with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                    loss = tssr.ssr_forward(model, c, batch, deterministic=True,
+                                            remat=remat, par=model.parallel)["loss"]
+                forward[0] = False
+                live = [n for ref, n in gathered if ref() is not None]
+                loss.backward()
+            finally:
+                col.fsdp_layer, col._FsdpLayer.backward = gather, backward
+            out[f"{'fsdp' if fsdp else 'dp'} {remat}"] = dict(
+                saved=sum(saved.values()), alive=len(live),
+                alive_bytes=sum(live), gathered=len(gathered), calls=calls,
+                local_bytes=sum(p.nbytes for p in params))
+    layers = params_np["decoder"]["layers"]
+    out["layer_bytes"] = sum(v[0].nbytes for v in layers.values())
+    out["layers"] = cfg.num_layers
     return out
 
 

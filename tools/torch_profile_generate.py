@@ -5,11 +5,12 @@
         [--continuous 4 8] [--out chiprun_out/torch_profile]
 
 Runs the smoke's edit request without the codec: the 830M LM (e830M
-geometry) with seeded random weights in bf16, 68 text tokens, 300 frames of
-seeded random source codes, one masked span (54, 108), greedy with CFG
-(cfg_pretrained, stride 5), through ``decode.generate`` for S = 1 and
-``decode.generate_batch`` (S chains, 2S rows over a shared prompt cache) for
-each other S of ``--n_samples``. For each S it reports:
+geometry) with random weights in bf16 (JAX's draw from ``PRNGKey(0)``), 68
+text tokens, 300 frames of seeded random source codes, one masked span
+(54, 108), greedy with CFG (cfg_pretrained, stride 5), through
+``decode.generate`` for S = 1 and ``decode.generate_batch`` (S chains, 2S
+rows over a shared prompt cache) for each other S of ``--n_samples``. For
+each S it reports:
 
 - wall, prefill and decode ms/step, twice, unprofiled (every S before any
   profiling: a profiler session slows the host calls that follow it);
@@ -22,9 +23,16 @@ each other S of ``--n_samples``. For each S it reports:
 
 With ``--continuous S1 S2 ...`` (then ``--n_samples`` defaults to none):
 the continuous server's chunk loop (``serve.ContinuousBatcher``, S lanes of
-the same request, 2S rows, paged decode step) for one chunk of at most
-``--chunk_steps`` steps, unprofiled twice and then profiled, with the same
-report a step (the loop is every device event after the lanes' prefills).
+the same request, 2S rows, paged decode step, replayed as CUDA graphs of 8
+steps) for one chunk of at most ``--chunk_steps`` steps, unprofiled twice
+and then profiled, with the same report a step (the profiler runs around
+the chunk alone: the lanes' prefills come before it and are synchronised).
+
+Under graph replay a graph's kernels are traced one by one, as eager
+launches are. For ``generate`` the loop is still every device event after
+the prefill's last flash launch, so it also holds the tail of the prefill's
+last layer (its projections and FFN: ≈60 launches once a request, well
+under one a step).
 
 Then, once: the transformer step plus heads alone, without the sampling
 bookkeeping, and the flash kernel against its plain version at prefill
@@ -36,6 +44,7 @@ Writes ``<out>.json`` and ``<out>.txt`` (the profiler's tables by kernel).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -45,14 +54,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-# kernel-name fragments -> category, first match wins
-CATEGORIES = (("flash", ("flash_fwd_kernel",)),
+# kernel-name fragments -> category, first match wins. The decode step's
+# attention is two batched GEMMs (under "gemm") and a softmax; K1 runs only
+# in the prefills. Casts are copy kernels.
+FLASH = "flash_fwd_kernel"
+CATEGORIES = (("attention", (FLASH, "softmax")),
               ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
               ("copy/cast", ("copy", "memcpy")),
-              ("add", ("functor_add",)),
               ("reduce", ("reduce",)),
-              ("softmax", ("softmax",)),
-              ("memset", ("memset",)))
+              ("elementwise", ("elementwise", "functor_add")))
 
 
 def category(name: str) -> str:
@@ -92,18 +102,22 @@ def decode_runner(torch, decode, lm, cfg, dec, x, y, n_samples, device):
     return run
 
 
-def loop_profile(prof, n_flash, steps, rows, unprofiled_ms):
-    """The decode loop's share of a profile: every device event after the
-    prefills' last flash-attention launch (``n_flash`` of them). Returns
-    launches and device time a step, by category, and the busy share."""
+def loop_profile(events, n_flash, steps, rows, unprofiled_ms):
+    """The decode loop's share of a profile's events: with ``n_flash`` > 0
+    every device event after the prefills' last flash-attention launch
+    (``n_flash`` of them), with 0 every device event (a profile that holds
+    only the loop). Returns launches and device time a step, by category,
+    and the busy share."""
     from torch.autograd import DeviceType
 
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    flash = [e for e in dev_events if category(e.name) == "flash"]
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    flash = [e for e in dev_events if FLASH in e.name]
     if len(flash) != n_flash:
         raise RuntimeError(f"{len(flash)} flash launches in the profile "
                            f"(expected {n_flash}); is CUPTI tracing?")
-    prefill_end = max(e.time_range.end for e in flash)
+    if not dev_events:
+        raise RuntimeError("no device event in the profile; is CUPTI tracing?")
+    prefill_end = max((e.time_range.end for e in flash), default=float("-inf"))
     loop = [e for e in dev_events if e.time_range.start >= prefill_end]
     counts, dev_us = Counter(), Counter()
     for e in loop:
@@ -140,31 +154,36 @@ def profile_decode(torch, run, n_samples, n_layers, unprofiled_ms):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         rep = {"profiled_generate": run()}
     rep["decode_loop_profile"] = loop_profile(
-        prof, n_layers, rep["profiled_generate"]["decode_steps"],
+        prof.events(), n_layers, rep["profiled_generate"]["decode_steps"],
         n_samples * 2, unprofiled_ms)
     return rep, prof
 
 
-def chunk_runner(torch, serve, lm, cfg, dec, x, y, n_slots, steps):
+def chunk_runner(torch, serve, lm, cfg, dec, x, y, n_slots, steps,
+                 sync=None):
     """The continuous server's chunk loop at ``n_slots`` lanes: every lane
     filled with the edit request (one prefill each), then one chunk of at
-    most ``steps`` steps; the lanes are parked after it."""
+    most ``steps`` steps; the lanes are parked after it. ``run(chunk=None)``
+    wraps the chunk alone in ``chunk`` (a context manager: the profiler), so
+    a profile holds the loop and none of the prefills. ``sync`` waits for
+    the device (``torch.cuda.synchronize`` by default)."""
     srv = serve.ContinuousBatcher(lm, cfg, dec, n_slots, sx_pad=128,
                                   p_pad=256, num_task=1)
+    sync = sync or torch.cuda.synchronize
 
-    def run():
+    def run(chunk=None):
         for slot in range(n_slots):
             srv._fill_slot(slot, slot, x, y, [(54, 108)])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        srv._run_chunk(steps)
-        torch.cuda.synchronize()
-        n = srv.state.steps
+        sync()
+        with chunk or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            n = srv._run_chunk(steps)
+            sync()
+            wall = time.perf_counter() - t0
         for slot in range(n_slots):
             srv._slot_req[slot] = None
             srv._park(slot)
-        return {"steps": n,
-                "chunk_ms_per_step": (time.perf_counter() - t0) * 1e3 / n}
+        return {"steps": n, "chunk_ms_per_step": wall * 1e3 / n}
     return run
 
 
@@ -186,7 +205,7 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from chip_smoke import card_line, cuda_time_ms, prefill_segments
+    from chip_smoke import card_line, cuda_time_ms, init_key, prefill_segments
     from ssr_speech_tpu_torch.config import DecodeConfig, SSRModelConfig
     from ssr_speech_tpu_torch.device import resolve_device, set_precision_policy
     from ssr_speech_tpu_torch.inference import decode, serve
@@ -203,8 +222,8 @@ def main() -> int:
     cfg = SSRModelConfig(d_model=2048, nhead=16, num_layers=16, n_codebooks=4,
                          text_vocab_size=120)
     gen = torch.Generator(device=device).manual_seed(0)
-    lm = lm_from_jax(tssr.init_ssr(gen, cfg, device), cfg, device=device,
-                     dtype=torch.bfloat16)
+    lm = lm_from_jax(tssr.init_ssr(init_key(0), cfg, device), cfg,
+                     device=device, dtype=torch.bfloat16)
     rng = np.random.default_rng(0)
     x = rng.integers(0, cfg.text_vocab_size - 1, size=68)
     y = rng.integers(0, 2048, size=(cfg.n_codebooks, 300))
@@ -243,10 +262,9 @@ def main() -> int:
     # the continuous server's chunk loop, one profiled chunk a lane count
     for n, run in chunks.items():
         unprofiled_ms = min(c["chunk_ms_per_step"] for c in chunk_plain[n])
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            got = run()
-        p = loop_profile(prof, n * cfg.num_layers, got["steps"], 2 * n,
-                         unprofiled_ms)
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        got = run(chunk=prof)
+        p = loop_profile(prof.events(), 0, got["steps"], 2 * n, unprofiled_ms)
         rep["continuous"][n] = {"chunks": chunk_plain[n], "profiled_chunk": got,
                                 "chunk_loop_profile": p}
         tables.append(f"=== continuous, {n} lanes ===\n"
