@@ -38,8 +38,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    chained calls for a chain), are timed as yardsticks; the port never
    calls them. ``[prng]``: JAX's threefry draw (``utils/prng.py``, which
    every init here uses) on the card against the CPU's draw of the same
-   key at e830M's ``qkv_w`` shape, ``uniform`` bit for bit and ``normal``
-   within 3 ulp. Then hold a small LM's
+   key at e830M's ``qkv_w`` shape, ``uniform`` and ``normal`` bit for bit
+   (where they differ, the first torch call apart is named). Then hold a
+   small LM's
    prefill and the codec, and a 4-layer training step (loss and gradients),
    against the port's fp32 CPU path, and train that LM a few steps: the loss
    must fall.
@@ -66,7 +67,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    two (``[decode vs cpu]``'s rule), the second graph run capturing
    nothing; ms a step, request wall, LM-only RTF, captures and capture ms,
    the graph pool's bytes, and from ``torch.profiler`` launches, device
-   operations, device ms and busy ms a step of each.
+   operations, device ms and busy ms a step of each. ``[window]``: the
+   edit's graph decode through the stage windows against the same decode
+   reading the whole cache, under the same rule.
 5. Training: over the seeded synthetic corpus (600 utterances of 2-20 s),
    drive ``ssr_speech_tpu_torch.train_lm.main`` on the e830M geometry with
    the flash and fused-CE kernels, ScaledAdam, the CLI's dropouts and its
@@ -119,21 +122,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    host memory), at the e830M width on the first 4 rows of step 5's first
    batch. One-rank references first, in this process: the bf16 step's loss
    and gradients (dropout off), the same at gradient accumulation 4, the
-   bf16 step through the plain attention and head, the fp32 step's
-   gradients (the bf16 steps' own rounding, leaf by leaf: the larger of
-   the two) and the greedy decode of the edit with its logits. Then the ranks: the tp=2
+   fp32 step's gradients through the plain attention and head (the bf16
+   step's own rounding, leaf by leaf) and the greedy decode of the edit
+   with its logits. Then the ranks: the tp=2
    step's loss and gathered gradients, and the same with sequence
    parallelism, against the one-rank step (loss within 2e-3; each leaf
    within 3 times the bf16 step's own distance from fp32, plus 1e-3 of its
-   max), K1/K3 on local heads [4, 8, S, 128] and K4-K6 on each rank; two
+   max; the two positional scales are held in fp32 instead), K1/K3 on
+   local heads [4, 8, S, 128] and K4-K6 on each rank; the tp=2 step in
+   fp32 through the plain attention and head with the double swish for
+   relu, every leaf within 1e-5 of its max of the one-rank step's; two
    dropout-on tp steps with the update, every tp-replicated leaf bit for bit
    on both ranks; the pp=2 step over 4 microbatches against the
    accumulation step; the tp=2 greedy decode of the edit against the
    one-rank decode under ``[decode vs cpu]``'s rule; a tp=2 ``save_sharded``
    read back by ``load_sharded`` in one process bit for bit; a dp = 2 and
    an fsdp = 2 step with the update (the layer stacks shared out over dp),
-   each loss within 2e-3 of the one-rank step, fsdp's peak a rank below
-   dp's, printed beside the saving predicted from bytes. Prints ms and
+   each loss within 2e-3 of the one-rank step and the gradients the update
+   read under the tp bound (fsdp's against dp's too), fsdp's peak a rank
+   below dp's, printed beside the saving predicted from bytes and by
+   stage (the forward and backward, the reduction, the update). Prints ms and
    each rank's peak (the transport's times, not scaling numbers) and a
    ``{"parallel": ...}`` line.
 10. ``[bench]``: the port's benchmark (``ssr_speech_tpu_torch.bench``, the
@@ -1629,16 +1637,97 @@ def drive_graph_path(torch, device, main: dict, stream: dict,
     return dict(paths=report, launches=fa.launches)
 
 
-PRNG_NORMAL_ULPS = 3  # tests/test_torch_prng.py's bound on normal draws
+def check_stage_windows(torch, device, main: dict, card: str) -> dict:
+    """``[window]``: the edit's greedy bf16 decode at the e830M width
+    (``decode.generate``, the CLI's edit flags) through its CUDA graphs
+    twice: as the port serves, each replay reading the generated keys
+    through the stage window that holds them (``transformer.stage_window``
+    over ``cache_stage_sizes``), and with every replay reading the whole
+    cache (the read before the stage windows). Gate: the two runs' logits,
+    recorded on the device, under ``[decode vs cpu]``'s rule
+    (``compare_traces``)."""
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import decode, graphs
+    from ssr_speech_tpu_torch.models import transformer as trf
+    from ssr_speech_tpu_torch.models.pretrained import load_lm
+
+    x, y, mask = _edit_prompt(torch, device, main)
+    lm, cfg, _ = load_lm(main["inputs"]["lm"], device)
+    dec = DecodeConfig(top_k=1, aug_text=True, cfg_pretrained=True,
+                       cfg_stride=5)
+    staged = trf.stage_window
+    runs = {}
+    for name, window in (("stage_windows", staged),
+                         ("whole_cache", lambda sizes, need: sizes[-1])):
+        graphs.clear()
+        trf.stage_window = window
+        try:
+            with LogitTrace(torch, rows=2048) as trace:
+                st = {}
+                decode.generate(lm, cfg, dec, x, y, mask,
+                                torch.Generator(device=device).manual_seed(1),
+                                stats=st)
+                runs[name] = dict(logits=trace.steps()[:, 0],
+                                  steps=int(st["decode_steps"]),
+                                  ms=st["decode_s"] * 1e3 / st["decode_steps"])
+        finally:
+            trf.stage_window = staged
+            graphs.clear()  # the graphs hold the trace's buffer
+    held = compare_traces(torch, runs["whole_cache"]["logits"],
+                          runs["stage_windows"]["logits"],
+                          "[window] stage windows against the whole cache")
+    tie = held["first_tie"]
+    print(f"[window] edit, greedy bf16: {runs['stage_windows']['steps']} "
+          f"steps through the stage windows ({runs['stage_windows']['ms']:.3f}"
+          f" ms a step), {runs['whole_cache']['steps']} through the whole "
+          f"cache ({runs['whole_cache']['ms']:.3f}); the runs agree for "
+          f"{held['held']} steps"
+          + (f", then the first tie at step {tie['step']} (codebook "
+             f"{tie['at']}: the top two {tie['gap']:.3e} apart, logit "
+             f"difference {tie['err']:.3e})" if tie else "")
+          + f"; worst logit difference {held['max_logit_err']:.3e} [{card}]")
+    return dict(held, **{name: {k: v for k, v in r.items() if k != "logits"}
+                         for name, r in runs.items()})
+
+
+def _first_op_apart(torch, draw, key, device, idx) -> str:
+    """Where the card's draw parts from the CPU's: ``draw(key)`` run on
+    both with every torch call's full-size output kept at the flat indices
+    ``idx``; the first call whose kept values differ (its inputs, the
+    earlier outputs, agreed)."""
+    from torch.overrides import TorchFunctionMode
+
+    class Keep(TorchFunctionMode):
+        def __init__(self, n):
+            super().__init__()
+            self.n, self.outs = n, []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor) and out.numel() == self.n:
+                self.outs.append((getattr(func, "__name__", str(func)),
+                                  out.detach().reshape(-1)[idx.to(out.device)].cpu()))
+            return out
+
+    n = draw(key).numel()
+    runs = []
+    for k in (key, key.to(device)):
+        with Keep(n) as keep:
+            draw(k)
+        runs.append(keep.outs)
+    for i, ((name, a), (_, b)) in enumerate(zip(*runs)):
+        if not torch.equal(a, b):
+            return f"call {i} of {len(runs[0])}, {name}"
+    return "no call apart"
 
 
 def check_prng(torch, device, card: str) -> dict:
     """``[prng]``: JAX's threefry draw (``utils/prng.py``) on the card
     against the CPU's draw of the same key, at e830M's ``qkv_w`` shape
-    [2048, 6144]: ``uniform`` (xavier's bound) bit for bit, ``normal``
-    within PRNG_NORMAL_ULPS (the card's float64 ``log1p`` and division may
-    round an ulp apart from the CPU's); every init of the smoke draws this
-    way."""
+    [2048, 6144]: ``uniform`` (xavier's bound) and ``normal`` bit for bit,
+    as the CPU's draw is JAX's (``tests/test_torch_prng.py``). Where a draw
+    differs, the first torch call that rounds apart is named. Every init of
+    the smoke draws this way."""
     from ssr_speech_tpu_torch.utils import prng
 
     shape = (2048, 3 * 2048)
@@ -1659,11 +1748,16 @@ def check_prng(torch, device, card: str) -> dict:
                 - want.view(torch.int32).long()).abs()
         out[name] = dict(ms=ms, max_ulps=int(ulps.max()),
                          inexact=int((ulps > 0).sum()))
+        if out[name]["inexact"]:
+            out[name]["first_op_apart"] = _first_op_apart(
+                torch, draw, key, device, torch.nonzero(ulps.reshape(-1))[:, 0])
         print(f"[prng] {name} {list(shape)} on the card against the CPU's "
               f"draw of the same key: {out[name]['inexact']} of "
-              f"{got.numel()} inexact, at most {out[name]['max_ulps']} ulp; "
-              f"{ms:.1f} ms on the card [{card}]")
-    if out["uniform"]["max_ulps"] or out["normal"]["max_ulps"] > PRNG_NORMAL_ULPS:
+              f"{got.numel()} inexact, at most {out[name]['max_ulps']} ulp"
+              + (f" (first apart at {out[name]['first_op_apart']})"
+                 if out[name]["inexact"] else "")
+              + f"; {ms:.1f} ms on the card [{card}]")
+    if out["uniform"]["inexact"] or out["normal"]["inexact"]:
         raise RuntimeError(f"[prng] the card's draw differs from the CPU's: "
                            f"{out}")
     return out
@@ -3069,11 +3163,19 @@ PARALLEL_N_MICRO = 4  # the pp=2 step's microbatches (one row each)
 # |err| over its max |g| at most PARALLEL_NOISE_MULT times as far as the
 # one-rank bf16 step's leaf lies from the one-rank fp32 step's (the step's
 # own bf16 rounding: tp rounds at other points), plus PARALLEL_GRAD_FLOOR.
-# That distance is the larger of two bf16 samples, the kernels' step and the
-# plain attention and head's: a leaf that is the small rest of a large sum
-# (the positional scales) has a rounding error that one sample may show
-# near zero
+# dp=2 and fsdp=2 are held to the one-rank step and fsdp to dp the same way
 PARALLEL_LOSS_REL, PARALLEL_NOISE_MULT, PARALLEL_GRAD_FLOOR = 2e-3, 3.0, 1e-3
+# The positional scales' gradients are each the small rest of a sum over
+# every element of the embeddings' gradient (sum dh * pe), so one bf16
+# sample of their rounding says little of another layout's: they are held
+# in fp32 instead, the tp=2 step through the plain attention and head
+# against the one-rank fp32 step, where every leaf is within
+# PARALLEL_FP32_REL of its max. That step's FFN activation is the smooth
+# double swish: the card's products round an ulp apart at another width,
+# and a relu pre-activation that changes sign moves a whole row of the
+# first FFN weight's gradient (5e-2 of its max in fp32)
+PARALLEL_POS_SCALARS = ("text_pos_alpha", "audio_pos_alpha")
+PARALLEL_FP32_REL = 1e-5
 # pp=2 against the one-rank step at gradient accumulation 4: the same
 # per-microbatch products (the loss equal up to PP_LOSS_REL); the gradients
 # under the same rule as tp (a received activation's gradient sums its two
@@ -3088,6 +3190,15 @@ def _no_dropout(cfg):
     return dataclasses.replace(cfg, trm_dropout=0.0, text_embedding_dropout=0.0,
                                text_positional_embedding_dropout=0.0,
                                audio_positional_embedding_dropout=0.0)
+
+
+def _fp32_smooth(cfg):
+    """The configuration of ``[parallel]``'s fp32 steps: the plain
+    attention and head, the FFN's activation the double swish."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, attn_impl="einsum", ce_impl="unfused",
+                               activation="double_swish")
 
 
 def _parallel_tcfg(accum: int = 1, precision: str = "bfloat16"):
@@ -3170,10 +3281,12 @@ def fsdp_saving_gib(cfg) -> float:
 def parallel_rank(spec: dict) -> dict:
     """One rank of ``[parallel]`` (spawned twice on the one card, gloo):
     the tp=2 gradients against the one-rank step (dropout off, then with
-    sequence parallelism), a sharded checkpoint of the starting weights,
-    two timed dropout-on tp steps with the update and the replicated leaves
-    compared bit for bit across the ranks, the pp=2 step's gradients
-    against the accumulation step, and the tp=2 greedy decode of the edit
+    sequence parallelism, then in fp32 with the smooth activation), a
+    sharded checkpoint of the starting weights, two timed dropout-on tp
+    steps with the update and the replicated leaves compared bit for bit
+    across the ranks, the pp=2 step's gradients against the accumulation
+    step, the dp=2 and fsdp=2 steps with the update (peaks by stage, the
+    gradients the update read), and the tp=2 greedy decode of the edit
     against the one-rank decode's logits. Returns what the parent gates and
     prints."""
     import numpy as np
@@ -3188,6 +3301,7 @@ def parallel_rank(spec: dict) -> dict:
     from ssr_speech_tpu_torch.parallel import collectives as col
     from ssr_speech_tpu_torch.parallel import mesh as meshlib
     from ssr_speech_tpu_torch.parallel import pipeline as pl
+    from ssr_speech_tpu_torch.training import trainer as trainer_mod
     from ssr_speech_tpu_torch.training.optim import build_optimizer
     from ssr_speech_tpu_torch.training.trainer import make_train_step
     from ssr_speech_tpu_torch.utils import checkpoint as ck
@@ -3261,6 +3375,21 @@ def parallel_rank(spec: dict) -> dict:
     out["ref_loss"] = float(ref["loss"])
     out["leaf_names"] = ["/".join(p) for p, _ in meshlib.spec_items(model.specs)]
     del ref
+    # ---- tp=2 in fp32 through the plain attention and head, the FFN's
+    # activation smooth: every leaf, the positional scales too, against the
+    # one-rank step of the same configuration
+    smooth = _fp32_smooth(cfg0)
+    step = make_train_step(smooth, _parallel_tcfg(1, "float32"), opt, device,
+                           mesh=mesh)
+    grads, m = measure("tp_fp32", lambda: step.gradients(model, batch, *gens()))
+    ref = torch.load(spec["fp32_smooth_ref"], mmap=True)
+    whole = [meshlib.full_tensor(mesh, g, s) for g, (_, s) in
+             zip(tree_leaves(grads), meshlib.spec_items(model.specs))]
+    out["tp_fp32"] = dict(loss=float(m["loss"]), ref_loss=float(ref["loss"]),
+                          grad_err=_leaf_errors(torch, whole, ref["grads"]))
+    del whole, grads, ref
+    for p in tree_leaves(model.tree()):
+        p.grad = None
     # ---- dropout on, the update: replicated leaves bit-identical over tp
     step = make_train_step(cfg, tcfg, opt, device, mesh=mesh)
     g, h = gens()
@@ -3300,10 +3429,13 @@ def parallel_rank(spec: dict) -> dict:
     if cuda:
         torch.cuda.empty_cache()
     # ---- dp=2, then fsdp=2 (the layer stacks shared out over dp): one
-    # step each with the update, dropout off, the peak a rank over the step
-    # (parameters and ScaledAdam's state resident, then gradients and
-    # activations)
+    # step each with the update, dropout off. The peak a rank over the step
+    # and within each stage (the forward and backward; the reduction over
+    # dp; the finite check and the update), and the gradients the update
+    # read, whole, against the one-rank step's and fsdp's against dp's
     dmesh = meshlib.make_mesh(tp=1)
+    ref = torch.load(spec["tp_ref"], mmap=True)
+    dp_whole = None
     for name, fsdp in (("dp", False), ("fsdp", True)):
         model = meshlib.shard_model(dmesh, init(), meshlib.ssr_param_specs(
             fsdp=fsdp), dmesh.parallel(fsdp=fsdp), cfg=cfg0)
@@ -3311,18 +3443,52 @@ def parallel_rank(spec: dict) -> dict:
         opt.set_sharding(meshlib.shard_groups(dmesh, model.specs))
         state = opt.init(model.tree())
         step = make_train_step(cfg0, tcfg, opt, device, mesh=dmesh)
+        stages, read = {}, []
+        real_reduce, real_update = trainer_mod.reduce_gradients, opt.update_
+
+        def mark(stage):
+            stages[stage] = _peak(torch, device) / 2 ** 30
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+
+        def reduce(*a, **kw):
+            mark("forward_backward")
+            real_reduce(*a, **kw)
+            mark("reduce")
+
+        def update(grads, *a, **kw):
+            read.extend(tree_leaves(grads))  # the update leaves them as they are
+            real_update(grads, *a, **kw)
+            mark("update")
+
         if cuda:
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
         resident = (torch.cuda.memory_allocated(device) if cuda else 0)
-        m = measure(name, lambda: step(model, state, batch, gens()[0]))
+        trainer_mod.reduce_gradients, opt.update_ = reduce, update
+        try:
+            m = measure(name, lambda: step(model, state, batch, gens()[0]))
+        finally:
+            trainer_mod.reduce_gradients = real_reduce
+        if not read:
+            raise RuntimeError(f"[parallel] {name}: the step skipped its update")
+        whole = [meshlib.full_tensor(dmesh, g.detach().cpu(), s) for g, (_, s)
+                 in zip(read, meshlib.spec_items(model.specs))]
         out[name] = dict(loss=float(m["loss"]), skipped=m["skipped"],
-                         peak_gib=_peak(torch, device) / 2 ** 30,
-                         resident_gib=resident / 2 ** 30)
-        del model, opt, state, step
+                         peak_gib=max(stages.values()), stage_peak_gib=stages,
+                         resident_gib=resident / 2 ** 30,
+                         grad_err=_leaf_errors(torch, whole, ref["grads"]))
+        if fsdp:
+            out[name]["vs_dp_err"] = _leaf_errors(torch, whole, dp_whole)
+            out[name]["vs_dp_equal"] = sum(
+                torch.equal(a, b) for a, b in zip(whole, dp_whole))
+        else:
+            dp_whole = whole
+        del model, opt, state, step, read, whole
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
+    del ref, dp_whole
     # ---- tp=2 greedy decode of the edit against the one-rank logits
     lm, lcfg, _ = load_lm(spec["lm"], device)
     lm = meshlib.shard_params_for_serving(mesh, lm)
@@ -3369,17 +3535,21 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     -> 8 a rank, 16 layers) on the first PARALLEL_ROWS rows of train-830M's
     first batch. The one-rank references run here first: the bf16 step's
     loss and gradients (dropout off), the same at gradient accumulation 4,
-    the bf16 step through the plain attention and head, the fp32 step's
-    gradients (the bf16 steps' own rounding, leaf by leaf: the larger of the
-    two samples), and the greedy decode of the edit with each step's logits. Gates: tp=2
-    and tp=2 + sequence parallelism within PARALLEL_LOSS_REL and the
-    noise-scaled gradient bound, pp=2 within PP_LOSS_REL and the same bound,
-    every
+    the fp32 step's gradients through the plain attention and head (the
+    bf16 step's own rounding, leaf by leaf), the same with the double swish
+    for relu, and the greedy decode of the edit with each step's logits. Gates: tp=2 and tp=2 + sequence
+    parallelism within PARALLEL_LOSS_REL and the noise-scaled gradient
+    bound, the tp=2 fp32 step's every leaf (double swish for relu) within
+    PARALLEL_FP32_REL of the one-rank step's, pp=2 within PP_LOSS_REL and the noise-scaled bound, the
+    dp=2 and fsdp=2 steps with the update within PARALLEL_LOSS_REL and the
+    noise-scaled bound (the gradients the update read, fsdp's against dp's
+    too), fsdp's peak a rank below dp's, every
     tp-replicated leaf bit-identical across the ranks after two dropout-on
     updates, the tp decode's codes the one-rank decode's up to the first
     near-tie (the ``[decode vs cpu]`` rule), the tp=2 checkpoint read back in
     this process bit for bit, and K1/K3 on local heads [B, 8, S, 128] and
-    K4-K6 on every rank of the tp step."""
+    K4-K6 on every rank of the tp step. The bf16 bounds leave out
+    PARALLEL_POS_SCALARS, which the fp32 gate holds."""
     import dataclasses
 
     import numpy as np
@@ -3407,9 +3577,9 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     for name, accum, prec, mcfg in (
             ("tp_ref", 1, "bfloat16", cfg0),
             ("pp_ref", PARALLEL_N_MICRO, "bfloat16", cfg0),
-            ("plain_bf16_ref", 1, "bfloat16", plain),
             # the kernels take bf16: the fp32 step is the plain attention and head
-            ("fp32_ref", 1, "float32", plain)):
+            ("fp32_ref", 1, "float32", plain),
+            ("fp32_smooth_ref", 1, "float32", _fp32_smooth(cfg0))):
         tcfg = _parallel_tcfg(accum, prec)
         model = trainable_lm_from_jax(init(), mcfg, device=device)
         opt, _ = build_optimizer(tcfg.optim)
@@ -3424,17 +3594,13 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
         refs[name + "_ms"] = (time.perf_counter() - ts) * 1e3
         refs[name + "_loss"] = float(m["loss"])
         leaves = [g.detach().float().cpu() for g in tree_leaves(grads)]
-        if name == "plain_bf16_ref":
-            kept[name] = leaves
-        elif name == "fp32_ref":
-            # the bf16 step's own rounding, leaf by leaf: the larger of two
-            # samples (the kernels' bf16 step and the plain bf16 step)
-            refs["noise"] = [max(a, b) for a, b in zip(
-                _leaf_errors(torch, kept["tp_ref"], leaves),
-                _leaf_errors(torch, kept["plain_bf16_ref"], leaves))]
+        if name == "fp32_ref":  # the bf16 step's own rounding, leaf by leaf
+            refs["noise"] = _leaf_errors(torch, kept.pop("tp_ref"), leaves)
         else:
-            torch.save(dict(loss=float(m["loss"]), grads=leaves), d / f"{name}.pt")
-            kept[name] = leaves
+            if name == "tp_ref":
+                kept[name] = leaves
+            torch.save(dict(loss=float(m["loss"]), grads=leaves),
+                       d / f"{name}.pt")
         del model, grads, step, opt, leaves
         gc.collect()
         if device.type == "cuda":
@@ -3458,7 +3624,9 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
         torch.cuda.empty_cache()
     refs_s = time.perf_counter() - t0
     spec = dict(cfg=cfg, batch=rows, tp_ref=str(d / "tp_ref.pt"),
-                pp_ref=str(d / "pp_ref.pt"), decode_ref=str(d / "decode_ref.pt"),
+                pp_ref=str(d / "pp_ref.pt"),
+                fp32_smooth_ref=str(d / "fp32_smooth_ref.pt"),
+                decode_ref=str(d / "decode_ref.pt"),
                 ckpt=str(d / "ckpt_tp2"), lm=serving["inputs"]["lm"],
                 prompt=prompt, device=str(device))
     t1 = time.perf_counter()
@@ -3482,14 +3650,20 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     noise = refs["noise"]
     bound = [PARALLEL_NOISE_MULT * n + PARALLEL_GRAD_FLOOR for n in noise]
     names = res[0]["leaf_names"]
-    print(f"[parallel] one-rank bf16 steps (kernels, plain) against fp32, "
-          f"the larger a leaf, worst leaves: "
+    scalar = [n in PARALLEL_POS_SCALARS for n in names]
+    print(f"[parallel] one-rank bf16 step against fp32, worst leaves: "
           f"{_worst_leaves(names, noise)} of their max (the bound of a leaf "
-          f"is {PARALLEL_NOISE_MULT} x its value + {PARALLEL_GRAD_FLOOR})")
+          f"is {PARALLEL_NOISE_MULT} x its value + {PARALLEL_GRAD_FLOOR}; "
+          f"{', '.join(PARALLEL_POS_SCALARS)} held in fp32 instead)")
 
-    def over(errs):  # leaves beyond their bound, worst first
-        return sorted(((e / bd, n, e) for e, bd, n in zip(errs, bound, names)
-                       if e > bd), reverse=True)
+    def over(errs, pos=False):  # leaves beyond their bound, worst first
+        return sorted(((e / bd, n, e) for e, bd, n, sc in zip(
+            errs, bound, names, scalar) if e > bd and (pos or not sc)),
+            reverse=True)
+
+    def pos_errs(errs):
+        return ", ".join(f"{n} {e:.2e}" for n, e, sc in zip(names, errs, scalar)
+                         if sc)
     fails = []
     for r in res:
         for name in ("tp", "tp_sp"):
@@ -3499,7 +3673,8 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
                   f"vs one rank {r['ref_loss']!r} (rel {loss_rel:.2e}, tol "
                   f"{PARALLEL_LOSS_REL}); worst gradient leaves "
                   f"{_worst_leaves(r['leaf_names'], r[name]['grad_err'])} of "
-                  f"their max, {len(bad)} beyond their bound; "
+                  f"their max, {len(bad)} beyond their bound (not gated in "
+                  f"bf16: {pos_errs(r[name]['grad_err'])}); "
                   f"{r['ms'][name]:.0f} ms "
                   f"(forward+backward); launches {r['launches'][name]}; K1 "
                   f"shapes {r['shapes'][name]}")
@@ -3515,6 +3690,19 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
             if r["shapes"][name] != [local]:
                 fails.append(f"rank {r['rank']} {name}: K1 at {r['shapes'][name]}"
                              f", expected the local heads {local}")
+        f32 = r["tp_fp32"]
+        f32_rel = abs(f32["loss"] - f32["ref_loss"]) / abs(f32["ref_loss"])
+        f32_bad = sorted(((e, n) for e, n in zip(f32["grad_err"], names)
+                          if e > PARALLEL_FP32_REL), reverse=True)
+        print(f"[parallel] rank {r['rank']} tp=2 in fp32 (plain attention and "
+              f"head, double swish): loss {f32['loss']!r} vs one rank {f32['ref_loss']!r} "
+              f"(rel {f32_rel:.2e}); worst gradient leaves "
+              f"{_worst_leaves(names, f32['grad_err'])} of their max, "
+              f"{pos_errs(f32['grad_err'])}; {len(f32_bad)} beyond "
+              f"{PARALLEL_FP32_REL}; {r['ms']['tp_fp32']:.0f} ms")
+        if f32_rel > PARALLEL_FP32_REL or f32_bad:
+            fails.append(f"rank {r['rank']} tp fp32: loss rel {f32_rel:.2e}, "
+                         f"leaves beyond {PARALLEL_FP32_REL}: {f32_bad[:3]}")
         pp_rel = abs(r["pp"]["loss"] - r["pp"]["ref_loss"]) / abs(r["pp"]["ref_loss"])
         pp_bad = over(r["pp"]["grad_err"])
         print(f"[parallel] rank {r['rank']} pp=2 x {PARALLEL_N_MICRO} "
@@ -3540,6 +3728,23 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
               f"saves {dp['peak_gib'] - fs['peak_gib']:.2f} GiB (predicted "
               f"{fsdp_saving:.2f}); {r['ms']['dp']:.0f} / "
               f"{r['ms']['fsdp']:.0f} ms; launches {r['launches']['fsdp']}")
+        print(f"[parallel] rank {r['rank']} dp=2 / fsdp=2 peak GiB by stage: "
+              + "; ".join(f"{st} {dp['stage_peak_gib'][st]:.2f} / "
+                          f"{fs['stage_peak_gib'][st]:.2f}"
+                          for st in dp["stage_peak_gib"]))
+        for name, errs, against in (("dp", dp["grad_err"], "one rank"),
+                                    ("fsdp", fs["grad_err"], "one rank"),
+                                    ("fsdp", fs["vs_dp_err"], "dp")):
+            bad = over(errs)
+            print(f"[parallel] rank {r['rank']} {name} gradients (as the update "
+                  f"read them) against {against}'s: worst leaves "
+                  f"{_worst_leaves(names, errs)} of their max, {len(bad)} beyond "
+                  f"their bound (not gated in bf16: {pos_errs(errs)})"
+                  + (f"; {fs['vs_dp_equal']} of {len(errs)} leaves bit-identical"
+                     if against == "dp" else ""))
+            if bad:
+                fails.append(f"rank {r['rank']} {name} against {against}: "
+                             f"leaves beyond their bound {bad[:3]}")
         for name in ("dp", "fsdp"):
             rel = abs(r[name]["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
             if rel > PARALLEL_LOSS_REL or r[name]["skipped"]:
@@ -3592,11 +3797,12 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
                 for k in res[0]["launches"]["tp"]}
     return dict(launches=launches, fsdp_saving_predicted_gib=fsdp_saving,
                 ranks=[{k: r[k] for k in (
-        "rank", "ms", "launches", "peak_gib_tp", "peak_gib_pp", "dp",
-        "fsdp")} | dict(
-            tp_grad_err=max(r["tp"]["grad_err"]),
-            tp_sp_grad_err=max(r["tp_sp"]["grad_err"]),
-            pp_grad_err=max(r["pp"]["grad_err"]), decode=r["decode"])
+        "rank", "ms", "launches", "peak_gib_tp", "peak_gib_pp")} | {
+            name: {k: v for k, v in r[name].items() if "err" not in k}
+            for name in ("dp", "fsdp")} | {
+            f"{name}_grad_err": max(r[name]["grad_err"])
+            for name in ("tp", "tp_sp", "tp_fp32", "pp", "dp", "fsdp")} | dict(
+            fsdp_vs_dp_err=max(r["fsdp"]["vs_dp_err"]), decode=r["decode"])
         for r in res], bf16_noise=max(noise),
         reference_ms=dict(step=refs["tp_ref_ms"],
                           accumulation=refs["pp_ref_ms"],
@@ -4362,6 +4568,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         graph = drive_graph_path(torch, device, serving, tts_stream, card)
+        window = check_stage_windows(torch, device, serving, card)
         gc.collect()
         torch.cuda.empty_cache()
         training = drive_training_path(
@@ -4448,7 +4655,7 @@ def main() -> int:
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"prng": prng_check}))
-    print(json.dumps({"graph": graph["paths"]}))
+    print(json.dumps({"graph": graph["paths"], "window": window}))
     print(json.dumps({"bench": dict(line=bench_run["line"],
                                     seconds=bench_run["seconds"],
                                     requests=bench_run["requests"])}))

@@ -17,7 +17,9 @@ gives:
 - :func:`uniform` and :func:`normal` are ``jax.random.uniform`` and
   ``jax.random.normal`` in float32: mantissa bits under exponent 0, then
   ``floats * (maxval - minval) + minval``; ``sqrt(2) * erf_inv(u)`` with
-  XLA's float32 ``ErfInv`` polynomial and XLA's ``log1p``, op for op;
+  XLA's float32 ``ErfInv`` polynomial, XLA's ``log1p`` (Cephes' rational
+  form below sqrt(2) - 1, XLA's ``log`` above) and a correctly rounded
+  square root, op for op;
 - :func:`choice` (without replacement) and :func:`permutation` are JAX's
   sort-based shuffle.
 
@@ -25,11 +27,11 @@ The integer work runs in int64 masked to 32 bits (torch's uint32 lacks
 shifts on CUDA). Each float op is its own torch op, so every intermediate is
 rounded to float32 as XLA rounds it, and a multiply that XLA's CPU code
 fuses into the add after it is fused here too (:func:`fma`). No library
-``log`` is called. ``uniform`` and the keys match JAX bit for bit on the CPU
-and on the card; ``normal`` matches JAX within the bound
-``tests/test_torch_prng.py`` states, and on an H100 225 of 12,582,912
-normal draws differ from the CPU's, by at most 2 ulp (``chip_smoke.py``'s
-``[prng]``; which op rounds apart there is not known).
+``log`` is called, and the square root is corrected to the IEEE one
+(:func:`sqrt`: ``torch.sqrt`` of float32 is not correctly rounded on every
+CPU). The keys, ``uniform`` and ``normal`` match JAX bit for
+bit on the CPU (``tests/test_torch_prng.py``), and the card's draw is held
+to the CPU's bit for bit (``chip_smoke.py``'s ``[prng]``).
 """
 
 from __future__ import annotations
@@ -155,10 +157,15 @@ _LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
           -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
           2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
 _LOG1P_SMALL = 0.41421356237309504880  # sqrt(2) - 1
-# fdlibm's float log1p series in s^2 (Lp1 .. Lp7)
-_LOG1P_LP = (6.6666668653e-01, 4.0000000596e-01, 2.8571429849e-01,
-             2.2222198546e-01, 1.8183572590e-01, 1.5313838422e-01,
-             1.4798198640e-01)
+# XLA's float32 log1p below |x| = sqrt(2) - 1: Cephes' rational form
+# x - x^2/2 + x^3 P(x)/Q(x), Horner coefficients highest power first
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
 
 
 def log(x: torch.Tensor) -> torch.Tensor:
@@ -189,21 +196,35 @@ def log(x: torch.Tensor) -> torch.Tensor:
 
 
 def log1p(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``log1p`` for x in (-1, 0]: XLA's :func:`log` of ``x + 1``
-    where |x| >= sqrt(2) - 1, bit for bit. Below that XLA evaluates a
-    rational form whose constants its binary does not show; the fdlibm
-    form ``f - (f^2/2 - s (f^2/2 + R(s^2)))``, s = f / (2 + f), stands in
-    for it (98% of draws there bit for bit, the rest an ulp apart)."""
+    """XLA's float32 ``log1p`` for x in (-1, 0], op for op: :func:`log` of
+    ``x + 1`` where |x| >= sqrt(2) - 1, else Cephes' rational form with
+    each Horner step fused."""
     f = lambda v: _f32(v, x.device)
-    hfsq = f(0.5) * x * x
-    s = x / (f(2.0) + x)
-    z = s * s
-    r = torch.full_like(z, _LOG1P_LP[-1])
-    for c in reversed(_LOG1P_LP[:-1]):
-        r = fma(r, z, f(c))
-    small = x - (hfsq - fma(s, hfsq, s * (z * r)))
-    return torch.where(x.abs() < _LOG1P_SMALL, small,
-                       log(x + f(1.0)))
+
+    def horner(cs):
+        p = torch.zeros_like(x)
+        for c in cs:
+            p = fma(p, x, f(c))
+        return p
+
+    x2 = x * x
+    r = horner(_LOG1P_P) / horner(_LOG1P_Q)
+    small = x + fma(f(-0.5), x2, (x * x2) * r)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + f(1.0)))
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root of x >= 0 on any device: the
+    float64 root rounded to float32, then moved to the neighbour whose
+    midpoint brackets x (the midpoints' squares are exact in float64).
+    ``torch.sqrt`` of float32 is not correctly rounded on every CPU."""
+    s = torch.sqrt(x.double()).float()
+    xd = x.double()
+    up = torch.nextafter(s, torch.full_like(s, math.inf))
+    down = torch.nextafter(s, torch.zeros_like(s))
+    hi = (s.double() + up.double()) / 2
+    lo = (s.double() + down.double()) / 2
+    return torch.where(hi * hi < xd, up, torch.where(lo * lo > xd, down, s))
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
@@ -213,7 +234,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     f = lambda v: _f32(v, x.device)
     w = -log1p(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - f(2.5), torch.sqrt(w) - f(3.0))
+    w = torch.where(lt, w - f(2.5), sqrt(w) - f(3.0))
     lt5 = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
     ge5 = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
     p = torch.where(lt, lt5[0], ge5[0])

@@ -136,8 +136,8 @@ def test_cli_matches_jax_cli(artifacts, monkeypatch, name):
 def test_port_bundles_load_in_jax(tmp_path):
     """A bundle written by the port's save_bundle from its own init is a JAX
     bundle: the JAX loader reads it, with the JAX init's tree structure and,
-    from the same seed, JAX's values (uniform draws bit for bit, normal
-    ones within 3 ulp: ``tests/test_torch_prng.py``)."""
+    from the same seed, JAX's values bit for bit
+    (``tests/test_torch_prng.py``)."""
     params = tssr.init_ssr(prng.PRNGKey(0), port_config(CFG))
     path = str(tmp_path / "lm.pkl")
     tpretrained.save_bundle(path, params=params, model_config=port_config(CFG),
@@ -148,7 +148,7 @@ def test_port_bundles_load_in_jax(tmp_path):
     assert (jax.tree.structure(jparams) == jax.tree.structure(ref))
     for a, b in zip(jax.tree.leaves(jparams), jax.tree.leaves(ref)):
         assert a.shape == b.shape and a.dtype == np.float32
-        np.testing.assert_allclose(a, b, rtol=4e-7, atol=0)
+        np.testing.assert_array_equal(a, b)
     model, _, _ = tpretrained.load_lm(path, torch.device("cpu"))
     np.testing.assert_array_equal(model["decoder"]["layers"]["qkv_w"].numpy(),
                                   params["decoder"]["layers"]["qkv_w"].numpy())
@@ -158,8 +158,8 @@ def test_port_bundles_load_in_jax(tmp_path):
                          ids=["tiny", "cli"])
 def test_codec_init_structure_matches_jax(cfg):
     """The port's codec init from the same seed: JAX's tree, and JAX's
-    values within 1e-6 relative (draws within 3 ulp, weight norm's gains a
-    reduction order apart)."""
+    values within 1e-6 relative (the draws bit for bit, weight norm's gains
+    a reduction order apart)."""
     ours = twm.init_wmencodec(prng.PRNGKey(0), port_config(cfg))
     ref = jwm.init_wmencodec(jax.random.PRNGKey(0), cfg)
     ours = jax.tree.map(lambda t: t.numpy(), ours)
