@@ -67,7 +67,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    two (``[decode vs cpu]``'s rule), the second graph run capturing
    nothing; ms a step, request wall, LM-only RTF, captures and capture ms,
    the graph pool's bytes, and from ``torch.profiler`` launches, device
-   operations, device ms and busy ms a step of each. ``[window]``: the
+   operations, device ms and busy ms a step of each. ``[prefill graph]``
+   (before ``[graph]``): the edit's, the TTS's, batch-8's, multi-3's and a
+   continuous server's admission prefill (with its splice) through the
+   eager program and the captured one, bit for bit at two requests of one
+   bucket; one capture a bucket; 16 K1 launches a prefill, and 16 K1
+   kernels in a replay's profile; prefill ms eager and replayed, device
+   ms by kernel group, pool bytes. ``[window]``: the
    edit's graph decode through the stage windows against the same decode
    reading the whole cache, under the same rule.
 5. Training: over the seeded synthetic corpus (600 utterances of 2-20 s),
@@ -128,7 +134,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    step's loss and gathered gradients, and the same with sequence
    parallelism, against the one-rank step (loss within 2e-3; each leaf
    within 3 times the bf16 step's own distance from fp32, plus 1e-3 of its
-   max; the two positional scales are held in fp32 instead), K1/K3 on
+   max; the two positional scales within 3 sqrt(2) times the spread of the
+   one-rank bf16 step's error over 64-position row blocks, plus 1e-3),
+   K1/K3 on
    local heads [4, 8, S, 128] and K4-K6 on each rank; the tp=2 step in
    fp32 through the plain attention and head with the double swish for
    relu, every leaf within 1e-5 of its max of the one-rank step's; two
@@ -139,9 +147,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    read back by ``load_sharded`` in one process bit for bit; a dp = 2 and
    an fsdp = 2 step with the update (the layer stacks shared out over dp),
    each loss within 2e-3 of the one-rank step and the gradients the update
-   read under the tp bound (fsdp's against dp's too), fsdp's peak a rank
-   below dp's, printed beside the saving predicted from bytes and by
-   stage (the forward and backward, the reduction, the update). Prints ms and
+   read under the tp bound (fsdp's against dp's too, and bit for bit),
+   dp's gradients bit for bit one flat all-reduce of the rank's own, its
+   reduction stage's peak no higher than its forward and backward's,
+   fsdp's peak a rank below dp's, printed beside the saving predicted from
+   bytes and by stage (the forward and backward, the reduction, the
+   update). Prints ms and
    each rank's peak (the transport's times, not scaling numbers) and a
    ``{"parallel": ...}`` line.
 10. ``[bench]``: the port's benchmark (``ssr_speech_tpu_torch.bench``, the
@@ -835,7 +846,7 @@ def check_shared_step(torch, device, main: dict) -> dict:
     rows_equal = all(torch.equal(got[i], got[g * BATCH])
                      for g in (0, 1) for i in range(g * BATCH, (g + 1) * BATCH))
     print(f"[shared step] {2 * BATCH} rows over a shared prefill of "
-          f"{pfx.length} keys against transformer_decode_step on [cond, "
+          f"{int(pfx.length)} keys against transformer_decode_step on [cond, "
           f"uncond]: logits max err / max {err:.2e} (tol {REL}); argmax "
           f"agrees on {argmax:.3f} of the codebook rows; the chains of a group "
           + ("bit-identical" if rows_equal else "NOT bit-identical"))
@@ -1635,6 +1646,315 @@ def drive_graph_path(torch, device, main: dict, stream: dict,
             profile={"eager": prof[False], "graph": prof[True]})
     print(f"[graph] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return dict(paths=report, launches=fa.launches)
+
+
+PREFILL_TIMED = 5  # prefills timed a path and way (eager, replayed)
+
+
+def _second_request(cfg, x, y, mask):
+    """A request of other lengths in the bucket of (x, y, mask), a single
+    span: fewer text ids, a shorter mask, or both."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.inference import decode
+    from ssr_speech_tpu_torch.ops import patterns
+
+    def buckets(xs, m):
+        p = patterns.build_inference_prefix(np.asarray(y, np.int32), m,
+                                            cfg.tokens)[0].shape[1]
+        return (decode._bucket(len(xs), decode.X_BUCKET),
+                decode._bucket(p, decode.PREFIX_BUCKET))
+
+    (a, b), = mask
+    for cut_x, cut_m in ((5, 6), (2, 6), (5, 0), (2, 0), (0, 6), (0, 2)):
+        if b - cut_m < a:
+            continue
+        x2, m2 = x[:len(x) - cut_x], [(a, b - cut_m)]
+        if buckets(x2, m2) == buckets(x, mask):
+            return x2, y, m2
+    raise RuntimeError("[prefill graph] no second request in the bucket")
+
+
+def _prefill_paths(torch, lm, cfg, device):
+    """The serving path's prefills at e830M: (name, make(graphs) -> state,
+    run(state, i) -> the program's outputs for request i (0 or 1), the
+    program of a state). The edit and the TTS through ``generate``'s
+    workspace, batch-8 through ``generate_batch``'s, multi-3 through
+    ``generate_multi``'s (two ragged layouts), and a continuous server's
+    admission (the staged prefill, then the splice into lane 1 + i)."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import decode, serve
+    from ssr_speech_tpu_torch.ops import patterns
+
+    dtype = lm["decoder"]["layers"]["qkv_w"].dtype
+    edit_dec = DecodeConfig(top_k=1, aug_text=True, cfg_pretrained=True,
+                            cfg_stride=5)  # the CLI's edit flags
+    srv_dec = DecodeConfig(top_k=1, cfg_pretrained=True)  # SERVE_FLAGS
+    gen = lambda: torch.Generator(device=device).manual_seed(1)  # noqa: E731
+    x, y, mask = serve_prompts(cfg, (EDIT_TARGET,))[0]
+    x_tts = serve_prompts(cfg, (TTS_TARGET,))[0][0]
+    y_tts = y[:, :150]  # a 3 s prompt
+    T = y_tts.shape[1]
+
+    def one(dec, reqs, kind):
+        ps = [decode._one_prompt(lm, cfg, dec, xs, ys, ms, gen(), None, None,
+                                 None, "prefill graph", on_device=False)
+              for xs, ys, ms in reqs]
+        p = ps[0]
+        if (ps[1]["xb"].shape, ps[1]["prefix"].shape) != (p["xb"].shape,
+                                                          p["prefix"].shape):
+            raise RuntimeError(f"[prefill graph] {kind}: the second request "
+                               f"is in another bucket")
+        if kind == "single":
+            tmax = decode._bucket(p["sx_pad"] + p["p_pad"] + p["cap_total"]
+                                  + p["num_task"] + 8, decode.TMAX_BUCKET)
+
+            def make(use):
+                return decode.single_workspace(
+                    lm, cfg, dec, rows=2, tmax=tmax, num_task=p["num_task"],
+                    cap_total=p["cap_total"], dtype=dtype, cuda_graphs=use)
+        else:
+            tmax = decode._bucket(p["sx_pad"] + p["p_pad"] + 8, 256)
+
+            def make(use):
+                return decode.shared_workspace(
+                    lm, cfg, dec, groups=2, n_chains=BATCH, tmax=tmax,
+                    banned_bool=False, num_task=p["num_task"],
+                    cap_total=p["cap_total"], aug_text=True, dtype=dtype,
+                    cuda_graphs=use)
+
+        def run(ws, i):
+            with ws.lock:
+                decode._prefill_one(lm, ws, ps[i], cfg=cfg, dec=dec,
+                                    tmax=tmax, dtype=dtype)
+            return [ws.pfx.k, ws.pfx.v, ws.banned, ws.pfx.length]
+
+        def program(ws):
+            return next(iter(ws.prefills.values()))[1]
+
+        return make, run, program
+
+    def multi():
+        reqs = [(x, y, mask), (x[:50], y, [(40, 80)]),
+                (x[:40], y, [(170, 210)])]
+        layouts = []
+        # the second layout: the prompts in another order, two of them with
+        # fewer text ids (the longest text kept whole: the same bucket)
+        for order, cut in (((0, 1, 2), (0, 0, 0)), ((2, 0, 1), (5, 0, 3))):
+            xs, ps = [], []
+            for j, c in zip(order, cut):
+                xj, yj, mj = reqs[j]
+                xs.append(np.asarray(xj[:len(xj) - c]))
+                ps.append(patterns.build_inference_prefix(
+                    np.asarray(yj, np.int32), mj, cfg.tokens)[0])
+            sx = decode._bucket(max(len(v) for v in xs), decode.X_BUCKET)
+            P = decode._bucket(max(v.shape[1] for v in ps),
+                               decode.PREFIX_BUCKET)
+            xb, x_lens = decode.build_text_rows(xs, sx, cfg, edit_dec, None)
+            prefixes = np.full((3, cfg.n_codebooks, P), cfg.tokens.empty,
+                               np.int64)
+            for i, v in enumerate(ps):
+                prefixes[i, :, :v.shape[1]] = v
+            layouts.append(dict(x=xb, prefix=prefixes, x_lens=x_lens,
+                                p_lens=np.asarray([v.shape[1] for v in ps])))
+        if layouts[0]["x"].shape != layouts[1]["x"].shape or \
+                layouts[0]["prefix"].shape != layouts[1]["prefix"].shape:
+            raise RuntimeError("[prefill graph] multi-3: the second layout "
+                               "is in another bucket")
+        sx, P = layouts[0]["x"].shape[1], layouts[0]["prefix"].shape[2]
+        tmax = decode._bucket(sx + P + 8, 256)
+
+        def make(use):
+            return decode.shared_workspace(
+                lm, cfg, edit_dec, groups=6, n_chains=3, tmax=tmax,
+                banned_bool=True, num_task=1,
+                cap_total=edit_dec.max_gen_per_span, aug_text=True,
+                dtype=dtype, cuda_graphs=use)
+
+        def run(ws, i):
+            def fill(x, prefix, x_lens, p_lens):
+                cache, _ = decode._prefill_multi_impl(
+                    lm, x, prefix, x_lens, p_lens, cfg=cfg, tmax=tmax,
+                    dtype=dtype, cfg_pretrained=True, aug_text=True,
+                    cache=ws.prefill_cache(), pe=ws.pe, banned=ws.banned)
+                ws.pfx.length.copy_(cache.length)
+
+            lay = layouts[i]
+            with ws.lock:
+                ws.prefill(("multi", lay["x"].shape, lay["prefix"].shape,
+                            True), lay, fill)
+            return [ws.pfx.k, ws.pfx.v, ws.banned, ws.pfx.length]
+
+        return make, run, lambda ws: next(iter(ws.prefills.values()))[1]
+
+    def server():
+        reqs = serve_prompts(cfg)
+        sx, P, nt = serve.serve_geometry(cfg, srv_dec, reqs)
+        two = [reqs[0], _second_request(cfg, *reqs[0])]
+
+        def make(use):
+            return serve.ContinuousBatcher(lm, cfg, srv_dec, SERVE_SLOTS,
+                                           sx_pad=sx, p_pad=P, num_task=nt,
+                                           cuda_graphs=use)
+
+        def run(srv, i):
+            st, meta = staged = srv._prefill_request(*two[i])
+            out = [st.k.clone(), st.v.clone(), st.banned.clone()]
+            srv._splice_slot(1 + i, i, staged)
+            s = srv.state
+            return out + [srv._pfx.k, srv._pfx.v, srv._banned, srv._x_lens,
+                          srv._n_tasks] + [getattr(s, f) for f in (
+                              "y_pos", "next_tokens", "out", "out_len",
+                              "span_idx", "span_end", "num_gen", "num_eog",
+                              "prev_token", "consec_silence", "num_cfg",
+                              "done", "gen_len", "active")]
+
+        return make, run, lambda srv: srv._staging[0].prefill
+
+    edit_reqs = [(x, y, mask), _second_request(cfg, x, y, mask)]
+    tts_reqs = [(x_tts, y_tts, [(T, T)]),
+                _second_request(cfg, x_tts, y_tts, [(T, T)])]
+    return [("edit", *one(edit_dec, edit_reqs, "single")),
+            ("tts", *one(edit_dec, tts_reqs, "single")),
+            (f"batch-{BATCH}", *one(edit_dec, edit_reqs, "shared")),
+            ("multi-3", *multi()),
+            ("server admission", *server())]
+
+
+PREFILL_GROUPS = (("K1", ("flash_fwd_kernel",)),
+                  ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                  ("copy", ("copy", "memcpy", "memset", "fill")))
+
+
+def _profile_device(torch, run) -> dict:
+    """``run()`` under ``torch.profiler`` (device activity): device ms (the
+    kernels' durations summed), busy ms (their union), the K1 kernels
+    (``flash_fwd_kernel``) among them, and device ms by group of kernel
+    name (``PREFILL_GROUPS``, the rest "other")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans, k1 = [], 0
+    groups = dict.fromkeys([g for g, _ in PREFILL_GROUPS] + ["other"], 0.0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            name = e.name().lower()
+            k1 += "flash_fwd_kernel" in name
+            group = next((g for g, keys in PREFILL_GROUPS
+                          if any(k in name for k in keys)), "other")
+            groups[group] += e.duration_ns() / 1e6
+    return dict(device_ms=sum(b - a for a, b in spans) / 1e6,
+                busy_ms=_union_ns(spans) / 1e6, ops=len(spans), k1=k1,
+                groups=groups)
+
+
+def check_prefill_graph(torch, device, main: dict, card: str) -> dict:
+    """``[prefill graph]``: each prefill of the serving path at e830M (the
+    edit, the TTS, batch-8's shared prefill, multi-3's ragged one and a
+    continuous server's admission with its splice) through the eager
+    program (``cuda_graphs=False``) and the captured one, at two requests
+    of one bucket (other lengths, another ragged layout, another lane).
+    Gates: the caches, the banned keys and the fill (the server's staged
+    rows, and after the splice its prompt rows, ban and every per-slot
+    field) bit for bit between the two at both requests; one capture a
+    bucket, the second request a replay; 16 K1 launches counted a prefill
+    either way, and 16 K1 kernels in the profile of one replay. Prints
+    prefill ms eager and replayed (wall, synchronised; the median of
+    ``PREFILL_TIMED``), device and busy ms of one replay from
+    ``torch.profiler``, and the program's pool bytes. Returns the K1
+    launches of the phase and the numbers."""
+    import statistics
+
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.models import pretrained
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    lm, cfg, _ = pretrained.load_lm(main["inputs"]["lm"], device)
+    cuda = device.type == "cuda"
+    fa.reset_launches()
+    report, fails = {}, []
+    for name, make, run, program in _prefill_paths(torch, lm, cfg, device):
+        graphs.clear()
+        eager, graph = make(False), make(True)
+        held = []
+        for i in (0, 1):
+            before = fa.launches
+            want = [t.clone() for t in run(eager, i)]
+            n_eager = fa.launches - before
+            before = fa.launches
+            got = run(graph, i)
+            n_graph = fa.launches - before
+            same = all(torch.equal(a, b) for a, b in zip(want, got))
+            held.append(same)
+            if not same:
+                fails.append(f"{name} request {i}: the replayed prefill "
+                             f"differs from the eager one")
+            if n_eager != cfg.num_layers or n_graph != cfg.num_layers:
+                fails.append(f"{name} request {i}: K1 counted {n_eager} eager, "
+                             f"{n_graph} replayed, expected {cfg.num_layers}")
+        prog = program(graph)
+
+        def timed(state):
+            ms = []
+            for k in range(PREFILL_TIMED):
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                run(state, k % 2)
+                _sync(torch, device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ms)
+
+        ms_eager, ms_graph = timed(eager), timed(graph)
+        prof = (_profile_device(torch, lambda: run(graph, 1)) if cuda
+                else dict(device_ms=None, busy_ms=None, ops=0, k1=0,
+                          groups={}))
+        if cuda and prof["k1"] != cfg.num_layers:
+            fails.append(f"{name}: {prof['k1']} K1 kernels in a replay's "
+                         f"profile, expected {cfg.num_layers}")
+        if prog.captures != 1 or prog.replays < 1:
+            fails.append(f"{name}: {prog.captures} captures, {prog.replays} "
+                         f"replays (one capture a bucket, then replays)")
+        rec = dict(held=held, ms_eager=ms_eager, ms_graph=ms_graph,
+                   device_ms=prof["device_ms"], busy_ms=prof["busy_ms"],
+                   device_ops=prof["ops"], k1_in_replay=prof["k1"],
+                   device_ms_by_group=prof["groups"],
+                   captures=prog.captures, replays=prog.replays,
+                   capture_ms=prog.capture_s * 1e3,
+                   pool_bytes=prog.pool_bytes() if cuda else 0)
+        report[name] = rec
+        dev_ms = ("not measured" if rec["device_ms"] is None else
+                  f"{rec['device_ms']:.3f} device ms ({rec['busy_ms']:.3f} "
+                  f"busy, {rec['device_ops']} kernels, {rec['k1_in_replay']} "
+                  f"K1; ms by group " + ", ".join(
+                      f"{g} {ms:.3f}" for g, ms in prof["groups"].items())
+                  + ")")
+        print(f"[prefill graph] {name}: caches and bans bit for bit eager vs "
+              f"replayed at both requests: {held}; prefill ms eager "
+              f"{ms_eager:.3f} / replayed {ms_graph:.3f} (median of "
+              f"{PREFILL_TIMED}, synchronised); one replay {dev_ms}; "
+              f"{rec['captures']} capture ({rec['capture_ms']:.1f} ms), "
+              f"{rec['replays']} replays; pool {rec['pool_bytes'] / 2**20:.1f}"
+              f" MiB [{card}]")
+        del eager, graph
+    graphs.clear()
+    del lm
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    launches = fa.launches
+    print(f"[prefill graph] phase {time.perf_counter() - t_phase:.1f} s; K1 "
+          f"counted {launches} times [{card}]")
+    if fails:
+        raise RuntimeError("[prefill graph] " + "; ".join(fails))
+    return dict(paths=report, launches=launches)
 
 
 def check_stage_windows(torch, device, main: dict, card: str) -> dict:
@@ -3167,14 +3487,24 @@ PARALLEL_N_MICRO = 4  # the pp=2 step's microbatches (one row each)
 PARALLEL_LOSS_REL, PARALLEL_NOISE_MULT, PARALLEL_GRAD_FLOOR = 2e-3, 3.0, 1e-3
 # The positional scales' gradients are each the small rest of a sum over
 # every element of the embeddings' gradient (sum dh * pe), so one bf16
-# sample of their rounding says little of another layout's: they are held
-# in fp32 instead, the tp=2 step through the plain attention and head
-# against the one-rank fp32 step, where every leaf is within
-# PARALLEL_FP32_REL of its max. That step's FFN activation is the smooth
-# double swish: the card's products round an ulp apart at another width,
-# and a relu pre-activation that changes sign moves a whole row of the
-# first FFN weight's gradient (5e-2 of its max in fp32)
+# sample of their rounding says little of another layout's. Their bf16
+# bound comes from a noise estimate of that sum instead: the one-rank bf16
+# step's share of it against the fp32 step's, by row and block of
+# PARALLEL_POS_BLOCK positions (``PosTaps``), the blocks' errors added in
+# quadrature (the spread of a sum of independent roundings, which one
+# cancelling sample understates); a leaf within PARALLEL_POS_MULT times
+# that spread over its value, plus PARALLEL_GRAD_FLOOR. The factor is 3
+# standard deviations of the difference of two such samples (tp's
+# rounding and one rank's): 3 x sqrt(2). All leaves, the scales too, are
+# also held in fp32: the tp=2 step through the plain attention and head
+# against the one-rank fp32 step, every leaf within PARALLEL_FP32_REL of
+# its max. That step's FFN activation is the smooth double swish: the
+# card's products round an ulp apart at another width, and a relu
+# pre-activation that changes sign moves a whole row of the first FFN
+# weight's gradient (5e-2 of its max in fp32)
 PARALLEL_POS_SCALARS = ("text_pos_alpha", "audio_pos_alpha")
+PARALLEL_POS_BLOCK = 64
+PARALLEL_POS_MULT = 3.0 * math.sqrt(2.0)
 PARALLEL_FP32_REL = 1e-5
 # pp=2 against the one-rank step at gradient accumulation 4: the same
 # per-microbatch products (the loss equal up to PP_LOSS_REL); the gradients
@@ -3207,6 +3537,56 @@ def _parallel_tcfg(accum: int = 1, precision: str = "bfloat16"):
     return TrainConfig(precision=precision, codebook_weight=CW,
                        gradient_accumulation_steps=accum,
                        optim=OptimConfig(optimizer_name="scaledadam", lr=0.05))
+
+
+class PosTaps:
+    """While open, each call of the port's ``embed_text`` and
+    ``apply_audio_pos`` records its positional scale's gradient by row and
+    position in the backward: ``shares[leaf]`` [B, S] fp32 on the host, the
+    sum over the width of dh * pe (the scale's gradient is their sum)."""
+
+    def __init__(self, torch):
+        from ssr_speech_tpu_torch.models import ssr as tssr
+
+        self.tssr, self.shares = tssr, {}
+
+    def _tap(self, leaf, out, pe_rows):
+        if out.requires_grad:
+            out.register_hook(lambda g: self.shares.__setitem__(
+                leaf, (g.float() * pe_rows).sum(-1).detach().cpu()))
+        return out
+
+    def __enter__(self):
+        tssr = self.tssr
+        self.real = real_text, real_audio = tssr.embed_text, tssr.apply_audio_pos
+
+        def embed_text(params, cfg, x, pe, start=0):
+            return self._tap("text_pos_alpha", real_text(params, cfg, x, pe,
+                                                         start),
+                             tssr._pos_slice(pe, start, x.shape[1])[None])
+
+        def apply_audio_pos(params, y_emb, pe, start):
+            return self._tap("audio_pos_alpha",
+                             real_audio(params, y_emb, pe, start),
+                             tssr._pos_slice(pe, start, y_emb.shape[-2]))
+
+        tssr.embed_text, tssr.apply_audio_pos = embed_text, apply_audio_pos
+        return self
+
+    def __exit__(self, *exc):
+        self.tssr.embed_text, self.tssr.apply_audio_pos = self.real
+        return False
+
+
+def pos_block_noise(torch, got, want, block: int) -> float:
+    """The spread of a positional scale's bf16 rounding: the errors of
+    ``got``'s [B, S] shares against ``want``'s, summed by row and block of
+    ``block`` positions, added in quadrature, over the scale's value (the
+    sum of ``want``)."""
+    e = got - want
+    e = torch.nn.functional.pad(e, (0, (-e.shape[1]) % block))
+    blocks = e.reshape(e.shape[0], -1, block).sum(-1)
+    return blocks.pow(2).sum().sqrt().item() / abs(want.sum().item())
 
 
 def _leaf_errors(torch, got_leaves, ref_leaves) -> list:
@@ -3443,7 +3823,7 @@ def parallel_rank(spec: dict) -> dict:
         opt.set_sharding(meshlib.shard_groups(dmesh, model.specs))
         state = opt.init(model.tree())
         step = make_train_step(cfg0, tcfg, opt, device, mesh=dmesh)
-        stages, read = {}, []
+        stages, read, before = {}, [], []
         real_reduce, real_update = trainer_mod.reduce_gradients, opt.update_
 
         def mark(stage):
@@ -3451,9 +3831,11 @@ def parallel_rank(spec: dict) -> dict:
             if cuda:
                 torch.cuda.reset_peak_memory_stats(device)
 
-        def reduce(*a, **kw):
+        def reduce(grads, *a, **kw):
             mark("forward_backward")
-            real_reduce(*a, **kw)
+            if not fsdp:  # the rank's own sums, on the host
+                before.extend(g.detach().to("cpu", copy=True) for g in grads)
+            real_reduce(grads, *a, **kw)
             mark("reduce")
 
         def update(grads, *a, **kw):
@@ -3484,6 +3866,16 @@ def parallel_rank(spec: dict) -> dict:
                 torch.equal(a, b) for a, b in zip(whole, dp_whole))
         else:
             dp_whole = whole
+            # the sums as the flat all-reduce of every gradient gave them
+            flat = torch.cat([g.reshape(-1).float() for g in before])
+            dist.all_reduce(flat, group=dmesh.group("dp"))
+            equal, i = 0, 0
+            for g, w in zip(before, whole):
+                equal += torch.equal(flat[i:i + g.numel()].view(g.shape)
+                                     .to(g.dtype), w)
+                i += g.numel()
+            out[name]["flat_equal"] = equal
+            del flat, before
         del model, opt, state, step, read, whole
         gc.collect()
         if cuda:
@@ -3548,8 +3940,12 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     updates, the tp decode's codes the one-rank decode's up to the first
     near-tie (the ``[decode vs cpu]`` rule), the tp=2 checkpoint read back in
     this process bit for bit, and K1/K3 on local heads [B, 8, S, 128] and
-    K4-K6 on every rank of the tp step. The bf16 bounds leave out
-    PARALLEL_POS_SCALARS, which the fp32 gate holds."""
+    K4-K6 on every rank of the tp step; dp's reduction stage no higher
+    than its forward and backward, dp's gradients bit for bit one flat
+    all-reduce of the rank's own and fsdp's bit for bit dp's. The bf16
+    bound of PARALLEL_POS_SCALARS is PARALLEL_POS_MULT times their spread
+    over PARALLEL_POS_BLOCK-position row blocks (``PosTaps`` in the
+    one-rank references), plus PARALLEL_GRAD_FLOOR."""
     import dataclasses
 
     import numpy as np
@@ -3573,6 +3969,7 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     t0 = time.perf_counter()
     refs = {}
     kept = {}
+    shares = {}  # by reference, the positional scales' shares (PosTaps)
     plain = dataclasses.replace(cfg0, attn_impl="einsum", ce_impl="unfused")
     for name, accum, prec, mcfg in (
             ("tp_ref", 1, "bfloat16", cfg0),
@@ -3588,9 +3985,11 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
             k: v.reshape((accum, b // accum) + v.shape[1:]) for k, v in rows.items()}
         _sync(torch, device)
         ts = time.perf_counter()
-        grads, m = step.gradients(model, feed,
-                                  torch.Generator(device=device).manual_seed(5))
+        with PosTaps(torch) as taps:
+            grads, m = step.gradients(
+                model, feed, torch.Generator(device=device).manual_seed(5))
         _sync(torch, device)
+        shares[name] = taps.shares
         refs[name + "_ms"] = (time.perf_counter() - ts) * 1e3
         refs[name + "_loss"] = float(m["loss"])
         leaves = [g.detach().float().cpu() for g in tree_leaves(grads)]
@@ -3651,19 +4050,31 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
     bound = [PARALLEL_NOISE_MULT * n + PARALLEL_GRAD_FLOOR for n in noise]
     names = res[0]["leaf_names"]
     scalar = [n in PARALLEL_POS_SCALARS for n in names]
+    pos_noise = {leaf: pos_block_noise(torch, shares["tp_ref"][leaf],
+                                       shares["fp32_ref"][leaf],
+                                       PARALLEL_POS_BLOCK)
+                 for leaf in PARALLEL_POS_SCALARS}
+    for i, n in enumerate(names):
+        if scalar[i]:
+            bound[i] = PARALLEL_POS_MULT * pos_noise[n] + PARALLEL_GRAD_FLOOR
     print(f"[parallel] one-rank bf16 step against fp32, worst leaves: "
           f"{_worst_leaves(names, noise)} of their max (the bound of a leaf "
-          f"is {PARALLEL_NOISE_MULT} x its value + {PARALLEL_GRAD_FLOOR}; "
-          f"{', '.join(PARALLEL_POS_SCALARS)} held in fp32 instead)")
+          f"is {PARALLEL_NOISE_MULT} x its value + {PARALLEL_GRAD_FLOOR})")
+    print(f"[parallel] positional scales, one-rank bf16 against fp32: "
+          + "; ".join(
+              f"{n} {noise[i]:.2e} of its value, spread over "
+              f"{PARALLEL_POS_BLOCK}-position row blocks {pos_noise[n]:.2e}, "
+              f"bound {bound[i]:.2e} ({PARALLEL_POS_MULT:.3f} x spread + "
+              f"{PARALLEL_GRAD_FLOOR})"
+              for i, n in enumerate(names) if scalar[i]))
 
-    def over(errs, pos=False):  # leaves beyond their bound, worst first
-        return sorted(((e / bd, n, e) for e, bd, n, sc in zip(
-            errs, bound, names, scalar) if e > bd and (pos or not sc)),
-            reverse=True)
+    def over(errs):  # leaves beyond their bound, worst first
+        return sorted(((e / bd, n, e) for e, bd, n in zip(errs, bound, names)
+                       if e > bd), reverse=True)
 
     def pos_errs(errs):
-        return ", ".join(f"{n} {e:.2e}" for n, e, sc in zip(names, errs, scalar)
-                         if sc)
+        return ", ".join(f"{n} {e:.2e} (bound {bd:.2e})" for n, e, bd, sc
+                         in zip(names, errs, bound, scalar) if sc)
     fails = []
     for r in res:
         for name in ("tp", "tp_sp"):
@@ -3673,8 +4084,8 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
                   f"vs one rank {r['ref_loss']!r} (rel {loss_rel:.2e}, tol "
                   f"{PARALLEL_LOSS_REL}); worst gradient leaves "
                   f"{_worst_leaves(r['leaf_names'], r[name]['grad_err'])} of "
-                  f"their max, {len(bad)} beyond their bound (not gated in "
-                  f"bf16: {pos_errs(r[name]['grad_err'])}); "
+                  f"their max, {len(bad)} beyond their bound (the scales "
+                  f"{pos_errs(r[name]['grad_err'])}); "
                   f"{r['ms'][name]:.0f} ms "
                   f"(forward+backward); launches {r['launches'][name]}; K1 "
                   f"shapes {r['shapes'][name]}")
@@ -3698,7 +4109,9 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
               f"head, double swish): loss {f32['loss']!r} vs one rank {f32['ref_loss']!r} "
               f"(rel {f32_rel:.2e}); worst gradient leaves "
               f"{_worst_leaves(names, f32['grad_err'])} of their max, "
-              f"{pos_errs(f32['grad_err'])}; {len(f32_bad)} beyond "
+              + ", ".join(f"{n} {e:.2e}" for n, e, sc in zip(
+                  names, f32["grad_err"], scalar) if sc)
+              + f"; {len(f32_bad)} beyond "
               f"{PARALLEL_FP32_REL}; {r['ms']['tp_fp32']:.0f} ms")
         if f32_rel > PARALLEL_FP32_REL or f32_bad:
             fails.append(f"rank {r['rank']} tp fp32: loss rel {f32_rel:.2e}, "
@@ -3739,7 +4152,7 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
             print(f"[parallel] rank {r['rank']} {name} gradients (as the update "
                   f"read them) against {against}'s: worst leaves "
                   f"{_worst_leaves(names, errs)} of their max, {len(bad)} beyond "
-                  f"their bound (not gated in bf16: {pos_errs(errs)})"
+                  f"their bound (the scales {pos_errs(errs)})"
                   + (f"; {fs['vs_dp_equal']} of {len(errs)} leaves bit-identical"
                      if against == "dp" else ""))
             if bad:
@@ -3759,6 +4172,21 @@ def check_parallel(torch, device, cfg, batch, serving, work: Path,
         if fs["peak_gib"] >= dp["peak_gib"]:
             fails.append(f"rank {r['rank']}: fsdp's peak {fs['peak_gib']:.2f} "
                          f"GiB is not below dp's {dp['peak_gib']:.2f}")
+        stage = dp["stage_peak_gib"]
+        print(f"[parallel] rank {r['rank']} dp=2 reduction: peak "
+              f"{stage['reduce']:.2f} GiB against the forward and backward's "
+              f"{stage['forward_backward']:.2f}; {dp['flat_equal']} of "
+              f"{len(names)} leaves bit-identical to one flat all-reduce of "
+              f"the rank's gradients, fsdp's equal to dp's on "
+              f"{fs['vs_dp_equal']}")
+        if stage["reduce"] > stage["forward_backward"]:
+            fails.append(f"rank {r['rank']}: dp's reduction peaks at "
+                         f"{stage['reduce']:.2f} GiB, above its forward and "
+                         f"backward's {stage['forward_backward']:.2f}")
+        if dp["flat_equal"] != len(names) or fs["vs_dp_equal"] != len(names):
+            fails.append(f"rank {r['rank']}: dp's gradients equal the flat "
+                         f"all-reduce's on {dp['flat_equal']} leaves, fsdp's "
+                         f"dp's on {fs['vs_dp_equal']}, of {len(names)}")
         steps = [r[f"tp_step{i}_loss"] for i in range(PARALLEL_TIMED_STEPS)]
         print(f"[parallel] rank {r['rank']} tp=2 steps with dropout and the "
               f"update: losses {steps}, "
@@ -4567,6 +4995,9 @@ def main() -> int:
         http_path = drive_http_path(torch, device, serving, tts_stream, card)
         gc.collect()
         torch.cuda.empty_cache()
+        prefill_graph = check_prefill_graph(torch, device, serving, card)
+        gc.collect()
+        torch.cuda.empty_cache()
         graph = drive_graph_path(torch, device, serving, tts_stream, card)
         window = check_stage_windows(torch, device, serving, card)
         gc.collect()
@@ -4627,6 +5058,7 @@ def main() -> int:
                                "continuous": continuous["launches"],
                                "stream": tts_stream["launches"],
                                "http": http_path["launches"],
+                               "prefill_graph": prefill_graph["launches"],
                                "graph": graph["launches"],
                                "training": training[fwd["name"]],
                                "prep_training": prep_run["launches"],
@@ -4656,6 +5088,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"prng": prng_check}))
     print(json.dumps({"graph": graph["paths"], "window": window}))
+    print(json.dumps({"prefill_graph": prefill_graph["paths"]}))
     print(json.dumps({"bench": dict(line=bench_run["line"],
                                     seconds=bench_run["seconds"],
                                     requests=bench_run["requests"])}))

@@ -26,9 +26,14 @@ windows (``models.transformer.cache_stage_sizes``; the keys past the fill
 are masked, the same math). On one CUDA rank the body is captured as a CUDA
 graph per window and replayed (``inference/graphs.py``), with one host read
 of the loop's flag a replay; elsewhere, the CPU included, it runs eagerly.
-The prefill stays eager and writes into the workspace's cache. JAX clamps out-of-range gathers and drops out-of-range scatters where torch
-raises (a device-side assert on CUDA), so every such index is clamped here
-explicitly.
+The prefill is JAX's other compiled program: it reads the padded rows and
+the true lengths from static buffers of the workspace (the lengths as
+device scalars, which JAX traces) and writes the workspace's prompt cache,
+its fill and the banned keys, which the decode graphs read; on one CUDA
+rank it is captured once per prefill shape (``graphs.GraphProgram``) and
+replayed by every later request of that shape. JAX clamps out-of-range
+gathers and drops out-of-range scatters where torch raises (a device-side
+assert on CUDA), so every such index is clamped here explicitly.
 """
 
 from __future__ import annotations
@@ -300,9 +305,12 @@ class DecodeWorkspace:
     whole cache), for the shared path a generated cache ``gen``, the chain
     state, the banned keys, per-chain length caps and span counts, a step
     counter ``step`` with its host bound ``limit``, the loop's ``flag`` and
-    the constants the body reads. Every tensor a graph reads lives here, so
-    a later request writes its inputs in place and replays the graphs.
-    ``lock`` serialises requests on one workspace."""
+    the constants the body reads; and the prefill programs that fill
+    ``pfx`` and the banned keys (:meth:`prefill`: the padded rows and true
+    lengths in static buffers of their own, one program per prefill shape).
+    Every tensor a graph reads lives here, so a later request writes its
+    inputs in place and replays the graphs. ``lock`` serialises requests on
+    one workspace."""
 
     def __init__(self, params, cfg: SSRModelConfig, *, pfx_rows: int,
                  rows: int, n_chains: int, tmax: int, gen_cap: int,
@@ -339,6 +347,7 @@ class DecodeWorkspace:
         self.layers = trf.layer_params(params["decoder"])
         self.windows = trf.cache_stage_sizes(gen_cap or tmax)
         self.loop = graphs.GraphLoop(dev, use_graphs)
+        self.prefills: Dict[tuple, tuple] = {}  # key -> (buffers, program)
         self.lock = threading.RLock()
 
     def prefill_cache(self) -> trf.KVCache:
@@ -347,13 +356,45 @@ class DecodeWorkspace:
         self.pfx.v.zero_()
         return trf.KVCache(self.pfx.k, self.pfx.v, 0)
 
+    def prompt(self) -> trf.KVCache:
+        """The prompt cache with its fill on the device."""
+        return trf.KVCache(self.pfx.k, self.pfx.v, self.pfx.length)
+
+    def prefill(self, key: tuple, inputs: Dict, fill) -> Dict:
+        """Run the prefill program of ``key`` (the prefill's shapes and
+        flags: one capture each) on ``inputs``, host arrays and ints by
+        name: each goes into the program's static buffer of that name (an
+        array by one host-to-device copy, an int by a fill), then
+        ``fill(**buffers)``, which writes the prompt cache, its fill and the
+        banned keys, runs eagerly or as a replay. Returns the buffers."""
+        prog = self.prefills.get(key)
+        if prog is None:
+            bufs = {name: torch.empty(np.shape(v), dtype=torch.int64,
+                                      device=self.pfx.k.device)
+                    for name, v in inputs.items()}
+            prog = self.prefills[key] = (
+                bufs, graphs.GraphProgram(self.pfx.k.device,
+                                          self.loop.use_graphs))
+        bufs, program = prog
+        for name, v in inputs.items():
+            if isinstance(v, (int, np.integer)):
+                bufs[name].fill_(int(v))
+            else:
+                bufs[name].copy_(torch.from_numpy(np.asarray(v, np.int64)))
+        program.run(lambda: fill(**bufs))
+        return bufs
+
     def load(self, cache: trf.KVCache) -> None:
         """Take a prefilled prompt cache: copied in unless it is this
         workspace's own; its fill goes to the device."""
         if cache.k is not self.pfx.k:
             self.pfx.k.copy_(cache.k)
             self.pfx.v.copy_(cache.v)
-        self.pfx.length.fill_(int(cache.length))
+        if isinstance(cache.length, torch.Tensor):
+            if cache.length is not self.pfx.length:
+                self.pfx.length.copy_(cache.length.reshape(1))
+        else:
+            self.pfx.length.fill_(int(cache.length))
         if self.gen is not None:
             self.gen.k.zero_()
             self.gen.v.zero_()
@@ -362,7 +403,8 @@ class DecodeWorkspace:
     def start(self, key_banned, y_pos0, sentinel_ids, length_cap, n_tasks,
               limit: int, empty: int) -> None:
         """A request's inputs into the static buffers."""
-        self.banned.copy_(key_banned)
+        if key_banned is not self.banned:
+            self.banned.copy_(key_banned)
         self.sentinels.copy_(sentinel_ids)
         for buf, val in ((self.length_cap, length_cap),
                          (self.n_tasks, n_tasks)):
@@ -671,59 +713,81 @@ def _trim_context(result, trim: int):
             [(s - trim, e - trim) for s, e in nm])
 
 
+def _dev_scalar(v, device) -> torch.Tensor:
+    """A length as a [] int64 tensor on ``device`` (a device scalar as it
+    is: no copy, so a capture reads its buffer)."""
+    return torch.as_tensor(v, dtype=torch.int64, device=device).reshape(())
+
+
 @torch.no_grad()
-def _prefill_impl(params, x: torch.Tensor, y_prefix: torch.Tensor, x_len: int,
-                  p_len: int, *, cfg: SSRModelConfig, tmax: int, dtype,
+def _prefill_impl(params, x: torch.Tensor, y_prefix: torch.Tensor, x_len,
+                  p_len, *, cfg: SSRModelConfig, tmax: int, dtype,
                   cfg_pretrained: bool = False, aug_text: bool = False,
                   uncond_row_start: int = 1,
-                  cache: Optional[trf.KVCache] = None):
+                  cache: Optional[trf.KVCache] = None,
+                  pe: Optional[torch.Tensor] = None,
+                  banned: Optional[torch.Tensor] = None):
     """Fill a KV cache of ``tmax`` slots with [x ; y_prefix] (``cache``, a
     workspace's zeroed cache of that size, or a new one).
 
-    x: [B, Sx_pad] text ids; y_prefix: [K, P_pad] prefix tokens. Keys banned
-    for the whole decode: text padding [x_len, sx) and, for cfg_pretrained
-    unconditional rows [uncond_row_start, B), the prompt [1, sx). The
-    prefill attention takes them as segment ids (0 = banned), which gives
-    the JAX mask on every row whose output is read; only hidden states and
-    cache entries at banned positions differ, and nothing reads those.
-    Returns (cache with length sx + p_len, key_banned [B, 2])."""
+    x: [B, Sx_pad] text ids; y_prefix: [K, P_pad] prefix tokens; ``x_len``
+    and ``p_len`` host ints or device scalars (JAX traces them: a captured
+    prefill reads them from its buffers, so one capture serves every
+    length). Keys banned for the whole decode: text padding [x_len, sx)
+    and, for cfg_pretrained unconditional rows [uncond_row_start, B), the
+    prompt [1, sx), built by comparisons against positions as JAX builds
+    ``x_pad_keys`` and ``uncond_ban_keys``. The prefill attention takes them
+    as segment ids (0 = banned), which gives the JAX mask on every row whose
+    output is read; only hidden states and cache entries at banned positions
+    differ, and nothing reads those. ``pe``: the sine table (a workspace's,
+    else built here); ``banned``: a [B, 2] buffer the ban is written into.
+    Returns (cache with length sx + p_len as a [1] device tensor,
+    key_banned [B, 2])."""
     B, sx = x.shape
     P = y_prefix.shape[1]
     dev = x.device
-    pe = ssr_model.sine_table(cfg.max_position, cfg.d_model, device=dev)
+    x_len, p_len = _dev_scalar(x_len, dev), _dev_scalar(p_len, dev)
+    if pe is None:
+        pe = ssr_model.sine_table(cfg.max_position, cfg.d_model, device=dev)
     x_h = ssr_model.embed_text(params, cfg, x, pe)
     y_tok = y_prefix.T[None].expand(B, P, cfg.n_codebooks)
     y_h = ssr_model.embed_audio_tokens(params, cfg, y_tok)
     y_h = ssr_model.apply_audio_pos(params, y_h, pe, 0)
     h = torch.cat([x_h, y_h], dim=1).to(dtype)
 
-    seg = torch.ones((B, sx + P), dtype=torch.int32, device=dev)
-    seg[:, x_len:sx] = 0
-    lo = torch.full((B,), x_len, dtype=torch.int64, device=dev)
-    hi = torch.full((B,), sx, dtype=torch.int64, device=dev)
+    idx = torch.arange(sx + P, device=dev)
+    dead = ((idx >= x_len) & (idx < sx))[None].expand(B, sx + P)
+    lo = x_len.expand(B)
     if aug_text and cfg_pretrained and uncond_row_start >= 0:
         # CFG-pretrained uncond rows see only their first text token
-        seg[uncond_row_start:, 1:sx] = 0
-        lo[uncond_row_start:] = 1
+        uncond = torch.arange(B, device=dev) >= uncond_row_start
+        dead = dead | (uncond[:, None] & (idx >= 1) & (idx < sx))
+        lo = torch.where(uncond, torch.ones_like(lo), lo)
+    hi = torch.full((B,), sx, dtype=torch.int64, device=dev)
     key_banned = torch.stack([lo, hi], dim=1)
+    if banned is not None:
+        key_banned = banned.copy_(key_banned)
 
     if cache is None:
         cache = trf.init_kv_cache(cfg, B, tmax, dtype=dtype, device=dev,
                                   par=trf.parallel_of(params))
     _, cache = trf.transformer_prefill(params["decoder"], h, cache, cfg,
-                                       key_valid=seg, dtype=dtype)
+                                       key_valid=(~dead).to(torch.int32),
+                                       dtype=dtype)
     # true fill point: the padded text block stays (banned), the prefix is
     # valid up to p_len; decode steps overwrite the padded prefix tail
-    return replace(cache, length=sx + p_len), key_banned
+    return replace(cache, length=(p_len + sx).reshape(1)), key_banned
 
 
 def _one_prompt(params, cfg: SSRModelConfig, dec: DecodeConfig, x, y,
                 mask_intervals, generator: torch.Generator, uncond_x,
-                prompt_x, prompt_y, where: str) -> dict:
+                prompt_x, prompt_y, where: str, on_device: bool = True
+                ) -> dict:
     """The host side of a one-prompt request (``generate`` and
     ``generate_batch``): the aug_context prepend, the interleaved prefix,
     the padded text rows ([cond] or [cond; uncond]) and prefix, as device
-    tensors."""
+    tensors (as host arrays with ``on_device=False``: a workspace's prefill
+    copies them into its own buffers)."""
     ts = cfg.tokens
     K = cfg.n_codebooks
     dev = params["text_emb"].device
@@ -747,37 +811,59 @@ def _one_prompt(params, cfg: SSRModelConfig, dec: DecodeConfig, x, y,
         uncond_xs=None if uncond_x is None else [uncond_x])
     prefix_padded = np.full((K, p_pad), ts.empty, np.int64)
     prefix_padded[:, :p_len] = prefix
+    if on_device:
+        xb_padded = torch.from_numpy(xb_padded).to(dev)
+        prefix_padded = torch.from_numpy(prefix_padded).to(dev)
     return dict(
         y=y, nm=nm, trim=trim, num_task=num_task, x_len=x_len, p_len=p_len,
-        cap_total=cap_total, sx_pad=sx_pad, p_pad=p_pad,
-        xb=torch.from_numpy(xb_padded).to(dev),
-        prefix=torch.from_numpy(prefix_padded).to(dev),
+        cap_total=cap_total, sx_pad=sx_pad, p_pad=p_pad, xb=xb_padded,
+        prefix=prefix_padded,
         sentinels=torch.arange(ts.mts, ts.mts + ts.max_n_spans, device=dev))
 
 
 def _prefill_then_decode(ws: DecodeWorkspace, prefill, decode,
                          dev: torch.device, stats: Optional[Dict],
                          prefill_tokens: int):
-    """``decode(*prefill(cache))`` -> (out, span_end) as numpy, the prefill
-    writing into the workspace's zeroed prompt cache (the request holds the
-    workspace throughout); ``stats``, when given, receives the prefill's and
+    """``prefill()``, which runs a prefill program of the workspace (it
+    writes the prompt cache and the banned keys, the request holding the
+    workspace throughout), then ``decode(prompt cache, banned keys,
+    buffers)`` -> (out, span_end) as numpy, ``buffers`` the prefill's
+    inputs on the device; ``stats``, when given, receives the prefill's and
     the decode's wall times (the prefill synchronised with the device), the
     prefill's padded length and the sampled token stream
     (``out_tokens``)."""
     with ws.lock:
         t0 = time.perf_counter()
-        cache, key_banned = prefill(ws.prefill_cache())
+        bufs = prefill()
         if stats is not None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
             stats.update(prefill_s=t1 - t0, prefill_tokens=prefill_tokens)
-        out, span_end, _ = decode(cache, key_banned)
+        out, span_end, _ = decode(ws.prompt(), ws.banned, bufs)
         out = out.cpu().numpy().astype(np.int32)
         span_end = span_end.cpu().numpy()
     if stats is not None:
         stats.update(decode_s=time.perf_counter() - t1, out_tokens=out)
     return out, span_end
+
+
+def _prefill_one(params, ws: DecodeWorkspace, p: dict, *, cfg, dec, tmax: int,
+                 dtype) -> Dict:
+    """The one-prompt prefill program of ``ws`` (``_one_prompt``'s host
+    rows ``p``): ``_prefill_impl`` into the workspace's prompt cache, its
+    fill and banned keys, from the workspace's sine table."""
+
+    def fill(x, prefix, x_len, p_len):
+        cache, _ = _prefill_impl(
+            params, x, prefix, x_len, p_len, cfg=cfg, tmax=tmax, dtype=dtype,
+            cfg_pretrained=dec.cfg_pretrained, aug_text=dec.aug_text,
+            cache=ws.prefill_cache(), pe=ws.pe, banned=ws.banned)
+        ws.pfx.length.copy_(cache.length)
+
+    key = ("one", p["xb"].shape, p["prefix"].shape, dec.cfg_pretrained)
+    return ws.prefill(key, dict(x=p["xb"], prefix=p["prefix"],
+                                x_len=p["x_len"], p_len=p["p_len"]), fill)
 
 
 def generate(params, cfg: SSRModelConfig, dec: DecodeConfig, x: np.ndarray,
@@ -803,19 +889,16 @@ def generate(params, cfg: SSRModelConfig, dec: DecodeConfig, x: np.ndarray,
     dev = params["text_emb"].device
     dtype = params["decoder"]["layers"]["qkv_w"].dtype
     p = _one_prompt(params, cfg, dec, x, y, mask_intervals, generator,
-                    uncond_x, prompt_x, prompt_y, "generate")
+                    uncond_x, prompt_x, prompt_y, "generate", on_device=False)
     tmax = _bucket(p["sx_pad"] + p["p_pad"] + p["cap_total"] + p["num_task"]
                    + 8, TMAX_BUCKET)
     ws = single_workspace(params, cfg, dec, rows=p["xb"].shape[0], tmax=tmax,
                           num_task=p["num_task"], cap_total=p["cap_total"],
                           dtype=dtype, cuda_graphs=cuda_graphs)
     out, span_end = _prefill_then_decode(
-        ws,
-        lambda cache: _prefill_impl(
-            params, p["xb"], p["prefix"], p["x_len"], p["p_len"], cfg=cfg,
-            tmax=tmax, dtype=dtype, cfg_pretrained=dec.cfg_pretrained,
-            aug_text=dec.aug_text, cache=cache),
-        lambda cache, key_banned: _generate_impl(
+        ws, lambda: _prefill_one(params, ws, p, cfg=cfg, dec=dec, tmax=tmax,
+                                 dtype=dtype),
+        lambda cache, key_banned, _: _generate_impl(
             params, cache, key_banned, generator, p["sentinels"], p["x_len"],
             p["p_len"], cfg=cfg, dec=dec, num_task=p["num_task"],
             cap_total=p["cap_total"], aug_text=dec.aug_text, dtype=dtype,
@@ -845,7 +928,8 @@ def generate_batch(params, cfg: SSRModelConfig, dec: DecodeConfig,
     dev = params["text_emb"].device
     dtype = params["decoder"]["layers"]["qkv_w"].dtype
     p = _one_prompt(params, cfg, dec, x, y, mask_intervals, generator,
-                    uncond_x, prompt_x, prompt_y, "generate_batch")
+                    uncond_x, prompt_x, prompt_y, "generate_batch",
+                    on_device=False)
     if tmax is None:
         tmax = _bucket(p["sx_pad"] + p["p_pad"] + 8, 256)
     ws = shared_workspace(
@@ -854,12 +938,9 @@ def generate_batch(params, cfg: SSRModelConfig, dec: DecodeConfig,
         cap_total=p["cap_total"], aug_text=dec.aug_text, dtype=dtype,
         cuda_graphs=cuda_graphs)
     out, span_end = _prefill_then_decode(
-        ws,
-        lambda cache: _prefill_impl(
-            params, p["xb"], p["prefix"], p["x_len"], p["p_len"], cfg=cfg,
-            tmax=tmax, dtype=dtype, cfg_pretrained=dec.cfg_pretrained,
-            aug_text=dec.aug_text, cache=cache),
-        lambda pfx, key_banned: _generate_batched_impl(
+        ws, lambda: _prefill_one(params, ws, p, cfg=cfg, dec=dec, tmax=tmax,
+                                 dtype=dtype),
+        lambda pfx, key_banned, _: _generate_batched_impl(
             params, pfx, key_banned, generator, p["sentinels"], p["x_len"],
             p["p_len"], cfg=cfg, dec=dec, num_task=p["num_task"],
             cap_total=p["cap_total"], aug_text=dec.aug_text,
@@ -897,9 +978,14 @@ def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
                         x_lens: torch.Tensor, p_lens: torch.Tensor, *,
                         cfg: SSRModelConfig, tmax: int, dtype,
                         cfg_pretrained: bool = False, aug_text: bool = False,
-                        cache: Optional[trf.KVCache] = None):
+                        cache: Optional[trf.KVCache] = None,
+                        pe: Optional[torch.Tensor] = None,
+                        banned: Optional[torch.Tensor] = None):
     """Prefill for different prompts in one batch (into ``cache``, a
-    workspace's zeroed cache of ``tmax`` slots, or a new one).
+    workspace's or a server's cache of ``tmax`` slots, or a new one; the
+    ban into ``banned`` [R, tmax] when given; ``pe`` the sine table, built
+    here when not given). The lengths are device tensors, so a captured
+    prefill serves every ragged layout of its shapes.
 
     x: [R, Sx_pad] rows [cond_0..cond_{S-1} ; uncond_0..] with true lengths
     ``x_lens`` [R]; y_prefix: [S, K, P_pad] per-prompt prefixes with true
@@ -911,7 +997,8 @@ def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
     R, sx = x.shape
     S, K, P = y_prefix.shape
     dev = x.device
-    pe = ssr_model.sine_table(cfg.max_position, cfg.d_model, device=dev)
+    if pe is None:
+        pe = ssr_model.sine_table(cfg.max_position, cfg.d_model, device=dev)
     x_h = ssr_model.embed_text(params, cfg, x, pe)
     y_tok = y_prefix.transpose(1, 2)  # [S, P, K]
     if aug_text:  # uncond rows reuse their prompt's audio prefix
@@ -928,7 +1015,9 @@ def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
     _, cache = trf.transformer_prefill(params["decoder"], h, cache, cfg,
                                        key_valid=(~dead).to(torch.int32),
                                        dtype=dtype)
-    key_banned = torch.ones((R, tmax), dtype=torch.bool, device=dev)
+    key_banned = (torch.empty((R, tmax), dtype=torch.bool, device=dev)
+                  if banned is None else banned)
+    key_banned[:, sx + P:] = True
     key_banned[:, :sx + P] = dead
     return cache, key_banned
 
@@ -980,8 +1069,6 @@ def generate_multi(params, cfg: SSRModelConfig, dec: DecodeConfig, prompts,
         p_lens[i] = b[2].shape[1]
     xb, x_lens_r = build_text_rows([b[0] for b in built], sx_pad, cfg, dec,
                                    generator)
-    x_lens_r = torch.from_numpy(x_lens_r).to(dev)
-    p_lens_t = torch.from_numpy(p_lens).to(dev)
 
     tmax = _bucket(sx_pad + p_pad + 8, 256)
     if stats is not None:
@@ -991,16 +1078,25 @@ def generate_multi(params, cfg: SSRModelConfig, dec: DecodeConfig, prompts,
         params, cfg, dec, groups=xb.shape[0], n_chains=S, tmax=tmax,
         banned_bool=True, num_task=num_task, cap_total=cap_total,
         aug_text=dec.aug_text, dtype=dtype, cuda_graphs=cuda_graphs)
+
+    def fill(x, prefix, x_lens, p_lens):
+        cache, _ = _prefill_multi_impl(
+            params, x, prefix, x_lens, p_lens, cfg=cfg, tmax=tmax,
+            dtype=dtype, cfg_pretrained=dec.cfg_pretrained,
+            aug_text=dec.aug_text, cache=ws.prefill_cache(), pe=ws.pe,
+            banned=ws.banned)
+        ws.pfx.length.copy_(cache.length)
+
     out, span_end = _prefill_then_decode(
         ws,
-        lambda cache: _prefill_multi_impl(
-            params, torch.from_numpy(xb).to(dev),
-            torch.from_numpy(prefixes).to(dev), x_lens_r, p_lens_t, cfg=cfg,
-            tmax=tmax, dtype=dtype, cfg_pretrained=dec.cfg_pretrained,
-            aug_text=dec.aug_text, cache=cache),
-        lambda pfx, key_banned: _generate_multi_impl(
-            params, pfx, key_banned, generator, sentinels, x_lens_r[:S],
-            p_lens_t, torch.from_numpy(n_tasks).to(dev), cfg=cfg, dec=dec,
+        lambda: ws.prefill(
+            ("multi", xb.shape, prefixes.shape, dec.cfg_pretrained),
+            dict(x=xb, prefix=prefixes, x_lens=x_lens_r, p_lens=p_lens),
+            fill),
+        lambda pfx, key_banned, bufs: _generate_multi_impl(
+            params, pfx, key_banned, generator, sentinels,
+            bufs["x_lens"][:S], bufs["p_lens"],
+            torch.from_numpy(n_tasks).to(dev), cfg=cfg, dec=dec,
             num_task=num_task, cap_total=cap_total, aug_text=dec.aug_text,
             dtype=dtype, stats=stats, cuda_graphs=cuda_graphs),
         dev, stats, sx_pad + p_pad)

@@ -23,6 +23,19 @@ nothing reads, so the loop ends where JAX's ends.
   graph (``CUDAGraph.register_generator_state``), takes the request
   generator's state before the first replay and hands it back after the
   last, so Gumbel sampling draws the Philox stream the eager body draws.
+- :class:`GraphProgram` is the same for a program without a loop, JAX's
+  other compiled programs of the serving path: the prefills
+  (``decode._prefill_impl``, ``_prefill_multi_impl``) and the server's
+  splice (``serve._refill_impl``). Its function reads its inputs from static
+  buffers, which a request fills by host-to-device copies before the call,
+  and writes its results into static buffers; the lengths and the slot are
+  device scalars there, as JAX traces them, so one capture serves every
+  request of its shapes. The first call is the warm-up and the capture,
+  every later call one replay. Each program has a memory pool of its own:
+  nothing it allocates outlives its call, and no other graph's capture can
+  take its blocks. A replay launches the flash forwards the capture
+  recorded without a Python call, so the program adds them to the kernel's
+  counters itself (``ops.flash_attention.count_replayed``).
 - :func:`workspace` keeps workspaces per process and per parameter object
   (weakly: a workspace dies with its parameters), keyed by the shapes and
   settings the body is built for, so later requests of the same bucket
@@ -47,6 +60,7 @@ from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
+from ..ops import flash_attention as fa
 from ..parallel import collectives as col
 
 UNROLL = 8  # decode steps a graph replays, and between two host reads
@@ -128,12 +142,69 @@ class GraphLoop:
         self.graphs[window] = graph
 
     def pool_bytes(self) -> int:
-        """Device memory of the graphs' shared pool (its segments in the
-        allocator's snapshot)."""
-        if self.pool is None:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg["segment_pool_id"]) == tuple(self.pool))
+        """Device memory of the graphs' shared pool."""
+        return pool_bytes(self.pool)
+
+
+def pool_bytes(pool) -> int:
+    """Device memory of a graph pool (its segments in the allocator's
+    snapshot); 0 for none."""
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+class GraphProgram:
+    """One captured program without a loop. ``run(fn)`` calls ``fn()``, a
+    plain function of static buffers: eagerly unless ``use_graphs``; with
+    graphs the first call runs ``fn`` on a side stream (the warm-up, which
+    is this call's real work) and then captures it into a pool of the
+    program's own, and every later call replays the capture. A failed
+    capture or replay raises. ``captures``, ``capture_s``, ``replays`` and
+    ``k1_launches`` (the flash forwards one replay launches) count for the
+    smoke and the tests, as does :meth:`pool_bytes`."""
+
+    def __init__(self, device: torch.device, use_graphs: bool):
+        self.device = torch.device(device)
+        self.use_graphs = use_graphs
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.pool = None
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+        self.k1_launches = 0
+
+    def run(self, fn: Callable[[], None]) -> None:
+        if not self.use_graphs:
+            fn()
+        elif self.graph is None:
+            self._capture(fn)
+        else:
+            self.graph.replay()
+            self.replays += 1
+            fa.count_replayed(self.k1_launches)
+
+    def _capture(self, fn: Callable[[], None]) -> None:
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn()  # the warm-up is this call's real work
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with fa.recording() as rec, torch.cuda.graph(
+                graph, pool=self.pool, capture_error_mode="thread_local"):
+            fn()
+        self.capture_s += time.perf_counter() - t0
+        self.captures += 1
+        self.k1_launches = rec.n
+        self.graph = graph
+
+    def pool_bytes(self) -> int:
+        return pool_bytes(self.pool)
 
 
 def workspace(params, key: Hashable, make: Callable):

@@ -23,9 +23,14 @@ test (any harvestable slot, no live chain left, the budget) on the device
 before every step and gates the step with it, so a chunk stops at the same
 step as JAX's and ``steps`` counts what JAX's counter counts. On one CUDA
 rank the body is a CUDA graph per stage window of the generated cache,
-replayed with one flag read a replay. The splice is a set of in-place index
-writes into the same static buffers. Under greedy sampling, served outputs
-equal :func:`decode.generate`'s (``tests/test_torch_serving.py``).
+replayed with one flag read a replay. An admission prefills into a staging
+cache the server owns (JAX's ``new_pfx``; a second one only while a
+prefilled request waits to be spliced) and the splice copies it into the
+slot with index writes at a device slot (JAX traces ``slot``): both are
+programs of static buffers, captured once on one CUDA rank and replayed
+by every admission (``graphs.GraphProgram``). Under greedy sampling,
+served outputs equal :func:`decode.generate`'s
+(``tests/test_torch_serving.py``).
 
 :func:`sorted_static_batches` is the static scheduler ``pipeline.
 inference_multi`` uses to batch more jobs than it has slots.
@@ -149,32 +154,74 @@ def _serve_chunk_impl(params, srv: "ContinuousBatcher",
 
 
 def _refill_impl(state: ServeState, pfx: trf.KVCache, key_banned, x_lens,
-                 n_tasks, slot: int, new_pfx: trf.KVCache, new_banned,
-                 x_len: int, p_len: int, n_task_new: int, sentinel0: int,
-                 empty_tok: int, *, aug_text: bool, n_slots: int) -> None:
+                 n_tasks, slot, new_pfx: trf.KVCache, new_banned, x_len, p_len,
+                 n_task_new, sentinel0, empty_tok: int, *, aug_text: bool,
+                 n_slots: int) -> None:
     """Splice a freshly prefilled request into slot ``slot`` of a running
     state (JAX ``_refill_impl``), in place on the device: prefix rows
     ``slot`` and, under CFG, ``S + slot``, their key ban, ``gen_len = 0``,
-    and every per-slot field. No other slot's rows are written."""
+    and every per-slot field. ``slot``, ``x_len``, ``p_len``,
+    ``n_task_new`` and ``sentinel0`` are device scalars (host ints are
+    copied in), as JAX traces them: every write is an index op at a device
+    index, so one capture serves every slot. No other slot's rows are
+    written."""
     S = n_slots
-    rows = [(slot, 0)] + ([(S + slot, 1)] if aug_text else [])
-    for row, new in rows:
-        pfx.k[:, row] = new_pfx.k[:, new]
-        pfx.v[:, row] = new_pfx.v[:, new]
-        key_banned[row] = new_banned[new]
-        state.gen_len[row] = 0
-    state.y_pos[slot] = p_len
-    state.next_tokens[slot] = sentinel0
-    state.out[slot] = empty_tok
+    dev = key_banned.device
+    slot, x_len, p_len, n_task_new, sentinel0 = (
+        dec_mod._dev_scalar(v, dev).reshape(1)
+        for v in (slot, x_len, p_len, n_task_new, sentinel0))
+    rows = torch.cat([slot, slot + S]) if aug_text else slot
+    n = rows.shape[0]
+    pfx.k.index_copy_(1, rows, new_pfx.k[:, :n])
+    pfx.v.index_copy_(1, rows, new_pfx.v[:, :n])
+    key_banned.index_copy_(0, rows, new_banned[:n])
+    state.gen_len.index_fill_(0, rows, 0)
+    state.y_pos.index_copy_(0, slot, p_len)
+    K = state.next_tokens.shape[1]
+    state.next_tokens.index_copy_(0, slot, sentinel0[:, None].expand(1, K))
+    state.out.index_fill_(0, slot, empty_tok)
     for name in ("out_len", "span_idx", "span_end", "num_gen", "num_eog",
                  "consec_silence"):
-        getattr(state, name)[slot] = 0
-    state.prev_token[slot] = -1
-    state.num_cfg[slot] = 1
-    state.done[slot] = False
-    state.active[slot] = True
-    x_lens[slot] = x_len
-    n_tasks[slot] = n_task_new
+        getattr(state, name).index_fill_(0, slot, 0)
+    state.prev_token.index_fill_(0, slot, -1)
+    state.num_cfg.index_fill_(0, slot, 1)
+    state.done.index_fill_(0, slot, False)
+    state.active.index_fill_(0, slot, True)
+    x_lens.index_copy_(0, slot, x_len)
+    n_tasks.index_copy_(0, slot, n_task_new)
+
+
+class _Staging:
+    """One admission's staging area (JAX's ``new_pfx``): the padded text
+    rows, the prefix and their true lengths as the prefill's static inputs,
+    the prompt cache [L, 1 or 2, H, tmax, Dh] and banned keys it fills, and
+    the two programs over them: the prefill (``_prefill_multi_impl``) and
+    the splice (:func:`_refill_impl`, which also reads the server's splice
+    scalars). ``busy`` from the prefill until the splice."""
+
+    def __init__(self, srv: "ContinuousBatcher"):
+        cfg, dev = srv.cfg, srv.device
+        rows = 2 if srv.aug else 1
+        i64 = dict(dtype=torch.int64, device=dev)
+        cache = trf.init_kv_cache(cfg, rows, srv.tmax, dtype=srv.dtype,
+                                  device=dev,
+                                  par=trf.parallel_of(srv.params))
+        self.k, self.v = cache.k, cache.v
+        self.banned = torch.ones((rows, srv.tmax), dtype=torch.bool,
+                                 device=dev)
+        self.x = torch.zeros((rows, srv.sx_pad), **i64)
+        self.prefix = torch.zeros((1, cfg.n_codebooks, srv.p_pad), **i64)
+        self.x_lens = torch.zeros(rows, **i64)
+        self.p_lens = torch.zeros(1, **i64)
+        use = srv._loop.use_graphs
+        self.prefill = graphs.GraphProgram(dev, use)
+        self.splice = graphs.GraphProgram(dev, use)
+        self.busy = False
+
+    def cache(self) -> trf.KVCache:
+        """The staged rows, to be filled from 0 (a prefill writes the same
+        [0, sx_pad + p_pad) each time; the rest stays zero)."""
+        return trf.KVCache(self.k, self.v, 0)
 
 
 class ContinuousBatcher:
@@ -255,6 +302,11 @@ class ContinuousBatcher:
         self._static_ban = dec_mod._static_ban(ts, dev)
         self._loop = graphs.GraphLoop(
             dev, graphs.graphs_wanted(dev, params, cuda_graphs))
+        # admissions' staging areas (one unless prefilled requests queue)
+        # and the splice's device scalars: slot, x_len, p_len, n_task,
+        # the first sentinel
+        self._staging: List[_Staging] = []
+        self._splice_args = torch.zeros(5, dtype=torch.int64, device=dev)
         self.stats: Optional[Dict] = None
 
     # ------------------------------------------------------------- internals
@@ -294,30 +346,51 @@ class ContinuousBatcher:
             raise ValueError(f"request has {ntask} spans > {self.num_task}")
         return x, y, prefix, ntask, nm
 
+    def _free_staging(self) -> _Staging:
+        """A staging area no prefilled request holds (made on first need)."""
+        for st in self._staging:
+            if not st.busy:
+                break
+        else:
+            st = _Staging(self)
+            self._staging.append(st)
+        st.busy = True
+        return st
+
+    def _release_staging(self) -> None:
+        """Free every staging area (a serving loop starts with none
+        staged)."""
+        for st in self._staging:
+            st.busy = False
+
     def _prefill_request(self, x, y, mask, pre=None):
         """Pad and prefill one request through ``_prefill_multi_impl`` (the
-        flash kernel, a segment id a row); returns (prefix rows, banned
-        rows, meta). ``pre``: a saved :meth:`validate_request` result."""
+        flash kernel, a segment id a row) into a free staging area: its
+        inputs by host-to-device copies into the area's buffers, then the
+        area's prefill program. Returns (staging area, meta). ``pre``: a
+        saved :meth:`validate_request` result."""
         cfg, dec, ts = self.cfg, self.dec, self.cfg.tokens
         K = cfg.n_codebooks
-        dev = self.device
         x, y, prefix, ntask, nm = (self.validate_request(x, y, mask)
                                    if pre is None else pre)
         pfx_row = np.full((1, K, self.p_pad), ts.empty, np.int64)
         pfx_row[0, :, :prefix.shape[1]] = prefix
         xb, x_lens_r = dec_mod.build_text_rows([x], self.sx_pad, cfg, dec,
                                                self._uncond_gen)
+        st = self._free_staging()
         t0 = time.perf_counter()
-        new_pfx, new_banned = dec_mod._prefill_multi_impl(
-            self.params, torch.from_numpy(xb).to(dev),
-            torch.from_numpy(pfx_row).to(dev),
-            torch.from_numpy(x_lens_r).to(dev),
-            torch.tensor([prefix.shape[1]], dtype=torch.int64, device=dev),
-            cfg=cfg, tmax=self.tmax, dtype=self.dtype,
-            cfg_pretrained=dec.cfg_pretrained, aug_text=self.aug)
+        for buf, host in ((st.x, xb), (st.prefix, pfx_row),
+                          (st.x_lens, x_lens_r)):
+            buf.copy_(torch.from_numpy(np.asarray(host, np.int64)))
+        st.p_lens.fill_(int(prefix.shape[1]))
+        st.prefill.run(lambda: dec_mod._prefill_multi_impl(
+            self.params, st.x, st.prefix, st.x_lens, st.p_lens, cfg=cfg,
+            tmax=self.tmax, dtype=self.dtype,
+            cfg_pretrained=dec.cfg_pretrained, aug_text=self.aug,
+            cache=st.cache(), pe=self._pe, banned=st.banned))
         if self.stats is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             self.stats.setdefault("prefill_s", []).append(
                 time.perf_counter() - t0)
             self.stats.setdefault("prefill_layouts", []).append(dict(
@@ -325,7 +398,7 @@ class ContinuousBatcher:
                 sx_pad=self.sx_pad, p_pad=self.p_pad))
         meta = dict(y=y, nm=nm, ntask=ntask, x_len=len(x),
                     p_len=prefix.shape[1])
-        return new_pfx, new_banned, meta
+        return st, meta
 
     def _fill_slot(self, slot: int, req_idx: int, x, y, mask, trim: int = 0,
                    pre=None):
@@ -335,19 +408,24 @@ class ContinuousBatcher:
 
     def _splice_slot(self, slot: int, req_idx: int, staged, trim: int = 0):
         """Splice an already prefilled request (``staged`` =
-        :meth:`_prefill_request`'s result) into a free lane. Splitting the
-        prefill from the splice lets the serving loops prefill eagerly,
-        behind the in-flight chunk."""
-        new_pfx, new_banned, meta = staged
+        :meth:`_prefill_request`'s result) into a free lane: the splice's
+        scalars by one host-to-device copy, then the staging area's splice
+        program, which frees the area. Splitting the prefill from the
+        splice lets the serving loops prefill eagerly, behind the in-flight
+        chunk."""
+        st, meta = staged
         meta["req_idx"] = req_idx
         meta["trim"] = trim
         self._slot_req[slot] = meta
         self._read_len[slot] = 0
-        ts = self.cfg.tokens
-        _refill_impl(self.state, self._pfx, self._banned, self._x_lens,
-                     self._n_tasks, slot, new_pfx, new_banned, meta["x_len"],
-                     meta["p_len"], meta["ntask"], int(self.sentinels[0]),
-                     ts.empty, aug_text=self.aug, n_slots=self.S)
+        a = self._splice_args
+        a.copy_(torch.tensor([slot, meta["x_len"], meta["p_len"],
+                              meta["ntask"], int(self.sentinels[0])]))
+        st.splice.run(lambda: _refill_impl(
+            self.state, self._pfx, self._banned, self._x_lens, self._n_tasks,
+            a[0], trf.KVCache(st.k, st.v, 0), st.banned, a[1], a[2], a[3],
+            a[4], self.cfg.tokens.empty, aug_text=self.aug, n_slots=self.S))
+        st.busy = False
 
     def _run_chunk(self, step_budget: int) -> int:
         """Run one chunk of at most ``step_budget`` steps (the only call
@@ -403,6 +481,7 @@ class ContinuousBatcher:
         if generator is not None:
             self.generator = generator
         self.stats = stats
+        self._release_staging()
         t_start = time.perf_counter()
         norm = [self._normalize(r) for r in requests]
         # fail fast, before any decoding; the validated tuples are reused
@@ -469,6 +548,7 @@ class ContinuousBatcher:
         clock = synced_clock(clock or time.monotonic, self.device)
         if generator is not None:
             self.generator = generator
+        self._release_staging()
         norm = [self._normalize(r) for r in requests]
         # fail fast, before any decoding; validated tuples reused at fill
         vals = [self.validate_request(x, y, mask) for x, y, mask, _ in norm]

@@ -337,6 +337,7 @@ class StreamingServer:
             should_stop = lambda: False
         if on_idle is None:
             on_idle = lambda now: time.sleep(0.005)
+        srv._release_staging()
         t0 = clock()
         lanes: List[Optional[_Lane]] = [None] * S
         # requests polled and prefilled after a chunk, before the harvest;

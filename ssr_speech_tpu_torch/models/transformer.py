@@ -507,7 +507,10 @@ def prefill_bias(key_valid: torch.Tensor) -> torch.Tensor:
 def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
                         cfg: SSRModelConfig, *, key_valid: torch.Tensor,
                         dtype=torch.bfloat16) -> Tuple[torch.Tensor, KVCache]:
-    """Forward over the prompt while filling the cache at ``cache.length``.
+    """Forward over the prompt while filling the cache at ``cache.length``,
+    a host int (the prefills fill from 0): the K/V go in at a static offset,
+    so the function reads nothing back from the device and a CUDA graph can
+    capture it.
 
     ``key_valid`` [B, S]: 1 = attendable key, 0 = banned. The route is taken
     once, before the layer loop (:func:`prefill_uses_kernel`). On the kernel's
@@ -516,7 +519,8 @@ def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
     the banned keys, which is the JAX prefill's additive mask for every row
     whose output is read. Otherwise it is ``_attend`` over
     :func:`prefill_bias`, JAX's mask on every row.
-    Returns (hidden [B, S, D], cache)."""
+    Returns (hidden [B, S, D], cache with its fill as a [1] device
+    tensor)."""
     act = _ffn_act(cfg, deterministic=True)
     par = parallel_of(params)
     nhead = local_heads(cfg, par)
@@ -524,6 +528,9 @@ def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
     bias = None if use_kernel else prefill_bias(key_valid)
     h = h.to(dtype)
     start, s = cache.length, h.shape[1]
+    if isinstance(start, torch.Tensor):
+        raise TypeError("transformer_prefill fills from a host offset; got "
+                        "a device tensor as cache.length")
     for l, lp in enumerate(layer_params(params)):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
         q, k, v = (t.contiguous() for t in _qkv(lp, hn, nhead, par))
@@ -534,7 +541,8 @@ def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
         h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True,
                             par=par)
     out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
-    return out, KVCache(cache.k, cache.v, start + s)
+    return out, KVCache(cache.k, cache.v, torch.full(
+        (1,), start + s, dtype=torch.int64, device=h.device))
 
 
 def _write_at(buf: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:

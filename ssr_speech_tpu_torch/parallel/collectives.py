@@ -71,6 +71,36 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return buf.to(t.dtype)
 
 
+def all_reduce_(parts: List[torch.Tensor], group) -> None:
+    """In place: each of ``parts`` (contiguous tensors of one device, all
+    floating point or all of one dtype) summed over ``group``, as one flat
+    bucket. A single fp32 (or float64, or integer) part is reduced where it
+    lies; otherwise the parts are packed into one bucket buffer (floats
+    widened to fp32, so two bf16 partial sums are added exactly), reduced
+    and copied back, rounded once. Under gloo, CUDA parts go through one
+    host buffer, the bucket, and nothing else is allocated on the card."""
+    floats = all(p.is_floating_point() and p.dtype != torch.float64
+                 for p in parts)
+    dtype = torch.float32 if floats else parts[0].dtype
+    if not floats and any(p.dtype != dtype for p in parts):
+        raise TypeError("all_reduce_: parts of mixed dtypes")
+    staged = _host_staged(parts[0], group, "all_reduce")
+    if not staged and len(parts) == 1 and parts[0].dtype == dtype:
+        dist.all_reduce(parts[0], group=group)
+        return
+    n = sum(p.numel() for p in parts)
+    buf = torch.empty(n, dtype=dtype,
+                      device="cpu" if staged else parts[0].device)
+    views, i = [], 0
+    for p in parts:
+        views.append(buf[i:i + p.numel()].view(p.shape))
+        views[-1].copy_(p)
+        i += p.numel()
+    dist.all_reduce(buf, group=group)
+    for p, v in zip(parts, views):
+        p.copy_(v)
+
+
 def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     buf = t.clone()
     if _host_staged(t, group, "all_reduce"):

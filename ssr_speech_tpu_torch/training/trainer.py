@@ -114,19 +114,46 @@ def _metrics_over(mesh, axis: str, *vals):
     return out
 
 
+# elements (64 MiB in fp32) one gradient all-reduce carries at most
+GRAD_BUCKET = 1 << 24
+
+
+def _grad_buckets(gs, size: int):
+    """Lists of flat pieces of the tensors ``gs``, in order, at most
+    ``size`` elements a list: small tensors whole, large ones cut into
+    slices (views, so a reduction of a piece lands in its tensor)."""
+    bucket, n = [], 0
+    for g in gs:
+        flat = g.view(-1)
+        i = 0
+        while i < flat.numel():
+            take = min(flat.numel() - i, size - n)
+            bucket.append(flat[i:i + take])
+            n += take
+            i += take
+            if n == size:
+                yield bucket
+                bucket, n = [], 0
+    if bucket:
+        yield bucket
+
+
 def _sum_grads(grads, groups) -> None:
-    """In place: each gradient summed over its process group (one flat
-    all-reduce a group)."""
+    """In place: each gradient summed over its process group, in buckets of
+    at most ``GRAD_BUCKET`` elements (``collectives.all_reduce_``): no copy
+    of the whole model's gradients is made. A sum over two ranks is a + b
+    element by element, whatever the buckets."""
     by_group = {}
     for g, grp in zip(grads, groups):
         if grp is not None:
             by_group.setdefault(grp, []).append(g)
     for grp, gs in by_group.items():
-        flat = col.all_reduce(torch.cat([g.reshape(-1).float() for g in gs]), grp)
-        i = 0
-        for g in gs:
-            g.copy_(flat[i:i + g.numel()].reshape(g.shape))
-            i += g.numel()
+        flat = [g if g.is_contiguous() else g.contiguous() for g in gs]
+        for bucket in _grad_buckets(flat, GRAD_BUCKET):
+            col.all_reduce_(bucket, grp)
+        for g, f in zip(gs, flat):
+            if f is not g:
+                g.copy_(f)
 
 
 # leaves read by index (an embedding lookup): their gradient is a scatter-add,

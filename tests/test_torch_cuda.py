@@ -958,3 +958,87 @@ def test_decode_graph_capture_failure_raises(device, small_lm, path,
     torch.cuda.synchronize()
     assert _decode_path(path, gpu, cfg, device, True)  # the card still works
     graphs.clear()
+
+
+# ------------------------------------------------ the prefill as a program
+
+PREFILL_PATHS = ["edit", "tts", "batch-8", "multi-3", "server admission"]
+
+
+@pytest.fixture(scope="module")
+def text_lm(device):
+    """``SMALL`` with the text vocabulary of ``chip_smoke.PHONES``, whose
+    prompts the prefill paths take."""
+    from ssr_speech_tpu_torch.config import SSRModelConfig
+    from ssr_speech_tpu_torch.models import ssr as tssr
+    from ssr_speech_tpu_torch.models.from_jax import lm_from_jax
+    from ssr_speech_tpu_torch.utils import prng
+
+    cfg = SSRModelConfig(**dict(SMALL, text_vocab_size=120))
+    params = tssr.init_ssr(prng.PRNGKey(0), cfg)
+    return cfg, lm_from_jax(params, cfg, device=device, dtype=torch.bfloat16)
+
+
+def _prefill_path(gpu, cfg, device, path):
+    from chip_smoke import _prefill_paths
+
+    return next((make, run, program) for name, make, run, program
+                in _prefill_paths(torch, gpu, cfg, device) if name == path)
+
+
+@pytest.mark.parametrize("path", PREFILL_PATHS)
+def test_prefill_graph_matches_the_eager_prefill(device, text_lm, path):
+    """Each prefill of the serving path (``chip_smoke._prefill_paths``: the
+    edit, the TTS, batch-8's, multi-3's ragged one, the server's admission
+    and splice) captured and replayed against the same program run eagerly:
+    the caches, banned keys and fill (the server's staged rows, and after
+    the splice its whole state) bit for bit at the first request and at a
+    second one of other lengths through the same graph; one capture, then a
+    replay; K1 counted once a layer a prefill either way."""
+    from ssr_speech_tpu_torch.inference import graphs
+
+    cfg, gpu = text_lm
+    graphs.clear()
+    make, run, program = _prefill_path(gpu, cfg, device, path)
+    eager, graph = make(False), make(True)
+    for i in (0, 1):
+        fa.reset_launches()
+        want = [t.clone() for t in run(eager, i)]
+        got = run(graph, i)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(want, got)), i
+        assert fa.launches == 2 * cfg.num_layers
+    prog = program(graph)
+    assert (prog.captures, prog.replays, prog.k1_launches) == (
+        1, 1, cfg.num_layers)
+    assert prog.pool_bytes() > 0
+    graphs.clear()
+
+
+def test_prefill_graph_capture_failure_raises(device, text_lm, monkeypatch):
+    """A prefill that reads the host (here inside the text embedding)
+    raises from its capture: nothing runs it eagerly instead."""
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.models import ssr as tssr
+
+    cfg, gpu = text_lm
+    real = tssr.embed_text
+
+    def syncing(*a, **kw):
+        out = real(*a, **kw)
+        float(out.sum().item())  # a host read: refused while capturing
+        return out
+
+    graphs.clear()
+    make, run, _ = _prefill_path(gpu, cfg, device, "edit")
+    monkeypatch.setattr(tssr, "embed_text", syncing)
+    with pytest.raises(RuntimeError):
+        run(make(True), 0)
+    monkeypatch.setattr(tssr, "embed_text", real)
+    graphs.clear()
+    torch.cuda.synchronize()
+    make, run, program = _prefill_path(gpu, cfg, device, "edit")
+    ws = make(True)
+    run(ws, 0)  # the card still works
+    assert program(ws).captures == 1
+    graphs.clear()

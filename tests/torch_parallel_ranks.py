@@ -449,3 +449,39 @@ def tp_serving(params_np, cfg, layouts, codec_np=None, codec_cfg=None):
                 out[name] = None if got is None else got[0]
         results.append(out)
     return results
+
+
+# ------------------------------------------------------ gradient buckets
+
+def bucketed_sums(seed: int):
+    """``trainer._sum_grads`` over the world (fp32, bf16 and a transposed
+    gradient) at buckets of 7 elements and at the default size, beside one
+    flat fp32 all-reduce of the same gradients cast back: the three as
+    numpy lists."""
+    from ssr_speech_tpu_torch.training import trainer
+
+    def grads():
+        g = torch.Generator().manual_seed(seed + dist.get_rank())
+        return [torch.randn(5, 3, generator=g),
+                torch.randn(11, generator=g).bfloat16(),
+                torch.randn(4, 6, generator=g).t(),
+                torch.randn(2, generator=g)]
+
+    group = dist.group.WORLD
+    flat_in = grads()
+    flat = torch.cat([t.reshape(-1).float() for t in flat_in])
+    dist.all_reduce(flat, group=group)
+    ref, i = [], 0
+    for t in flat_in:
+        ref.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
+        i += t.numel()
+    out = [[t.float().numpy() for t in ref]]
+    for size in (7, trainer.GRAD_BUCKET):
+        gs = grads()
+        real, trainer.GRAD_BUCKET = trainer.GRAD_BUCKET, size
+        try:
+            trainer._sum_grads(gs, [group] * len(gs))
+        finally:
+            trainer.GRAD_BUCKET = real
+        out.append([t.float().numpy() for t in gs])
+    return out
