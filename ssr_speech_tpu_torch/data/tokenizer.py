@@ -17,6 +17,7 @@ import torch
 
 from ..config import CodecConfig
 from ..utils import audio as audio_io
+from ..utils.profiler import annotate
 
 from ..models.codec import wmencodec as wm
 
@@ -119,7 +120,8 @@ class AudioTokenizer:
         out, _ = wm.wmdecode(self.params, self._t(codes, torch.int64),
                              self._t(marks, torch.int64), self._t(wav),
                              self.cfg, None if scale is None else self._t(scale))
-        return out.cpu().numpy()
+        with annotate("codec.copy_out", self.device):
+            return out.cpu().numpy()
 
     def detect_watermark(self, wav: np.ndarray) -> np.ndarray:
         return wm.detect_watermark(self.params, self._t(wav), self.cfg

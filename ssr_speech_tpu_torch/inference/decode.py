@@ -41,7 +41,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
-import time
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -54,6 +53,7 @@ from ..ops import patterns
 from ..models import ssr as ssr_model
 from ..models import transformer as trf
 from ..ops.sampling import categorical, top_k_top_p_filter
+from ..utils.profiler import annotate, note
 from . import graphs
 
 NEG = -10000.0
@@ -828,23 +828,27 @@ def _prefill_then_decode(ws: DecodeWorkspace, prefill, decode,
     writes the prompt cache and the banned keys, the request holding the
     workspace throughout), then ``decode(prompt cache, banned keys,
     buffers)`` -> (out, span_end) as numpy, ``buffers`` the prefill's
-    inputs on the device; ``stats``, when given, receives the prefill's and
-    the decode's wall times (the prefill synchronised with the device), the
-    prefill's padded length and the sampled token stream
-    (``out_tokens``)."""
+    inputs on the device; spans ``prefill`` (device), ``decode`` and
+    ``decode.copy_out`` (device). ``stats``, when given, receives the
+    prefill's time from its first device work to its last (its span's
+    events: nothing waits for the device), the decode's from its first
+    replay on the device to the copy-out on the host, the prefill's padded
+    length and the sampled token stream (``out_tokens``)."""
     with ws.lock:
-        t0 = time.perf_counter()
-        bufs = prefill()
-        if stats is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t1 = time.perf_counter()
-            stats.update(prefill_s=t1 - t0, prefill_tokens=prefill_tokens)
-        out, span_end, _ = decode(ws.prompt(), ws.banned, bufs)
-        out = out.cpu().numpy().astype(np.int32)
-        span_end = span_end.cpu().numpy()
+        with annotate("prefill", dev) as pre:
+            bufs = prefill()
+        with annotate("decode") as loop:
+            out, span_end, _ = decode(ws.prompt(), ws.banned, bufs)
+        with annotate("decode.copy_out", dev) as copy:
+            out = out.cpu().numpy().astype(np.int32)
+            span_end = span_end.cpu().numpy()
     if stats is not None:
-        stats.update(decode_s=time.perf_counter() - t1, out_tokens=out)
+        note(decode_steps=stats.get("decode_steps"))
+        first = (loop.find("decode.replay") or [loop])[0]
+        began = (first.device() or (first.t0,))[0]
+        stats.update(prefill_s=pre.device_s() or pre.host_s,
+                     prefill_tokens=prefill_tokens,
+                     decode_s=(copy.t1 - began) / 1e9, out_tokens=out)
     return out, span_end
 
 
@@ -888,24 +892,32 @@ def generate(params, cfg: SSRModelConfig, dec: DecodeConfig, x: np.ndarray,
     K = cfg.n_codebooks
     dev = params["text_emb"].device
     dtype = params["decoder"]["layers"]["qkv_w"].dtype
-    p = _one_prompt(params, cfg, dec, x, y, mask_intervals, generator,
-                    uncond_x, prompt_x, prompt_y, "generate", on_device=False)
-    tmax = _bucket(p["sx_pad"] + p["p_pad"] + p["cap_total"] + p["num_task"]
-                   + 8, TMAX_BUCKET)
-    ws = single_workspace(params, cfg, dec, rows=p["xb"].shape[0], tmax=tmax,
-                          num_task=p["num_task"], cap_total=p["cap_total"],
-                          dtype=dtype, cuda_graphs=cuda_graphs)
-    out, span_end = _prefill_then_decode(
-        ws, lambda: _prefill_one(params, ws, p, cfg=cfg, dec=dec, tmax=tmax,
-                                 dtype=dtype),
-        lambda cache, key_banned, _: _generate_impl(
-            params, cache, key_banned, generator, p["sentinels"], p["x_len"],
-            p["p_len"], cfg=cfg, dec=dec, num_task=p["num_task"],
-            cap_total=p["cap_total"], aug_text=dec.aug_text, dtype=dtype,
-            stats=stats, cuda_graphs=cuda_graphs),
-        dev, stats, p["sx_pad"] + p["p_pad"])
-    return _trim_context(assemble_result(p["y"], p["nm"], out, span_end,
-                                         p["num_task"], K), p["trim"])
+    with annotate("generate", dev, record=stats is not None,
+                  text_len=len(x)):
+        with annotate("generate.prompt"):
+            p = _one_prompt(params, cfg, dec, x, y, mask_intervals, generator,
+                            uncond_x, prompt_x, prompt_y, "generate",
+                            on_device=False)
+        note(prompt_len=p["p_len"])
+        tmax = _bucket(p["sx_pad"] + p["p_pad"] + p["cap_total"]
+                       + p["num_task"] + 8, TMAX_BUCKET)
+        ws = single_workspace(params, cfg, dec, rows=p["xb"].shape[0],
+                              tmax=tmax, num_task=p["num_task"],
+                              cap_total=p["cap_total"], dtype=dtype,
+                              cuda_graphs=cuda_graphs)
+        out, span_end = _prefill_then_decode(
+            ws, lambda: _prefill_one(params, ws, p, cfg=cfg, dec=dec,
+                                     tmax=tmax, dtype=dtype),
+            lambda cache, key_banned, _: _generate_impl(
+                params, cache, key_banned, generator, p["sentinels"],
+                p["x_len"], p["p_len"], cfg=cfg, dec=dec,
+                num_task=p["num_task"], cap_total=p["cap_total"],
+                aug_text=dec.aug_text, dtype=dtype, stats=stats,
+                cuda_graphs=cuda_graphs),
+            dev, stats, p["sx_pad"] + p["p_pad"])
+        with annotate("generate.assemble"):
+            return _trim_context(assemble_result(
+                p["y"], p["nm"], out, span_end, p["num_task"], K), p["trim"])
 
 
 def generate_batch(params, cfg: SSRModelConfig, dec: DecodeConfig,
@@ -927,29 +939,34 @@ def generate_batch(params, cfg: SSRModelConfig, dec: DecodeConfig,
     K = cfg.n_codebooks
     dev = params["text_emb"].device
     dtype = params["decoder"]["layers"]["qkv_w"].dtype
-    p = _one_prompt(params, cfg, dec, x, y, mask_intervals, generator,
-                    uncond_x, prompt_x, prompt_y, "generate_batch",
-                    on_device=False)
-    if tmax is None:
-        tmax = _bucket(p["sx_pad"] + p["p_pad"] + 8, 256)
-    ws = shared_workspace(
-        params, cfg, dec, groups=p["xb"].shape[0], n_chains=n_samples,
-        tmax=tmax, banned_bool=False, num_task=p["num_task"],
-        cap_total=p["cap_total"], aug_text=dec.aug_text, dtype=dtype,
-        cuda_graphs=cuda_graphs)
-    out, span_end = _prefill_then_decode(
-        ws, lambda: _prefill_one(params, ws, p, cfg=cfg, dec=dec, tmax=tmax,
-                                 dtype=dtype),
-        lambda pfx, key_banned, _: _generate_batched_impl(
-            params, pfx, key_banned, generator, p["sentinels"], p["x_len"],
-            p["p_len"], cfg=cfg, dec=dec, num_task=p["num_task"],
-            cap_total=p["cap_total"], aug_text=dec.aug_text,
-            n_samples=n_samples, dtype=dtype, stats=stats,
-            cuda_graphs=cuda_graphs),
-        dev, stats, p["sx_pad"] + p["p_pad"])
-    return [_trim_context(assemble_result(p["y"], p["nm"], out[i],
-                                          span_end[i], p["num_task"], K),
-                          p["trim"]) for i in range(n_samples)]
+    with annotate("generate", dev, record=stats is not None,
+                  text_len=len(x), chains=n_samples):
+        with annotate("generate.prompt"):
+            p = _one_prompt(params, cfg, dec, x, y, mask_intervals, generator,
+                            uncond_x, prompt_x, prompt_y, "generate_batch",
+                            on_device=False)
+        note(prompt_len=p["p_len"])
+        if tmax is None:
+            tmax = _bucket(p["sx_pad"] + p["p_pad"] + 8, 256)
+        ws = shared_workspace(
+            params, cfg, dec, groups=p["xb"].shape[0], n_chains=n_samples,
+            tmax=tmax, banned_bool=False, num_task=p["num_task"],
+            cap_total=p["cap_total"], aug_text=dec.aug_text, dtype=dtype,
+            cuda_graphs=cuda_graphs)
+        out, span_end = _prefill_then_decode(
+            ws, lambda: _prefill_one(params, ws, p, cfg=cfg, dec=dec,
+                                     tmax=tmax, dtype=dtype),
+            lambda pfx, key_banned, _: _generate_batched_impl(
+                params, pfx, key_banned, generator, p["sentinels"],
+                p["x_len"], p["p_len"], cfg=cfg, dec=dec,
+                num_task=p["num_task"], cap_total=p["cap_total"],
+                aug_text=dec.aug_text, n_samples=n_samples, dtype=dtype,
+                stats=stats, cuda_graphs=cuda_graphs),
+            dev, stats, p["sx_pad"] + p["p_pad"])
+        with annotate("generate.assemble"):
+            return [_trim_context(assemble_result(
+                p["y"], p["nm"], out[i], span_end[i], p["num_task"], K),
+                p["trim"]) for i in range(n_samples)]
 
 
 def multi_dead_keys(x_lens: torch.Tensor, p_lens: torch.Tensor, sx: int,
@@ -1038,71 +1055,79 @@ def generate_multi(params, cfg: SSRModelConfig, dec: DecodeConfig, prompts,
     S = len(prompts)
     dev = params["text_emb"].device
     dtype = params["decoder"]["layers"]["qkv_w"].dtype
-    built = []
-    for p in prompts:
-        (x, y, mask), ctx = p[:3], p[3:]
-        x = np.asarray(x, np.int32)
-        y = np.asarray(y, np.int32)
-        x, y, mask, trim = _apply_aug_context(
-            dec, x, y, mask, *(ctx if len(ctx) == 2 else (None, None)))
-        prefix, _, num_task, nm = patterns.build_inference_prefix(
-            y, list(mask), ts)
-        built.append((x, y, prefix, num_task, nm, trim))
-    n_tasks = np.asarray([b[3] for b in built], np.int64)
-    num_task = int(n_tasks.max())
-    sentinels = torch.arange(ts.mts, ts.mts + ts.max_n_spans, device=dev)
+    with annotate("generate", dev, record=stats is not None, prompts=S):
+        with annotate("generate.prompt"):
+            built = []
+            for p in prompts:
+                (x, y, mask), ctx = p[:3], p[3:]
+                x = np.asarray(x, np.int32)
+                y = np.asarray(y, np.int32)
+                x, y, mask, trim = _apply_aug_context(
+                    dec, x, y, mask,
+                    *(ctx if len(ctx) == 2 else (None, None)))
+                prefix, _, num_task, nm = patterns.build_inference_prefix(
+                    y, list(mask), ts)
+                built.append((x, y, prefix, num_task, nm, trim))
+            n_tasks = np.asarray([b[3] for b in built], np.int64)
+            num_task = int(n_tasks.max())
+            sentinels = torch.arange(ts.mts, ts.mts + ts.max_n_spans,
+                                     device=dev)
 
-    sx_pad = _bucket(max(max(len(b[0]) for b in built), 1), X_BUCKET)
-    p_pad = _bucket(max(max(b[2].shape[1] for b in built), 1), PREFIX_BUCKET)
-    cap_total = dec.max_gen_per_span * num_task
-    gen_bound = max(
-        b[2].shape[1] + min(cap_total,
-                            max(len(b[0]) * dec.length_cap_mult
-                                - b[2].shape[1], 0) + num_task * (K + 2))
-        for b in built)
-    _check_positions(cfg, max(sx_pad, p_pad), gen_bound, "generate_multi")
+            sx_pad = _bucket(max(max(len(b[0]) for b in built), 1), X_BUCKET)
+            p_pad = _bucket(max(max(b[2].shape[1] for b in built), 1),
+                            PREFIX_BUCKET)
+            cap_total = dec.max_gen_per_span * num_task
+            gen_bound = max(
+                b[2].shape[1] + min(cap_total,
+                                    max(len(b[0]) * dec.length_cap_mult
+                                        - b[2].shape[1], 0)
+                                    + num_task * (K + 2))
+                for b in built)
+            _check_positions(cfg, max(sx_pad, p_pad), gen_bound,
+                             "generate_multi")
 
-    prefixes = np.full((S, K, p_pad), ts.empty, np.int64)
-    p_lens = np.zeros(S, np.int64)
-    for i, b in enumerate(built):
-        prefixes[i, :, : b[2].shape[1]] = b[2]
-        p_lens[i] = b[2].shape[1]
-    xb, x_lens_r = build_text_rows([b[0] for b in built], sx_pad, cfg, dec,
-                                   generator)
+            prefixes = np.full((S, K, p_pad), ts.empty, np.int64)
+            p_lens = np.zeros(S, np.int64)
+            for i, b in enumerate(built):
+                prefixes[i, :, : b[2].shape[1]] = b[2]
+                p_lens[i] = b[2].shape[1]
+            xb, x_lens_r = build_text_rows([b[0] for b in built], sx_pad,
+                                           cfg, dec, generator)
 
-    tmax = _bucket(sx_pad + p_pad + 8, 256)
-    if stats is not None:
-        stats.update(sx_pad=sx_pad, p_pad=p_pad, x_lens=x_lens_r.tolist(),
-                     p_lens=p_lens.tolist())
-    ws = shared_workspace(
-        params, cfg, dec, groups=xb.shape[0], n_chains=S, tmax=tmax,
-        banned_bool=True, num_task=num_task, cap_total=cap_total,
-        aug_text=dec.aug_text, dtype=dtype, cuda_graphs=cuda_graphs)
+        tmax = _bucket(sx_pad + p_pad + 8, 256)
+        if stats is not None:
+            stats.update(sx_pad=sx_pad, p_pad=p_pad, x_lens=x_lens_r.tolist(),
+                         p_lens=p_lens.tolist())
+        ws = shared_workspace(
+            params, cfg, dec, groups=xb.shape[0], n_chains=S, tmax=tmax,
+            banned_bool=True, num_task=num_task, cap_total=cap_total,
+            aug_text=dec.aug_text, dtype=dtype, cuda_graphs=cuda_graphs)
 
-    def fill(x, prefix, x_lens, p_lens):
-        cache, _ = _prefill_multi_impl(
-            params, x, prefix, x_lens, p_lens, cfg=cfg, tmax=tmax,
-            dtype=dtype, cfg_pretrained=dec.cfg_pretrained,
-            aug_text=dec.aug_text, cache=ws.prefill_cache(), pe=ws.pe,
-            banned=ws.banned)
-        ws.pfx.length.copy_(cache.length)
+        def fill(x, prefix, x_lens, p_lens):
+            cache, _ = _prefill_multi_impl(
+                params, x, prefix, x_lens, p_lens, cfg=cfg, tmax=tmax,
+                dtype=dtype, cfg_pretrained=dec.cfg_pretrained,
+                aug_text=dec.aug_text, cache=ws.prefill_cache(), pe=ws.pe,
+                banned=ws.banned)
+            ws.pfx.length.copy_(cache.length)
 
-    out, span_end = _prefill_then_decode(
-        ws,
-        lambda: ws.prefill(
-            ("multi", xb.shape, prefixes.shape, dec.cfg_pretrained),
-            dict(x=xb, prefix=prefixes, x_lens=x_lens_r, p_lens=p_lens),
-            fill),
-        lambda pfx, key_banned, bufs: _generate_multi_impl(
-            params, pfx, key_banned, generator, sentinels,
-            bufs["x_lens"][:S], bufs["p_lens"],
-            torch.from_numpy(n_tasks).to(dev), cfg=cfg, dec=dec,
-            num_task=num_task, cap_total=cap_total, aug_text=dec.aug_text,
-            dtype=dtype, stats=stats, cuda_graphs=cuda_graphs),
-        dev, stats, sx_pad + p_pad)
-    return [_trim_context(assemble_result(y, nm, out[i], span_end[i], ntask, K),
-                          trim)
-            for i, (_, y, _, ntask, nm, trim) in enumerate(built)]
+        out, span_end = _prefill_then_decode(
+            ws,
+            lambda: ws.prefill(
+                ("multi", xb.shape, prefixes.shape, dec.cfg_pretrained),
+                dict(x=xb, prefix=prefixes, x_lens=x_lens_r, p_lens=p_lens),
+                fill),
+            lambda pfx, key_banned, bufs: _generate_multi_impl(
+                params, pfx, key_banned, generator, sentinels,
+                bufs["x_lens"][:S], bufs["p_lens"],
+                torch.from_numpy(n_tasks).to(dev), cfg=cfg, dec=dec,
+                num_task=num_task, cap_total=cap_total, aug_text=dec.aug_text,
+                dtype=dtype, stats=stats, cuda_graphs=cuda_graphs),
+            dev, stats, sx_pad + p_pad)
+        with annotate("generate.assemble"):
+            return [_trim_context(assemble_result(y, nm, out[i], span_end[i],
+                                                  ntask, K), trim)
+                    for i, (_, y, _, ntask, nm, trim) in enumerate(built)]
 
 
 def assemble_result(y, nm, out_row, span_end_row, ntask, K):

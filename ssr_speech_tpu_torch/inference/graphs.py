@@ -62,6 +62,7 @@ import torch
 
 from ..ops import flash_attention as fa
 from ..parallel import collectives as col
+from ..utils.profiler import annotate
 
 UNROLL = 8  # decode steps a graph replays, and between two host reads
 MAX_WORKSPACES = 6  # kept per parameter object, least recently used dropped
@@ -120,7 +121,8 @@ class GraphLoop:
             graph.replay()
             self.replays += 1
             return
-        self._capture(window, body, generator)
+        with annotate("graph.capture", window=window):
+            self._capture(window, body, generator)
 
     def _capture(self, window: int, body: Callable, generator) -> None:
         dev = self.device
@@ -179,7 +181,8 @@ class GraphProgram:
         if not self.use_graphs:
             fn()
         elif self.graph is None:
-            self._capture(fn)
+            with annotate("graph.capture"):
+                self._capture(fn)
         else:
             self.graph.replay()
             self.replays += 1
@@ -249,13 +252,19 @@ def loop_steps(loop: GraphLoop, body: Callable, flag: torch.Tensor, *,
     """Run ``body`` ``UNROLL`` steps at a time until its ``flag`` reads
     false or ``max_steps`` steps (a host bound the device condition also
     holds) have been replayed. ``window_for(n)`` gives the stage window for
-    the replay after ``n`` steps. Returns the steps replayed (the device
-    counter holds the steps taken)."""
+    the replay after ``n`` steps. Spans: ``decode.replay`` (device) a
+    replay, ``decode.poll`` a flag read. Returns the steps replayed (the
+    device counter holds the steps taken)."""
     n = 0
     with loop.request_rng(generator) as gen:
         while n < max_steps:
-            loop.run(window_for(n), body, gen)
+            with annotate("decode.replay", loop.device):
+                loop.run(window_for(n), body, gen)
             n += UNROLL
-            if n >= max_steps or not bool(flag.item()):  # the one read
+            if n >= max_steps:
+                break
+            with annotate("decode.poll"):
+                go = bool(flag.item())  # the one read
+            if not go:
                 break
     return n

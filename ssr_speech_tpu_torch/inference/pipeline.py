@@ -23,6 +23,7 @@ from ..config import DecodeConfig, SSRModelConfig
 
 from ..data.tokenizer import (AudioTokenizer, TextTokenizer, tokenize_audio,
                               tokenize_text)
+from ..utils.profiler import annotate
 from . import decode as decode_mod
 from . import serve
 
@@ -122,12 +123,14 @@ def tts_trim_offset(gen_words: Sequence[WordTime], first_target_word: str,
 def splice_waveform(wav: np.ndarray, n_frames: int, hop: int, nm, out_iv
                     ) -> np.ndarray:
     """The watermark decoder's input: original samples copied into the
-    un-edited regions of the output timeline, zeros elsewhere."""
-    new_wav = np.zeros((1, n_frames * hop, 1), np.float32)
-    for (os_, oe), (ns, _) in zip(nm, out_iv):
-        os_, ns = max(os_, 0), max(ns, 0)
-        seg = wav[0, os_ * hop:oe * hop]
-        new_wav[0, ns * hop:ns * hop + seg.shape[0]] = seg
+    un-edited regions of the output timeline, zeros elsewhere. Span
+    ``splice``."""
+    with annotate("splice"):
+        new_wav = np.zeros((1, n_frames * hop, 1), np.float32)
+        for (os_, oe), (ns, _) in zip(nm, out_iv):
+            os_, ns = max(os_, 0), max(ns, 0)
+            seg = wav[0, os_ * hop:oe * hop]
+            new_wav[0, ns * hop:ns * hop + seg.shape[0]] = seg
     return new_wav
 
 

@@ -52,6 +52,8 @@ from ..models import ssr as ssr_model
 from ..models import transformer as trf
 from ..ops import patterns
 from ..parallel.dist import is_main, synced_clock
+from ..utils import profiler
+from ..utils.profiler import annotate
 from . import decode as dec_mod
 from . import graphs
 
@@ -308,6 +310,7 @@ class ContinuousBatcher:
         self._staging: List[_Staging] = []
         self._splice_args = torch.zeros(5, dtype=torch.int64, device=dev)
         self.stats: Optional[Dict] = None
+        self._prefills: List = []  # recorded prefill spans not yet in stats
 
     # ------------------------------------------------------------- internals
 
@@ -368,37 +371,50 @@ class ContinuousBatcher:
         flash kernel, a segment id a row) into a free staging area: its
         inputs by host-to-device copies into the area's buffers, then the
         area's prefill program. Returns (staging area, meta). ``pre``: a
-        saved :meth:`validate_request` result."""
+        saved :meth:`validate_request` result. Spans ``serve.admit`` (a new
+        request identifier, which the request's splice and harvest spans
+        share) and under it ``prefill`` (device): with ``stats`` its device
+        time is added to ``stats["prefill_s"]`` when the serving loop ends
+        (its events: nothing waits for the device here)."""
         cfg, dec, ts = self.cfg, self.dec, self.cfg.tokens
         K = cfg.n_codebooks
-        x, y, prefix, ntask, nm = (self.validate_request(x, y, mask)
-                                   if pre is None else pre)
-        pfx_row = np.full((1, K, self.p_pad), ts.empty, np.int64)
-        pfx_row[0, :, :prefix.shape[1]] = prefix
-        xb, x_lens_r = dec_mod.build_text_rows([x], self.sx_pad, cfg, dec,
-                                               self._uncond_gen)
-        st = self._free_staging()
-        t0 = time.perf_counter()
-        for buf, host in ((st.x, xb), (st.prefix, pfx_row),
-                          (st.x_lens, x_lens_r)):
-            buf.copy_(torch.from_numpy(np.asarray(host, np.int64)))
-        st.p_lens.fill_(int(prefix.shape[1]))
-        st.prefill.run(lambda: dec_mod._prefill_multi_impl(
-            self.params, st.x, st.prefix, st.x_lens, st.p_lens, cfg=cfg,
-            tmax=self.tmax, dtype=self.dtype,
-            cfg_pretrained=dec.cfg_pretrained, aug_text=self.aug,
-            cache=st.cache(), pe=self._pe, banned=st.banned))
+        request = profiler.new_request()
+        with annotate("serve.admit", record=self.stats is not None,
+                      request=request):
+            x, y, prefix, ntask, nm = (self.validate_request(x, y, mask)
+                                       if pre is None else pre)
+            pfx_row = np.full((1, K, self.p_pad), ts.empty, np.int64)
+            pfx_row[0, :, :prefix.shape[1]] = prefix
+            xb, x_lens_r = dec_mod.build_text_rows([x], self.sx_pad, cfg, dec,
+                                                   self._uncond_gen)
+            st = self._free_staging()
+            with annotate("prefill", self.device) as span:
+                for buf, host in ((st.x, xb), (st.prefix, pfx_row),
+                                  (st.x_lens, x_lens_r)):
+                    buf.copy_(torch.from_numpy(np.asarray(host, np.int64)))
+                st.p_lens.fill_(int(prefix.shape[1]))
+                st.prefill.run(lambda: dec_mod._prefill_multi_impl(
+                    self.params, st.x, st.prefix, st.x_lens, st.p_lens,
+                    cfg=cfg, tmax=self.tmax, dtype=self.dtype,
+                    cfg_pretrained=dec.cfg_pretrained, aug_text=self.aug,
+                    cache=st.cache(), pe=self._pe, banned=st.banned))
         if self.stats is not None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.stats.setdefault("prefill_s", []).append(
-                time.perf_counter() - t0)
+            self._prefills.append(span)
             self.stats.setdefault("prefill_layouts", []).append(dict(
                 x_lens=x_lens_r.tolist(), p_lens=[int(prefix.shape[1])],
                 sx_pad=self.sx_pad, p_pad=self.p_pad))
         meta = dict(y=y, nm=nm, ntask=ntask, x_len=len(x),
-                    p_len=prefix.shape[1])
+                    p_len=prefix.shape[1], request=request)
         return st, meta
+
+    def _flush_prefills(self) -> None:
+        """The recorded prefills' device seconds into ``stats["prefill_s"]``
+        (read once the serving loop has read its results back: the events
+        have completed)."""
+        if self.stats is not None and self._prefills:
+            self.stats.setdefault("prefill_s", []).extend(
+                sp.device_s() or sp.host_s for sp in self._prefills)
+        self._prefills = []
 
     def _fill_slot(self, slot: int, req_idx: int, x, y, mask, trim: int = 0,
                    pre=None):
@@ -419,26 +435,38 @@ class ContinuousBatcher:
         self._slot_req[slot] = meta
         self._read_len[slot] = 0
         a = self._splice_args
-        a.copy_(torch.tensor([slot, meta["x_len"], meta["p_len"],
-                              meta["ntask"], int(self.sentinels[0])]))
-        st.splice.run(lambda: _refill_impl(
-            self.state, self._pfx, self._banned, self._x_lens, self._n_tasks,
-            a[0], trf.KVCache(st.k, st.v, 0), st.banned, a[1], a[2], a[3],
-            a[4], self.cfg.tokens.empty, aug_text=self.aug, n_slots=self.S))
+        with annotate("serve.splice", self.device,
+                      request=meta.get("request"), slot=slot):
+            a.copy_(torch.tensor([slot, meta["x_len"], meta["p_len"],
+                                  meta["ntask"], int(self.sentinels[0])]))
+            st.splice.run(lambda: _refill_impl(
+                self.state, self._pfx, self._banned, self._x_lens,
+                self._n_tasks, a[0], trf.KVCache(st.k, st.v, 0), st.banned,
+                a[1], a[2], a[3], a[4], self.cfg.tokens.empty,
+                aug_text=self.aug, n_slots=self.S))
         st.busy = False
 
     def _run_chunk(self, step_budget: int) -> int:
         """Run one chunk of at most ``step_budget`` steps (the only call
         site of ``_serve_chunk_impl``: ``run``, ``run_online`` and the TTS
-        streamers all pace through here). Returns the steps taken."""
+        streamers all pace through here; span ``serve.chunk``). Returns the
+        steps taken. ``stats`` counts the steps, seconds and chunks, and
+        ``lane_steps``: the lanes holding an unfinished request at the
+        chunk's start (every lane holding one: the loops harvest each
+        finished lane before the next chunk, and a chunk with one left
+        takes no step) times the steps it took."""
         t0 = time.perf_counter()
-        steps = _serve_chunk_impl(self.params, self, step_budget)
+        lanes = sum(r is not None for r in self._slot_req)
+        with annotate("serve.chunk", lanes=lanes):
+            steps = _serve_chunk_impl(self.params, self, step_budget)
+            profiler.note(steps=steps)
         if self.stats is not None:
-            self.stats["decode_steps"] = (self.stats.get("decode_steps", 0)
-                                          + steps)
-            self.stats["decode_s"] = (self.stats.get("decode_s", 0.0)
-                                      + time.perf_counter() - t0)
-            self.stats["chunks"] = self.stats.get("chunks", 0) + 1
+            st = self.stats
+            st["decode_steps"] = st.get("decode_steps", 0) + steps
+            st["decode_s"] = (st.get("decode_s", 0.0)
+                              + time.perf_counter() - t0)
+            st["chunks"] = st.get("chunks", 0) + 1
+            st["lane_steps"] = st.get("lane_steps", 0) + lanes * steps
         return steps
 
     def _park(self, slot: int) -> None:
@@ -448,18 +476,26 @@ class ContinuousBatcher:
 
     def _harvest_slot(self, slot: int):
         meta = self._slot_req[slot]
-        out_row = self.state.out[slot].cpu().numpy().astype(np.int32)
-        span_end_row = self.state.span_end[slot].cpu().numpy()
-        self._slot_req[slot] = None
-        if self.stats is not None:
-            self.stats.setdefault("out_tokens", {})[meta["req_idx"]] = out_row
-        result = dec_mod._trim_context(dec_mod.assemble_result(
-            meta["y"], meta["nm"], out_row, span_end_row, meta["ntask"],
-            self.cfg.n_codebooks), meta.get("trim", 0))
+        with annotate("serve.harvest", request=meta.get("request"),
+                      slot=slot):
+            out_row = self.state.out[slot].cpu().numpy().astype(np.int32)
+            span_end_row = self.state.span_end[slot].cpu().numpy()
+            self._slot_req[slot] = None
+            if self.stats is not None:
+                tokens = self.stats.setdefault("out_tokens", {})
+                tokens[meta["req_idx"]] = out_row
+            result = dec_mod._trim_context(dec_mod.assemble_result(
+                meta["y"], meta["nm"], out_row, span_end_row, meta["ntask"],
+                self.cfg.n_codebooks), meta.get("trim", 0))
         return meta["req_idx"], result
 
     def _harvestable(self) -> np.ndarray:
-        return (self.state.active & self.state.done).cpu().numpy()
+        with annotate("serve.poll"):
+            return (self.state.active & self.state.done).cpu().numpy()
+
+    def _any_active(self) -> bool:
+        with annotate("serve.poll"):
+            return bool(self.state.active.any().item())
 
     # ------------------------------------------------------------------- API
 
@@ -477,7 +513,8 @@ class ContinuousBatcher:
         either way). ``stats``, when given, receives the decode steps and
         seconds, each prefill's seconds and layout, the sampled token
         stream of each request (``out_tokens``) and each request's
-        completion time from the call (``done_at``)."""
+        completion time from the call (``done_at``); it also records the
+        loop's spans (root ``serve``)."""
         if generator is not None:
             self.generator = generator
         self.stats = stats
@@ -501,34 +538,37 @@ class ContinuousBatcher:
                 self._fill_slot(slot, nidx, x, y, mask, trim, pre=pre)
 
         try:
-            for slot in range(self.S):
-                if not pending:
-                    break
-                next_fill(slot)
-            while True:
-                self._run_chunk(2 ** 30)
-                # a lane has finished: prefill the next request(s) now, so
-                # the freed lane pays only the splice
-                while pending and len(staged) < eager_prefill:
-                    nidx, (x, y, mask, trim), pre = pending.popleft()
-                    staged.append((nidx, self._prefill_request(
-                        x, y, mask, pre=pre), trim))
-                harvestable = self._harvestable()
-                if not harvestable.any():
-                    break
-                for slot in np.nonzero(harvestable)[0]:
-                    idx, result = self._harvest_slot(int(slot))
-                    results[idx] = result
-                    done_at[idx] = time.perf_counter() - t_start
-                    n_done += 1
-                    if staged or pending:
-                        next_fill(int(slot))
-                    else:
-                        self._park(int(slot))
-                if progress is not None:
-                    progress(n_done, len(requests),
-                             int(self.state.gen_len.max().item()))
+            with annotate("serve", record=stats is not None, lanes=self.S,
+                          requests=len(requests)):
+                for slot in range(self.S):
+                    if not pending:
+                        break
+                    next_fill(slot)
+                while True:
+                    self._run_chunk(2 ** 30)
+                    # a lane has finished: prefill the next request(s) now,
+                    # so the freed lane pays only the splice
+                    while pending and len(staged) < eager_prefill:
+                        nidx, (x, y, mask, trim), pre = pending.popleft()
+                        staged.append((nidx, self._prefill_request(
+                            x, y, mask, pre=pre), trim))
+                    harvestable = self._harvestable()
+                    if not harvestable.any():
+                        break
+                    for slot in np.nonzero(harvestable)[0]:
+                        idx, result = self._harvest_slot(int(slot))
+                        results[idx] = result
+                        done_at[idx] = time.perf_counter() - t_start
+                        n_done += 1
+                        if staged or pending:
+                            next_fill(int(slot))
+                        else:
+                            self._park(int(slot))
+                    if progress is not None:
+                        progress(n_done, len(requests),
+                                 int(self.state.gen_len.max().item()))
         finally:
+            self._flush_prefills()
             self.stats = None
         if stats is not None:
             stats["done_at"] = done_at
@@ -544,7 +584,15 @@ class ContinuousBatcher:
         for tests. Chunks run at most ``chunk_steps`` steps, which bounds
         the admission latency. On tensor-parallel parameters every rank runs
         the loop on rank 0's clock, and rank 0 alone gets the results (the
-        other ranks None)."""
+        other ranks None).
+
+        With ``self.stats`` (a dict) the loop records its spans (root
+        ``serve``) and fills ``stats`` as :meth:`run` does, and by request
+        on the arrivals' clock: ``admit_at``, when its admission began (the
+        reading that found it arrived), ``lane_at``, when it was spliced
+        into a lane (the loop's last reading before the splice), and
+        ``done_at``. The loop reads the clock where it always did: under
+        tensor parallelism each reading is a broadcast."""
         clock = synced_clock(clock or time.monotonic, self.device)
         if generator is not None:
             self.generator = generator
@@ -553,52 +601,72 @@ class ContinuousBatcher:
         # fail fast, before any decoding; validated tuples reused at fill
         vals = [self.validate_request(x, y, mask) for x, y, mask, _ in norm]
         t0 = clock()
+        last = [0.0]  # the loop's latest reading of the clock, from t0
+
+        def now() -> float:
+            last[0] = clock() - t0
+            return last[0]
+
         order = sorted(range(len(requests)), key=lambda i: arrival_times[i])
         pending = deque((i, norm[i], vals[i]) for i in order)
         staged: deque = deque()  # (idx, _prefill_request result, trim)
         results: List = [None] * len(requests)
         done_at: List = [None] * len(requests)
+        admit_at: List = [None] * len(requests)
+        lane_at: List = [None] * len(requests)
+        stats = self.stats
 
         def fill_free_slots():
             # occupy every inactive lane: staged (already prefilled) first,
             # then arrived pending requests, FIFO either way
-            active = self.state.active.cpu().numpy().copy()
+            with annotate("serve.poll"):
+                active = self.state.active.cpu().numpy().copy()
             for slot in range(self.S):
                 if active[slot]:
                     continue
                 if staged:
                     idx, st, trim = staged.popleft()
+                    lane_at[idx] = last[0]
                     self._splice_slot(slot, idx, st, trim=trim)
-                elif pending and arrival_times[pending[0][0]] <= clock() - t0:
+                elif pending and arrival_times[pending[0][0]] <= now():
                     idx, req, pre = pending.popleft()
+                    admit_at[idx] = lane_at[idx] = last[0]
                     self._fill_slot(slot, idx, *req, pre=pre)
                 else:
                     break  # FIFO: the head has not arrived (or none left)
                 active[slot] = True
 
-        while pending or staged or bool(self.state.active.any().item()):
-            if (not bool(self.state.active.any().item()) and not staged
-                    and pending):
-                # idle: sleep until the next arrival
-                wait = arrival_times[pending[0][0]] - (clock() - t0)
-                if wait > 0:
-                    time.sleep(wait)
-            fill_free_slots()
-            self._run_chunk(chunk_steps)
-            # eager prefill of the next arrived request(s), so that a lane
-            # freed at the harvest pays only the splice
-            while (pending and len(staged) < eager_prefill
-                   and arrival_times[pending[0][0]] <= clock() - t0):
-                idx, (x, y, mask, trim), pre = pending.popleft()
-                staged.append(
-                    (idx, self._prefill_request(x, y, mask, pre=pre), trim))
-            harvestable = self._harvestable()
-            now = clock() - t0
-            for slot in np.nonzero(harvestable)[0]:
-                idx, result = self._harvest_slot(int(slot))
-                results[idx] = result
-                done_at[idx] = now
-                self._park(int(slot))
+        try:
+            with annotate("serve", record=stats is not None, lanes=self.S,
+                          requests=len(requests)):
+                while pending or staged or self._any_active():
+                    if not self._any_active() and not staged and pending:
+                        # idle: sleep until the next arrival
+                        wait = arrival_times[pending[0][0]] - now()
+                        if wait > 0:
+                            with annotate("serve.sleep"):
+                                time.sleep(wait)
+                    fill_free_slots()
+                    self._run_chunk(chunk_steps)
+                    # eager prefill of the next arrived request(s), so that
+                    # a lane freed at the harvest pays only the splice
+                    while (pending and len(staged) < eager_prefill
+                           and arrival_times[pending[0][0]] <= now()):
+                        idx, (x, y, mask, trim), pre = pending.popleft()
+                        admit_at[idx] = last[0]
+                        staged.append((idx, self._prefill_request(
+                            x, y, mask, pre=pre), trim))
+                    harvestable = self._harvestable()
+                    t_done = now()
+                    for slot in np.nonzero(harvestable)[0]:
+                        idx, result = self._harvest_slot(int(slot))
+                        results[idx] = result
+                        done_at[idx] = t_done
+                        self._park(int(slot))
+        finally:
+            self._flush_prefills()
+        if stats is not None:
+            stats.update(admit_at=admit_at, lane_at=lane_at, done_at=done_at)
         return (results, done_at) if is_main() else None
 
 

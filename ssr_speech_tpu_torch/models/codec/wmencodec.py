@@ -13,6 +13,7 @@ import torch
 
 from ...config import CodecConfig
 from ...utils import prng
+from ...utils.profiler import annotate
 
 from . import quantize as q
 from . import seanet
@@ -53,10 +54,12 @@ def postprocess(wav: torch.Tensor, scale: Optional[torch.Tensor] = None
 @torch.no_grad()
 def encode(params, wav: torch.Tensor, cfg: CodecConfig):
     """wav [B, T, C] -> (codes [B, K, F], scale [B, 1] or None,
-    latents [B, F, D])."""
-    wav, scale = preprocess(wav, cfg)
-    emb = seanet.encode(params["encoder"], wav, cfg.seanet)
-    return q.rvq_encode(params["quantizer"], emb, cfg.rvq.n_q), scale, emb
+    latents [B, F, D]). Span ``codec.encode`` (device)."""
+    with annotate("codec.encode", wav.device):
+        wav, scale = preprocess(wav, cfg)
+        emb = seanet.encode(params["encoder"], wav, cfg.seanet)
+        return (q.rvq_encode(params["quantizer"], emb, cfg.rvq.n_q), scale,
+                emb)
 
 
 @torch.no_grad()
@@ -73,11 +76,13 @@ def wmdecode(params, codes: torch.Tensor, labels: torch.Tensor,
              scale: Optional[torch.Tensor] = None):
     """Watermark decode of codes [B, K, F] with labels [B, F] (1 = generated)
     and the original waveform [B, F*hop, C] zeroed in the masked regions.
-    Returns (wav [B, F*hop, C], detector logits [B, F, 2])."""
-    emb = q.rvq_decode(params["quantizer"], codes)
-    out, mark = seanet.wm_decode(params["wmdecoder"], emb, labels, waveform,
-                                 cfg.seanet)
-    return postprocess(out, scale), mark
+    Returns (wav [B, F*hop, C], detector logits [B, F, 2]). Span
+    ``codec.wmdecode`` (device)."""
+    with annotate("codec.wmdecode", codes.device):
+        emb = q.rvq_decode(params["quantizer"], codes)
+        out, mark = seanet.wm_decode(params["wmdecoder"], emb, labels,
+                                     waveform, cfg.seanet)
+        return postprocess(out, scale), mark
 
 
 @torch.no_grad()

@@ -31,6 +31,7 @@ from ..config import SSRModelConfig
 from ..models import ssr as ssr_model
 from ..models import transformer as trf
 from ..ops.masking import make_pad_mask, xy_attn_bias
+from ..utils.profiler import annotate
 from . import collectives as col
 from .mesh import QKV, Mesh
 
@@ -261,7 +262,8 @@ def make_pp_train_step(cfg: SSRModelConfig, tcfg, optimizer, mesh: Mesh,
         bad = not bool(torch.isfinite(metrics["loss"]) & finite.all())
         is_good = not any_rank(bad, mesh, device)
         if is_good:
-            optimizer.update_(grads, opt_state, params)
+            with annotate("train.update"):
+                optimizer.update_(grads, opt_state, params)
         for p in tree_leaves(params):
             p.grad = None
         return dict(metrics, skipped=0.0 if is_good else 1.0)

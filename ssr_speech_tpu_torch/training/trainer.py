@@ -242,9 +242,11 @@ def make_train_step(cfg: SSRModelConfig, tcfg: TrainConfig, optimizer,
                  [{k: v[j] for k, v in batch.items()} for j in range(accum)])
         loss_sum = top10_sum = ntok = acc_cb = 0.0
         for mb in micro:
-            loss, out = loss_fn(model, to_device(mb, device), generator,
-                                hidden_generator, par)
-            loss.backward()
+            with annotate("train.forward"):
+                loss, out = loss_fn(model, to_device(mb, device), generator,
+                                    hidden_generator, par)
+            with annotate("train.backward"):
+                loss.backward()
             loss_sum = loss_sum + out["loss"].detach()
             top10_sum = top10_sum + out["top10acc"].detach()
             ntok = ntok + out["effective_ntoken"].detach()
@@ -267,7 +269,8 @@ def make_train_step(cfg: SSRModelConfig, tcfg: TrainConfig, optimizer,
         bad = not bool(torch.isfinite(metrics["loss"]) & finite.all())
         is_good = not any_rank(bad, mesh, device)
         if is_good:
-            optimizer.update_(grads, opt_state, params)
+            with annotate("train.update"):
+                optimizer.update_(grads, opt_state, params)
         for p in tree_leaves(params):
             p.grad = None
         return dict(metrics, skipped=0.0 if is_good else 1.0)
