@@ -31,7 +31,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    for bit; the 16-layer megakernel at 2 and 8 rows, with every column of
    its last layer's fp32 sums (``return_acc``) against the plain last layer,
    and its weight stream alone timed beside it; the int8 mode bit for bit,
-   every kernel twice bit for bit). Beside the attention kernels one
+   every kernel twice bit for bit); the paged step's decode attention
+   (K10) at the continuous server's shape (16 rows, 16 heads, a 640-key
+   prompt in a 768-key buffer, windows of 128 and 640 generated columns,
+   the server's ragged rows), against the plain version (each row within
+   ``DA_ROW_TOL`` of its own max, and no farther from fp64 on average),
+   timed beside its
+   bound (the live keys' K/V bytes) and the plain version over four
+   layers' operands in turn (cold in L2, as the step finds them), with
+   ``scaled_dot_product_attention`` under a boolean mask as a yardstick
+   (``[decode attention]``). Beside the attention kernels one
    PyTorch call that computes the same function
    (``scaled_dot_product_attention`` and its autograd backward), and beside
    K7, K8's bf16 mode and the megakernel ``torch._weight_int8pack_mm`` (16
@@ -173,7 +182,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    times (the einsum prefill). Prints a ``{"rehearsal": ...}`` line.
 12. Print the kernel report (JSON; each kernel's launches are those of steps
    4 to 11, counted from zero before each path, the flash forward's also by
-   path; ``bound_ms`` is the least time the
+   path, the decode attention's by server path (continuous, streaming,
+   HTTP, endurance), each counted from zero and held to one a layer of
+   each step its graph runs took, ``paged_launches``);
+   ``bound_ms`` is the least time the
    card could take for the same work, from the inputs' bytes and operations
    and the published peaks below), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -194,6 +206,7 @@ import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -241,6 +254,35 @@ def cuda_time_ms(torch, fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(torch, calls, replays: int = 10) -> float:
+    """Device ms a call of ``calls`` (functions of no arguments) takes: the
+    list captured once into a CUDA graph (after a warm-up on a side stream)
+    and replayed, so that no host launch cost enters the time, as in the
+    server's replayed steps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * len(calls))
+    del graph
+    return ms
 
 
 # Published peaks of one H100 SXM (dense, at its full 700 W limit)
@@ -970,6 +1012,188 @@ def argmax_check(got, want):
             int((differ & ~tie).sum().item()))
 
 
+# The continuous server's paged step in the serve cell: 8 lanes under CFG
+# (16 rows), 16 heads, text padded to 128 and prefix to 512 (a 640-key prompt
+# in a 768-key buffer), generated windows of 128 to 640 columns
+PAGED_ROWS, PAGED_HEADS, PAGED_SX, PAGED_TP = 16, 16, 128, 640
+PAGED_PCAP, PAGED_GCAP = 768, 640
+PARKED_ROW = 5  # a row whose prompt is all banned: only the current key is live
+
+
+def paged_attention_inputs(torch, device, rl: int, seed: int):
+    """One layer's operands of the paged step's attention at the server's
+    shape, unit-normal bf16: q, k, v [16, 16, 1, 128] split from one packed
+    QKV product as the step splits it, the prompt cache [16, 16, 768, 128]
+    read to 640 keys, the generated cache [16, 16, 640, 128] read through a
+    window of ``rl`` columns, key_banned and gen_len of the server's ragged
+    rows: cond rows (the first half) ban their text padding [x_len, 128),
+    in the middle of the prompt, and the prefix padding past 128 + p_len
+    (p_len 100-512); their uncond rows hide the text [1, 128) besides. Row 1
+    has generated nothing, row 2 fills the window but its last column, and
+    row ``PARKED_ROW`` bans its whole prompt. Returns the arguments of
+    ``ops.decode_attention.paged_attention``."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.models import transformer as trf
+
+    rng = np.random.default_rng(seed)
+    b, h, dh = PAGED_ROWS, PAGED_HEADS, 128
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=torch.bfloat16)
+
+    q, k, v = [trf._split_heads(t, h)
+               for t in normal(b, 1, 3 * h * dh).chunk(3, dim=-1)]
+    pk, pv = normal(b, h, PAGED_PCAP, dh), normal(b, h, PAGED_PCAP, dh)
+    gk, gv = normal(b, h, PAGED_GCAP, dh), normal(b, h, PAGED_GCAP, dh)
+    half = b // 2
+    banned = np.ones((b, PAGED_PCAP), bool)
+    gen_len = rng.integers(0, rl, size=b)
+    for r in range(half):
+        x_len = int(rng.integers(20, PAGED_SX))
+        p_len = int(rng.integers(100, PAGED_TP - PAGED_SX + 1))
+        for row in (r, r + half):
+            banned[row, :x_len] = False
+            banned[row, PAGED_SX:PAGED_SX + p_len] = False
+        banned[r + half, 1:PAGED_SX] = True
+        gen_len[r + half] = gen_len[r]
+    gen_len[1], gen_len[2] = 0, rl - 1
+    banned[PARKED_ROW] = True
+    gen_len[PARKED_ROW] = 0
+    return (q, k, v, pk, pv, gk, gv, torch.from_numpy(banned).to(device),
+            torch.from_numpy(gen_len).to(device), PAGED_TP, rl)
+
+
+# K10 against the plain version: max |kernel - plain| of each (row, head)
+# as a share of that row's max |plain|. The plain version rounds its three
+# partial outputs and their two sums to bf16 and the kernel its one sum: six
+# roundings of at most half an ulp, 2^-8 of the value rounded, and the
+# partial outputs are averages of the same unit-normal V as the output, of
+# its size. The parked row is held exactly besides.
+DA_ROW_TOL = 2 ** -5
+
+
+def exact_paged_attention(torch, q, k, v, pk, pv, gk, gv, banned, gen_len, tp,
+                          rl):
+    """fp64 attention over the live keys with q scaled in its dtype as both
+    versions scale it (``step_scale``), nothing rounded after."""
+    from ssr_speech_tpu_torch.ops import decode_attention as da
+
+    f = torch.float64
+    qs = (q * da.step_scale(q.shape[-1], q.dtype, q.device)).to(f)
+    keys = torch.cat([pk[:, :, :tp], gk[:, :, :rl], k], 2).to(f)
+    vals = torch.cat([pv[:, :, :tp], gv[:, :, :rl], v], 2).to(f)
+    cols = torch.arange(rl, device=q.device)[None, :]
+    dead = torch.cat([banned[:, :tp], cols >= gen_len[:, None],
+                      torch.zeros_like(banned[:, :1])], 1)[:, None, None, :]
+    s = torch.matmul(qs, keys.transpose(-1, -2)).masked_fill(dead, -math.inf)
+    return torch.matmul(torch.softmax(s, -1), vals)
+
+
+def decode_attention_errors(torch, got, want, exact) -> dict:
+    """K10's output ``got`` against the plain version's ``want`` and the
+    fp64 ``exact``: ``row_err``, the largest |got - want| of a (row, head)
+    over that row's max |want|, and ``mean_err_kernel`` /
+    ``mean_err_plain``, each version's mean |. - exact|. The kernel rounds
+    once where the plain version rounds six times, so it lies no farther
+    from the exact result on average; a kernel wrong on a few live keys
+    does."""
+    g, w = got.float(), want.float()
+    row_max = w.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return dict(row_err=((g - w).abs() / row_max).max().item(),
+                mean_err_kernel=(got.double() - exact).abs().mean().item(),
+                mean_err_plain=(want.double() - exact).abs().mean().item())
+
+
+def check_decode_attention(torch, device) -> dict:
+    """K10 (``ops/decode_attention.py``) at the server's shape, windows of
+    128 and 640 columns: against the plain version (each (row, head) within
+    ``DA_ROW_TOL`` of its max, the mean error against fp64 no larger than
+    the plain version's, the parked row its current value exactly, two
+    launches bit for bit), then timed over four layers' operands in turn
+    (``graph_time_ms``) beside the plain version,
+    ``scaled_dot_product_attention`` with a boolean mask over the same keys
+    (a yardstick; the port never calls it) and the bound: the live keys'
+    K and V, the row's banned bytes, q, k, v and the output, at 3.35 TB/s.
+    Returns the kernel report's entry (the 640-column window's numbers on
+    top, both under ``by_window``)."""
+    from ssr_speech_tpu_torch.ops import decode_attention as da
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    by_window = {}
+    for rl in (128, 640):
+        sets = [paged_attention_inputs(torch, device, rl, seed)
+                for seed in range(4)]
+        args = sets[0]
+        da.reset_launches()
+        got, again = da.paged_attention(*args), da.paged_attention(*args)
+        want = da.plain_paged_attention(*args)
+        torch.cuda.synchronize()
+        if da.launches != 2 or not torch.equal(got, again):
+            raise RuntimeError("decode attention: not one launch a call, or "
+                               "two launches apart")
+        err = (got.float() - want.float()).abs().max().item()
+        held = decode_attention_errors(
+            torch, got, want, exact_paged_attention(torch, *args))
+        print(f"[decode attention] window {rl}: max |kernel - plain| "
+              f"{err:.3e}, {held['row_err']:.4f} of its row's max (limit "
+              f"{DA_ROW_TOL}); mean |. - fp64| kernel "
+              f"{held['mean_err_kernel']:.3e}, plain "
+              f"{held['mean_err_plain']:.3e}")
+        if held["row_err"] > DA_ROW_TOL:
+            raise RuntimeError(f"decode attention off the plain version by "
+                               f"{held['row_err']:.4f} of a row's max at "
+                               f"window {rl}")
+        if held["mean_err_kernel"] > held["mean_err_plain"]:
+            raise RuntimeError(f"decode attention farther from fp64 than the "
+                               f"plain version at window {rl}: {held}")
+        if not torch.equal(got[PARKED_ROW], args[2][PARKED_ROW]):
+            raise RuntimeError("decode attention: the parked row is not its "
+                               "current value")
+        b, h, _, dh = args[0].shape
+        tp = args[9]
+        # the four sets' mean, as the timing takes them in turn
+        live = sum(((~s[7][:, :tp]).sum() + s[8].sum()).item()
+                   for s in sets) / len(sets)
+        n_bytes = (2 * live * h * dh * 2 + 4 * b * h * dh * 2 + b * tp
+                   + b * 8)
+        ops = 4 * (live + b) * h * dh  # q.k and p.v, 2 each a product
+        yard = []
+        for q, k, v, pk, pv, gk, gv, banned, gen_len, tp, _ in sets:
+            cols = torch.arange(rl, device=device)[None, :]
+            keep = torch.cat([~banned[:, :tp], cols < gen_len[:, None],
+                              torch.ones_like(banned[:, :1])], 1)
+            yard.append((q, torch.cat([pk[:, :, :tp], gk[:, :, :rl], k], 2),
+                         torch.cat([pv[:, :, :tp], gv[:, :, :rl], v], 2),
+                         keep[:, None, None, :]))
+        ms = graph_time_ms(torch, [functools.partial(da.paged_attention, *a)
+                                   for a in sets] * 5)
+        plain_ms = graph_time_ms(torch, [
+            functools.partial(da.plain_paged_attention, *a) for a in sets])
+        library_ms = graph_time_ms(torch, [
+            functools.partial(sdpa, q, kk, vv, attn_mask=mask)
+            for q, kk, vv, mask in yard] * 5)
+        del yard, sets, args
+        entry = dict(shape=[b, h, tp, rl, dh], max_abs_err=err, **held,
+                     ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     live_keys=live, live_mb=n_bytes / 1e6,
+                     **bound(n_bytes, ops, "bf16"))
+        entry["roofline_pct"] = 100 * entry["bound_ms"] / ms
+        by_window[rl] = entry
+        print(f"[decode attention] rows {b}, heads {h}, prompt {tp}, window "
+              f"{rl}: kernel {ms:.4f} ms, plain {plain_ms:.4f}, sdpa "
+              f"{library_ms:.4f}, bound {entry['bound_ms']:.4f} "
+              f"({n_bytes / 1e6:.1f} MB, {live:.0f} live keys), "
+              f"{entry['roofline_pct']:.1f}% of it; max |kernel - plain| "
+              f"{err:.3e}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"name": "decode_attention", "replaces": None,
+            "note": "JAX's paged step leaves this attention to XLA einsums",
+            **by_window[640], "by_window": by_window}
+
+
 def check_paged_step(torch, device, main: dict) -> dict:
     """The paged decode step at full width, from the server's own state.
     (a) ``SERVE_SLOTS`` lanes filled with the edit request and decoded 12
@@ -1059,6 +1283,47 @@ def check_paged_step(torch, device, main: dict) -> dict:
             "refilled_rel_err": err_b}
 
 
+@contextmanager
+def paged_launches(num_layers: int, path: str):
+    """K10's launches over a served path, held to what they must be: the
+    paged step launches it once a layer a step, and a continuous server's
+    chunk takes ``graphs.UNROLL`` steps a graph run (a capture's warm-up
+    or a replay). Counts from zero, and counts the graph runs of every
+    server's chunks inside the block (on any thread); on leaving it,
+    raises unless there was a run and the launches are runs x UNROLL x
+    ``num_layers``. Yields a dict that then holds ``launches`` and
+    ``runs``."""
+    from ssr_speech_tpu_torch.inference import graphs, serve
+    from ssr_speech_tpu_torch.ops import decode_attention as da
+
+    chunk = serve._serve_chunk_impl
+    counted = {"runs": 0}
+
+    def counting(params, srv, step_budget):
+        loop = srv._loop
+        before = loop.captures + loop.replays
+        try:
+            return chunk(params, srv, step_budget)
+        finally:
+            counted["runs"] += loop.captures + loop.replays - before
+
+    da.reset_launches()
+    serve._serve_chunk_impl = counting
+    try:
+        yield counted
+    finally:
+        serve._serve_chunk_impl = chunk
+    counted["launches"] = da.launches
+    want = counted["runs"] * graphs.UNROLL * num_layers
+    print(f"[{path}] decode attention launches {da.launches} over "
+          f"{counted['runs']} graph runs of {graphs.UNROLL} steps "
+          f"(expected {want})")
+    if not counted["runs"] or da.launches != want:
+        raise RuntimeError(f"{path}: {da.launches} decode attention launches"
+                           f" over {counted['runs']} graph runs, expected "
+                           f"{want}: one a layer a step")
+
+
 def drive_continuous_path(torch, device, main: dict, layout: dict, work: Path,
                           card: str) -> dict:
     """``serve_cli --continuous --n_slots 4`` over the 6 greedy edit jobs of
@@ -1068,7 +1333,8 @@ def drive_continuous_path(torch, device, main: dict, layout: dict, work: Path,
     first request's layout exactly). Prints decode ms/step, prefill ms, each
     request's completion, the aggregate RTF and peak GiB, and (not a gate)
     the first decode step at which each served chain parts from its own
-    ``decode.generate`` run. Returns the flash launches of this phase."""
+    ``decode.generate`` run. Returns the flash launches of this phase and
+    K10's (``paged_launches``)."""
     import numpy as np
 
     from ssr_speech_tpu_torch.config import DecodeConfig
@@ -1087,10 +1353,14 @@ def drive_continuous_path(torch, device, main: dict, layout: dict, work: Path,
     n = len(SERVE_TARGETS)
     fa.reset_launches()  # count only this path's launches
     runs = []
-    for rep in (1, 2):
-        before = fa.launches
-        st = serve_cli.main(argv + ["--output_dir", str(work / f"serve_{rep}")])
-        st["launches"] = fa.launches - before
+    with paged_launches(cfg.num_layers, "continuous") as paged:
+        for rep in (1, 2):
+            before = fa.launches
+            st = serve_cli.main(
+                argv + ["--output_dir", str(work / f"serve_{rep}")])
+            st["launches"] = fa.launches - before
+            runs.append(st)
+    for rep, st in enumerate(runs, 1):
         st["wav_bytes"] = [Path(p).read_bytes() for p in st["out_paths"]]
         audio_s = sum(st["out_samples"]) / st["sample_rate"]
         steps = st["decode_steps"]
@@ -1121,7 +1391,6 @@ def drive_continuous_path(torch, device, main: dict, layout: dict, work: Path,
             raise RuntimeError(f"server prefill ran at "
                                f"{st['prefill_layouts']}; the kernel check "
                                f"took {layout}")
-        runs.append(st)
     launches = fa.launches
     if runs[0]["wav_bytes"] != runs[1]["wav_bytes"]:
         raise RuntimeError("continuous greedy output differs between runs")
@@ -1143,7 +1412,8 @@ def drive_continuous_path(torch, device, main: dict, layout: dict, work: Path,
     print(f"[continuous] outputs bit-identical over two runs; first decode "
           f"step at which each served chain parts from its own generate run "
           f"(None: never): {parts}")
-    return dict(launches=launches, stats=runs[0], parts=parts)
+    return dict(launches=launches, decode_attention=paged["launches"],
+                stats=runs[0], parts=parts)
 
 
 def write_causal_codec(torch, device, work: Path):
@@ -1170,7 +1440,8 @@ def drive_stream_path(torch, device, main: dict, work: Path, card: str) -> dict:
     the offline causal decode of its own prompt and streamed codes, cropped
     at the prompt, within ``STREAM_ATOL``; 16 flash launches per request.
     Prints each client's time to first audio. Returns the flash launches of
-    this phase and what the HTTP phase reuses."""
+    this phase, K10's (``paged_launches``) and what the HTTP phase
+    reuses."""
     import numpy as np
 
     from ssr_speech_tpu_torch.inference import serve_cli
@@ -1182,9 +1453,11 @@ def drive_stream_path(torch, device, main: dict, work: Path, card: str) -> dict:
     causal = write_causal_codec(torch, device, work)
     jobs = write_jobs(work / "stream_jobs.jsonl", inputs, STREAM_TARGETS, True)
     fa.reset_launches()  # count only this path's launches
-    st = serve_cli.main(["--device", str(device), "--model_path", inputs["lm"],
-                         "--codec_path", causal, "--jobs", jobs, "--output_dir",
-                         str(work / "stream"), "--stream", *STREAM_FLAGS])
+    with paged_launches(cfg.num_layers, "stream") as paged:
+        st = serve_cli.main(["--device", str(device), "--model_path",
+                             inputs["lm"], "--codec_path", causal, "--jobs",
+                             jobs, "--output_dir", str(work / "stream"),
+                             "--stream", *STREAM_FLAGS])
     launches = fa.launches
     audio_tok = pretrained.load_codec(causal, device)
     hop = audio_tok.cfg.hop_length
@@ -1212,7 +1485,8 @@ def drive_stream_path(torch, device, main: dict, work: Path, card: str) -> dict:
     if launches != len(STREAM_TARGETS) * cfg.num_layers:
         raise RuntimeError(f"stream path: {launches} flash launches, expected "
                            f"{cfg.num_layers} a request")
-    return dict(launches=launches, causal=causal,
+    return dict(launches=launches, decode_attention=paged["launches"],
+                causal=causal,
                 requests=[(s["x"], s["prompt_codes"]) for s in st["streams"]])
 
 
@@ -1222,7 +1496,8 @@ def drive_http_path(torch, device, main: dict, stream: dict, card: str) -> dict:
     path's requests as ``text_ids`` and ``prompt_codes``: each client's PCM
     equal to the engine's own finished waveform, the /health counters
     advanced, and every flash launch of this phase made by the engine
-    thread (16 per request). Returns the flash launches of this phase."""
+    thread (16 per request). Returns the flash launches of this phase and
+    K10's (``paged_launches``)."""
     import http.client
     import threading
 
@@ -1256,45 +1531,48 @@ def drive_http_path(torch, device, main: dict, stream: dict, card: str) -> dict:
         return json.loads(conn.getresponse().read())
 
     fa.reset_launches()  # count only this path's launches
-    srv = http_server.TTSHttpServer(
-        server, host="127.0.0.1", port=0, sample_rate=audio_tok.sample_rate,
-        generator=torch.Generator(device=device).manual_seed(1),
-        on_done=on_done).start()
-    try:
-        h0 = health(srv.address)
-        outs = [None] * len(reqs)
+    with paged_launches(cfg.num_layers, "http") as paged:
+        srv = http_server.TTSHttpServer(
+            server, host="127.0.0.1", port=0,
+            sample_rate=audio_tok.sample_rate,
+            generator=torch.Generator(device=device).manual_seed(1),
+            on_done=on_done).start()
+        try:
+            h0 = health(srv.address)
+            outs = [None] * len(reqs)
 
-        def client(i):
-            x, y = reqs[i]
-            t0 = time.perf_counter()
-            conn = http.client.HTTPConnection(*srv.address, timeout=600)
-            conn.request("POST", "/tts", json.dumps(
-                {"text_ids": x.tolist(), "prompt_codes": y.tolist()}))
-            resp = conn.getresponse()
-            first, body = None, []
-            while True:
-                b = resp.read1(65536)
-                if not b:
+            def client(i):
+                x, y = reqs[i]
+                t0 = time.perf_counter()
+                conn = http.client.HTTPConnection(*srv.address, timeout=600)
+                conn.request("POST", "/tts", json.dumps(
+                    {"text_ids": x.tolist(), "prompt_codes": y.tolist()}))
+                resp = conn.getresponse()
+                first, body = None, []
+                while True:
+                    b = resp.read1(65536)
+                    if not b:
+                        break
+                    first = first or time.perf_counter() - t0
+                    body.append(b)
+                outs[i] = (resp.status, int(resp.getheader("X-Request-Id")),
+                           b"".join(body), first, time.perf_counter() - t0)
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(reqs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            deadline = time.monotonic() + 30
+            # the counters follow the bodies
+            while time.monotonic() < deadline:
+                h1 = health(srv.address)
+                if h1["completed"] >= h0["completed"] + len(reqs):
                     break
-                first = first or time.perf_counter() - t0
-                body.append(b)
-            outs[i] = (resp.status, int(resp.getheader("X-Request-Id")),
-                       b"".join(body), first, time.perf_counter() - t0)
-
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(reqs))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        deadline = time.monotonic() + 30
-        while time.monotonic() < deadline:  # the counters follow the bodies
-            h1 = health(srv.address)
-            if h1["completed"] >= h0["completed"] + len(reqs):
-                break
-            time.sleep(0.05)
-    finally:
-        srv.shutdown()
+                time.sleep(0.05)
+        finally:
+            srv.shutdown()
     launches = fa.launches
     by_thread = dict(fa.launches_by_thread)
     for i, out in enumerate(outs):
@@ -1321,7 +1599,7 @@ def drive_http_path(torch, device, main: dict, stream: dict, card: str) -> dict:
         raise RuntimeError(f"http path: flash launches by thread {by_thread}, "
                            f"expected {len(reqs) * cfg.num_layers} from the "
                            "engine thread alone")
-    return dict(launches=launches)
+    return dict(launches=launches, decode_attention=paged["launches"])
 
 
 # ------------------------------------------------------------ decode graphs
@@ -2159,7 +2437,7 @@ def check_small_reference(torch, device) -> None:
 
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce",
-                  "int8_matmul")
+                  "int8_matmul", "decode_attention")
 REL = 2e-2  # bf16 outputs: max |kernel - plain| / max |plain|
 LSE_ATOL = 1e-2  # attention log-sum-exp (fp32, natural log): max abs error
 # Besides the training path's own first batch: [B, H, S, Dh] of training
@@ -3181,7 +3459,8 @@ def drive_endurance_path(torch, device, main: dict, card: str) -> dict:
     After the first 8 requests are done and after all 24: device memory
     allocated may grow by at most one request's K/V (a staged eager
     prefill), host RSS by at most ``ENDURANCE_RSS_MB``. The two runs give
-    the same codes. Returns the flash launches of this phase."""
+    the same codes. Returns the flash launches of this phase and K10's
+    (``paged_launches``)."""
     import numpy as np
 
     from ssr_speech_tpu_torch.config import DecodeConfig
@@ -3204,51 +3483,52 @@ def drive_endurance_path(torch, device, main: dict, card: str) -> dict:
     sx, P, nt = serve.serve_geometry(cfg, dec, requests)
     fa.reset_launches()  # count only this path's launches
     runs = []
-    for rep in (1, 2):
-        server = serve.ContinuousBatcher(lm, cfg, dec, SERVE_SLOTS, sx_pad=sx,
-                                         p_pad=P, num_task=nt)
-        marks = {}
+    with paged_launches(cfg.num_layers, "endurance") as paged:
+        for rep in (1, 2):
+            server = serve.ContinuousBatcher(lm, cfg, dec, SERVE_SLOTS, sx_pad=sx,
+                                             p_pad=P, num_task=nt)
+            marks = {}
 
-        def progress(done, total, _):
-            if done >= ENDURANCE_WARM and "mid" not in marks:
-                _sync(torch, device)
-                marks["mid"] = (done, _allocated(torch, device),
-                                process_rss_mb())
+            def progress(done, total, _):
+                if done >= ENDURANCE_WARM and "mid" not in marks:
+                    _sync(torch, device)
+                    marks["mid"] = (done, _allocated(torch, device),
+                                    process_rss_mb())
 
-        st = {}
-        t0 = time.perf_counter()
-        results = server.run(requests, torch.Generator(
-            device=device).manual_seed(1), progress=progress, stats=st)
-        _sync(torch, device)
-        wall = time.perf_counter() - t0
-        mem1, rss1 = _allocated(torch, device), process_rss_mb()
-        done0, mem0, rss0 = marks["mid"]
-        row = server.state.cache.k
-        # one request: its [cond, uncond] rows of the prefix and generated K/V
-        kv = 2 * 2 * cfg.num_layers * cfg.nhead * cfg.head_dim * (
-            server.tmax + row.shape[3]) * row.element_size()
-        codes = [r[0] for r in results]
-        frames = sum(c.shape[-1] for c in codes)
-        print(f"[endurance] run {rep}: {ENDURANCE_JOBS} edits through "
-              f"{SERVE_SLOTS} lanes in {wall:.1f} s ({st['decode_steps']} "
-              f"decode steps, {st['decode_s'] / st['decode_steps'] * 1e3:.2f} "
-              f"ms/step, {frames / 50 / wall:.2f}x realtime of codes); after "
-              f"{done0} requests {mem0 / 2 ** 20:.1f} MiB allocated, RSS "
-              f"{rss0:.0f} MB; after all {mem1 / 2 ** 20:.1f} MiB "
-              f"({(mem1 - mem0) / 2 ** 20:+.1f}, bound one request's K/V "
-              f"{kv / 2 ** 20:.1f}), RSS {rss1:.0f} MB ({rss1 - rss0:+.0f}, "
-              f"bound {ENDURANCE_RSS_MB}) [{card}]")
-        if mem1 - mem0 > kv:
-            raise RuntimeError(f"endurance run {rep}: device memory grew "
-                               f"{(mem1 - mem0) / 2 ** 20:.1f} MiB")
-        if rss1 - rss0 > ENDURANCE_RSS_MB:
-            raise RuntimeError(f"endurance run {rep}: RSS grew "
-                               f"{rss1 - rss0:.0f} MB")
-        if any(r is not None for r in server._slot_req) or bool(
-                server.state.active.any()):
-            raise RuntimeError("endurance: a lane is still occupied")
-        runs.append(codes)
-        del server, results
+            st = {}
+            t0 = time.perf_counter()
+            results = server.run(requests, torch.Generator(
+                device=device).manual_seed(1), progress=progress, stats=st)
+            _sync(torch, device)
+            wall = time.perf_counter() - t0
+            mem1, rss1 = _allocated(torch, device), process_rss_mb()
+            done0, mem0, rss0 = marks["mid"]
+            row = server.state.cache.k
+            # one request: its [cond, uncond] rows of the prefix and generated K/V
+            kv = 2 * 2 * cfg.num_layers * cfg.nhead * cfg.head_dim * (
+                server.tmax + row.shape[3]) * row.element_size()
+            codes = [r[0] for r in results]
+            frames = sum(c.shape[-1] for c in codes)
+            print(f"[endurance] run {rep}: {ENDURANCE_JOBS} edits through "
+                  f"{SERVE_SLOTS} lanes in {wall:.1f} s ({st['decode_steps']} "
+                  f"decode steps, {st['decode_s'] / st['decode_steps'] * 1e3:.2f} "
+                  f"ms/step, {frames / 50 / wall:.2f}x realtime of codes); after "
+                  f"{done0} requests {mem0 / 2 ** 20:.1f} MiB allocated, RSS "
+                  f"{rss0:.0f} MB; after all {mem1 / 2 ** 20:.1f} MiB "
+                  f"({(mem1 - mem0) / 2 ** 20:+.1f}, bound one request's K/V "
+                  f"{kv / 2 ** 20:.1f}), RSS {rss1:.0f} MB ({rss1 - rss0:+.0f}, "
+                  f"bound {ENDURANCE_RSS_MB}) [{card}]")
+            if mem1 - mem0 > kv:
+                raise RuntimeError(f"endurance run {rep}: device memory grew "
+                                   f"{(mem1 - mem0) / 2 ** 20:.1f} MiB")
+            if rss1 - rss0 > ENDURANCE_RSS_MB:
+                raise RuntimeError(f"endurance run {rep}: RSS grew "
+                                   f"{rss1 - rss0:.0f} MB")
+            if any(r is not None for r in server._slot_req) or bool(
+                    server.state.active.any()):
+                raise RuntimeError("endurance: a lane is still occupied")
+            runs.append(codes)
+            del server, results
     for i, (a, b) in enumerate(zip(*runs)):
         if not np.array_equal(a, b):
             raise RuntimeError(f"endurance: request {i} differs between runs")
@@ -3259,7 +3539,7 @@ def drive_endurance_path(torch, device, main: dict, card: str) -> dict:
     print(f"[endurance] the stream's codes identical over two runs; flash "
           f"launches {launches}")
     del lm, audio_tok
-    return dict(launches=launches)
+    return dict(launches=launches, decode_attention=paged["launches"])
 
 
 class _StopDecode(Exception):
@@ -4977,7 +5257,8 @@ def main() -> int:
         srv_layout, server_seg = server_layout(torch, serving_config(), device)
         kernels = [check_flash(torch, device, multi_seg, server_seg), flash_bwd,
                    *check_fused_ce(torch, device, ce_case),
-                   *check_int8(torch, device)]
+                   *check_int8(torch, device),
+                   check_decode_attention(torch, device)]
         del attn_case, ce_case
         prng_check = check_prng(torch, device, card)
         check_small_reference(torch, device)
@@ -5044,7 +5325,15 @@ def main() -> int:
             prep_run["cpu"][0].kill()
             prep_run["cpu"][0].wait()
         shutil.rmtree(work, ignore_errors=True)
+    k10_by_path = {"continuous": continuous["decode_attention"],
+                   "stream": tts_stream["decode_attention"],
+                   "http": http_path["decode_attention"],
+                   "endurance": endurance["decode_attention"]}
     for entry in kernels:
+        if entry["name"] == "decode_attention":
+            entry["launches_by_path"] = k10_by_path
+            entry["launches"] = sum(k10_by_path.values())
+            continue
         entry["launches"] = {**training, **streaming}[entry["name"]]
         if entry["name"] in parallel["launches"] and entry is not kernels[0]:
             entry["launches_by_path"] = {

@@ -33,9 +33,11 @@ nothing reads, so the loop ends where JAX's ends.
   request of its shapes. The first call is the warm-up and the capture,
   every later call one replay. Each program has a memory pool of its own:
   nothing it allocates outlives its call, and no other graph's capture can
-  take its blocks. A replay launches the flash forwards the capture
-  recorded without a Python call, so the program adds them to the kernel's
-  counters itself (``ops.flash_attention.count_replayed``).
+  take its blocks.
+- A replay launches the kernels its capture recorded without a Python
+  call, so both classes record every hand-written kernel's launches at
+  capture (``ops.cuda_build.recording``) and add them to the kernels'
+  counters at each replay.
 - :func:`workspace` keeps workspaces per process and per parameter object
   (weakly: a workspace dies with its parameters), keyed by the shapes and
   settings the body is built for, so later requests of the same bucket
@@ -60,7 +62,7 @@ from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
-from ..ops import flash_attention as fa
+from ..ops.cuda_build import Recorded, recording
 from ..parallel import collectives as col
 from ..utils.profiler import annotate
 
@@ -84,12 +86,14 @@ class GraphLoop:
     window. ``run(window, body, generator)`` takes ``UNROLL`` steps: by a
     graph replay when ``use_graphs``, else by calling ``body(window,
     generator)``. ``captures``, ``capture_s`` and ``replays`` count for the
-    smoke and the tests, as does :meth:`pool_bytes`."""
+    smoke and the tests, as does :meth:`pool_bytes`, and ``recorded``: the
+    kernel launches each window's graph replays."""
 
     def __init__(self, device: torch.device, use_graphs: bool):
         self.device = torch.device(device)
         self.use_graphs = use_graphs
         self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        self.recorded: Dict[int, Recorded] = {}
         self.pool = None
         self.generator = (torch.Generator(device=self.device) if use_graphs
                           else None)
@@ -120,6 +124,7 @@ class GraphLoop:
         if graph is not None:
             graph.replay()
             self.replays += 1
+            self.recorded[window].replay()
             return
         with annotate("graph.capture", window=window):
             self._capture(window, body, generator)
@@ -136,11 +141,12 @@ class GraphLoop:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
+        with recording() as rec, torch.cuda.graph(
+                graph, pool=self.pool, capture_error_mode="thread_local"):
             body(window, generator)
         self.capture_s += time.perf_counter() - t0
         self.captures += 1
+        self.recorded[window] = rec
         self.graphs[window] = graph
 
     def pool_bytes(self) -> int:
@@ -164,8 +170,8 @@ class GraphProgram:
     is this call's real work) and then captures it into a pool of the
     program's own, and every later call replays the capture. A failed
     capture or replay raises. ``captures``, ``capture_s``, ``replays`` and
-    ``k1_launches`` (the flash forwards one replay launches) count for the
-    smoke and the tests, as does :meth:`pool_bytes`."""
+    ``recorded`` (the kernel launches one replay makes) count for the smoke
+    and the tests, as does :meth:`pool_bytes`."""
 
     def __init__(self, device: torch.device, use_graphs: bool):
         self.device = torch.device(device)
@@ -175,7 +181,7 @@ class GraphProgram:
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
-        self.k1_launches = 0
+        self.recorded = Recorded()
 
     def run(self, fn: Callable[[], None]) -> None:
         if not self.use_graphs:
@@ -186,7 +192,7 @@ class GraphProgram:
         else:
             self.graph.replay()
             self.replays += 1
-            fa.count_replayed(self.k1_launches)
+            self.recorded.replay()
 
     def _capture(self, fn: Callable[[], None]) -> None:
         dev = self.device
@@ -198,12 +204,12 @@ class GraphProgram:
         self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with fa.recording() as rec, torch.cuda.graph(
+        with recording() as rec, torch.cuda.graph(
                 graph, pool=self.pool, capture_error_mode="thread_local"):
             fn()
         self.capture_s += time.perf_counter() - t0
         self.captures += 1
-        self.k1_launches = rec.n
+        self.recorded = rec
         self.graph = graph
 
     def pool_bytes(self) -> int:

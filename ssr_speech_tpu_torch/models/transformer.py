@@ -11,7 +11,9 @@ The full-sequence attention of the prefill and of the training forward goes
 through ``ops.flash_attention.flash_attend_xy`` (the hand-written Hopper
 kernels on CUDA, forward and backward) where its inputs are bf16 at head width
 128, and through the einsum ``_attend`` otherwise (the prefill decides by
-``prefill_uses_kernel``, training by ``cfg.attn_impl``); the one-token decode
+``prefill_uses_kernel``, training by ``cfg.attn_impl``). The paged step's
+one-token attention goes through ``ops.decode_attention`` (a hand-written
+kernel for bf16 at head width 128 on CUDA); the other one-token decode steps'
 attention stays plain matmul/softmax, as JAX leaves it to XLA einsums.
 
 Matmul weights are cast to the activations' dtype at each use, as JAX casts
@@ -59,7 +61,7 @@ from torch.utils import checkpoint as ckpt
 
 from ..config import SSRModelConfig
 
-from ..ops import scaling
+from ..ops import decode_attention, scaling
 from ..ops.flash_attention import HEAD_DIM, flash_attend_xy
 from ..parallel import collectives as col
 from ..utils import prng
@@ -583,12 +585,6 @@ def decode_bias(key_banned: torch.Tensor, length: int,
     return torch.where(banned, -1e9, zero)[:, None, None, :]
 
 
-def _step_scale(dh: int, dtype, device) -> torch.Tensor:
-    """JAX multiplies q by the scale as a weakly typed constant: in
-    ``dtype`` (a fill, so a captured graph holds no host copy)."""
-    return torch.full((), 1.0 / math.sqrt(dh), dtype=dtype, device=device)
-
-
 def transformer_decode_step(params, h_t: torch.Tensor, cache: KVCache,
                             key_banned: torch.Tensor, cfg: SSRModelConfig, *,
                             dtype=torch.bfloat16, layers=None,
@@ -676,7 +672,7 @@ def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
     pfx_bias = torch.where(pfx_banned, -1e9, zero)[:, None, None, :]
     gcols = torch.arange(wg, device=dev)
     gen_bias = torch.where(gcols > gpos_t, -1e9, zero)  # [wg]
-    scale = _step_scale(dh, dtype, dev)
+    scale = decode_attention.step_scale(dh, dtype, dev)
     h = h_t.to(dtype)[:, None, :]
     for l, lp in enumerate(layers or layer_params(params)):
         hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
@@ -731,7 +727,13 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
     K/V land in one scatter after the layer loop, at column ``gen_len[r]``
     of each row r (clamped to the buffer, where JAX drops an out-of-range
     write; a caller never lets a row reach it). Returns (out [B, D], gen),
-    the cache written in place."""
+    the cache written in place.
+
+    Each layer's attention is ``ops.decode_attention.paged_attention``: on
+    a CUDA bf16 step at head width 128 the hand-written kernel, which reads
+    the bf16 caches in place and only their live keys, and adds the three
+    partial outputs in fp32 before one rounding; elsewhere the plain
+    arithmetic above."""
     act = _ffn_act(cfg, deterministic=True)
     par = parallel_of(params)
     b, _ = h_t.shape
@@ -740,12 +742,6 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
     tp, tg = pfx.length, gen.max_len
     rl = tg if read_len is None else min(int(read_len), tg)
     dev = h_t.device
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    pfx_bias = torch.where(key_banned[:, :tp], -1e9, zero)[:, None, None, :]
-    cols = torch.arange(rl, device=dev)[None, :]
-    gen_bias = torch.where(cols < gen_len[:, None], zero,
-                           -1e9)[:, None, None, :]  # [B, 1, 1, rl]
-    scale = _step_scale(dh, dtype, dev)
     h = h_t.to(dtype)[:, None, :]
     ks, vs = [], []
     for l, lp in enumerate(layers or layer_params(params)):
@@ -753,16 +749,9 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
         q, k, v = _qkv(lp, hn, nhead, par)  # [B, H, 1, Dh]
         ks.append(k[:, :, 0])
         vs.append(v[:, :, 0])
-        qs = q * scale
-        sp = torch.matmul(qs.float(), pfx.k[l, :, :, :tp].float()
-                          .transpose(-1, -2)) + pfx_bias  # [B, H, 1, Tp]
-        sg = torch.matmul(qs.float(), gen.k[l, :, :, :rl].float()
-                          .transpose(-1, -2)) + gen_bias  # [B, H, 1, rl]
-        sc = (qs.float() * k.float()).sum(-1, keepdim=True)  # [B, H, 1, 1]
-        p = torch.softmax(torch.cat([sp, sg, sc], dim=-1), dim=-1).to(dtype)
-        out = torch.matmul(p[..., :tp], pfx.v[l, :, :, :tp])
-        out = out + torch.matmul(p[..., tp:tp + rl], gen.v[l, :, :, :rl])
-        out = out + p[..., -1:] * v
+        out = decode_attention.paged_attention(
+            q, k, v, pfx.k[l], pfx.v[l], gen.k[l], gen.v[l], key_banned,
+            gen_len, tp, rl)
         h = _post_attention(lp, h, out.reshape(b, 1, d), act, bias_last=True,
                             par=par)
     # one scatter for all layers: row r writes column gen_len[r]

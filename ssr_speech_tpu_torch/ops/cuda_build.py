@@ -5,6 +5,12 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled for Hopper
 covers the source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source rebuilds and an unchanged one is loaded as built. Nothing here runs at import time: a CPU-only process
 imports the wrappers and never builds.
+
+Launch counts: each wrapper keeps a plain counter of its kernel's launches
+(read by ``chip_smoke.py`` and the tests) and reports each launch through
+:func:`launched`. A CUDA graph capture (``inference/graphs.py``) opens
+:func:`recording`, which takes every kernel's launches apart from its
+counter; each replay then counts what its capture recorded.
 """
 
 from __future__ import annotations
@@ -15,8 +21,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
+from typing import Callable, Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -60,6 +69,51 @@ def check_layout(kernel: str, **tensors) -> None:
             raise ValueError(f"{kernel} kernel needs contiguous {name}")
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel} kernel needs 16-byte aligned {name}")
+
+
+class Recorded:
+    """The launches one capture recorded, by counter (``count(n)``, the
+    function that adds n launches to a kernel's counter)."""
+
+    def __init__(self):
+        self.counts: Dict[Callable[[int], None], int] = {}
+
+    @property
+    def n(self) -> int:
+        return sum(self.counts.values())
+
+    def replay(self) -> None:
+        """A replay on this thread launched what was recorded: count it."""
+        for count, n in self.counts.items():
+            count(n)
+
+
+# per thread: the Recorded of an open capture
+_recording = threading.local()
+
+
+@contextmanager
+def recording():
+    """Record the launches this thread makes inside the block apart from
+    their counters: a CUDA graph capture enqueues no kernel, so what it
+    records counts only when a replay launches it (``Recorded.replay``).
+    Yields the :class:`Recorded`."""
+    outer = getattr(_recording, "rec", None)
+    rec = _recording.rec = Recorded()
+    try:
+        yield rec
+    finally:
+        _recording.rec = outer
+
+
+def launched(count: Callable[[int], None]) -> None:
+    """One launch on this thread of the kernel whose counter ``count``
+    adds to: counted, or recorded by an open capture."""
+    rec = getattr(_recording, "rec", None)
+    if rec is None:
+        count(1)
+    else:
+        rec.counts[count] = rec.counts.get(count, 0) + 1
 
 
 @functools.cache

@@ -44,18 +44,15 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from contextlib import contextmanager
 
 import torch
 
-from .cuda_build import check_layout, load
+from .cuda_build import check_layout, launched, load
 
 # kernel launches since the last reset (plain integers; read by chip_smoke.py)
 launches = 0  # forward
 bwd_launches = 0  # backward (one per dq + dk/dv pair)
 launches_by_thread = {}  # forward launches by the launching thread's name
-# per thread: the forward launches recorded into an open CUDA graph capture
-_recording = threading.local()
 
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
@@ -71,45 +68,12 @@ def reset_launches() -> None:
 
 
 def _count_forward(n: int) -> None:
+    """n forward launches on this thread (``cuda_build.launched``'s
+    counter)."""
     global launches
     launches += n
     name = threading.current_thread().name
     launches_by_thread[name] = launches_by_thread.get(name, 0) + n
-
-
-class Recorded:
-    """The forward launches one capture recorded (``n``)."""
-
-    n = 0
-
-
-@contextmanager
-def recording():
-    """Count the forward launches this thread makes inside the block apart
-    from ``launches``: a CUDA graph capture enqueues no kernel, so what it
-    records counts only when a replay launches it (:func:`count_replayed`).
-    Yields the :class:`Recorded` count."""
-    outer = getattr(_recording, "rec", None)
-    rec = _recording.rec = Recorded()
-    try:
-        yield rec
-    finally:
-        _recording.rec = outer
-
-
-def _launched() -> None:
-    """One forward launch on this thread: counted, or recorded by an open
-    capture."""
-    rec = getattr(_recording, "rec", None)
-    if rec is not None:
-        rec.n += 1
-    else:
-        _count_forward(1)
-
-
-def count_replayed(n: int) -> None:
-    """A graph replay on this thread launched ``n`` recorded forwards."""
-    _count_forward(n)
 
 
 def reference_attend(q, k, v, key_valid, sm_scale):
@@ -302,8 +266,8 @@ def _check_cuda_args(q, k, v, seg):
 
 def flash_forward(q, k, v, seg, sm_scale, *, with_lse: bool):
     """Launch the forward kernel on checked CUDA tensors; returns (out, lse),
-    lse fp32 [B, H, S] or None. Inside :func:`recording` (a graph capture)
-    the launch counts there instead."""
+    lse fp32 [B, H, S] or None. Inside ``cuda_build.recording`` (a graph
+    capture) the launch counts there instead."""
     if not sm_scale > 0:  # the kernel takes the row max before scaling
         raise ValueError(f"flash kernel takes sm_scale > 0, got {sm_scale}")
     fn = load_kernel().lib.ssr_flash_attention_fwd_bf16
@@ -319,7 +283,7 @@ def flash_forward(q, k, v, seg, sm_scale, *, with_lse: bool):
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
                            f"{err} at q {tuple(q.shape)}")
-    _launched()
+    launched(_count_forward)
     return out, lse
 
 

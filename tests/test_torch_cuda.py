@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the port against their plain PyTorch versions,
 on the card: the flash-attention forward and backward, the fused CE head's
-forward, dhidden and dw2/db2, and the int8 weight-streaming matvecs (K7
+forward, dhidden and dw2/db2, the int8 weight-streaming matvecs (K7
 ``int8_matvec`` and the chain K8 in both modes, with programmatic dependent
-launch, without it and as a CUDA graph; the megakernel). Skipped where
-torch.cuda.is_available() is false.
+launch, without it and as a CUDA graph; the megakernel), and the paged
+step's decode attention (K10). Skipped where torch.cuda.is_available() is
+false.
 
 Run on a GPU machine (which needs neither JAX nor tests/conftest.py):
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from ssr_speech_tpu_torch.ops import decode_attention as da
 from ssr_speech_tpu_torch.ops import flash_attention as fa
 from ssr_speech_tpu_torch.ops import fused_ce as fce
 from ssr_speech_tpu_torch.ops import int8_matmul as i8
@@ -807,8 +809,9 @@ def test_paged_step_on_card_matches_cpu(device, small_lm):
 
 def test_served_on_card_is_deterministic(device, small_lm):
     """Three requests through a 2-slot ContinuousBatcher on the card (a
-    refilled lane): one flash launch a layer per admitted request, results
-    identical over two runs."""
+    refilled lane): one flash launch a layer per admitted request, as many
+    decode-attention launches in both runs (a multiple of the layers),
+    results identical over two runs."""
     from ssr_speech_tpu_torch.config import DecodeConfig
     from ssr_speech_tpu_torch.inference import serve as tserve
 
@@ -820,13 +823,17 @@ def test_served_on_card_is_deterministic(device, small_lm):
                                 (70, 26, [(10, 20), (40, 50)])]]
     dec = DecodeConfig(top_k=1, stop_repetition=2, aug_text=True,
                        cfg_pretrained=True, cfg_stride=5, max_gen_per_span=120)
-    runs = []
+    runs, da_launches = [], []
     for _ in range(2):
         fa.reset_launches()
+        da.reset_launches()
         runs.append(tserve.serve_requests(
             gpu, cfg, dec, reqs, torch.Generator(device=device).manual_seed(0),
             n_slots=2))
         assert fa.launches == len(reqs) * cfg.num_layers
+        da_launches.append(da.launches)
+    assert da_launches[0] == da_launches[1] > 0
+    assert da_launches[0] % cfg.num_layers == 0
     for a, b in zip(*runs):
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
@@ -1009,7 +1016,7 @@ def test_prefill_graph_matches_the_eager_prefill(device, text_lm, path):
         assert all(torch.equal(a, b) for a, b in zip(want, got)), i
         assert fa.launches == 2 * cfg.num_layers
     prog = program(graph)
-    assert (prog.captures, prog.replays, prog.k1_launches) == (
+    assert (prog.captures, prog.replays, prog.recorded.n) == (
         1, 1, cfg.num_layers)
     assert prog.pool_bytes() > 0
     graphs.clear()
@@ -1042,3 +1049,175 @@ def test_prefill_graph_capture_failure_raises(device, text_lm, monkeypatch):
     run(ws, 0)  # the card still works
     assert program(ws).captures == 1
     graphs.clear()
+
+
+# ------------------------------------------ the paged step's decode attention
+
+
+@pytest.mark.parametrize("rl", [128, 640])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_decode_attention_matches_plain(device, rl, seed):
+    """K10 against the plain version at the server's shape on ragged rows:
+    a text pad in the middle of the prompt, uncond rows with their hidden
+    prompt, gen_len 0 and rl - 1, a parked row. Tolerance, of each (row,
+    head)'s own max (``chip_smoke.DA_ROW_TOL``, 2^-5): the plain version
+    rounds its three partial outputs and their two sums to bf16 and the
+    kernel its one sum, six roundings of at most 2^-8 of values of the
+    row's size. The kernel rounds once, so it lies no farther from the fp64
+    result than the plain version on average. The parked row is its current
+    value exactly; two launches agree bit for bit."""
+    from chip_smoke import (DA_ROW_TOL, PARKED_ROW, decode_attention_errors,
+                            exact_paged_attention, paged_attention_inputs)
+
+    args = paged_attention_inputs(torch, device, rl, seed)
+    da.reset_launches()
+    got = da.paged_attention(*args)
+    again = da.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert da.launches == 2
+    assert torch.equal(got, again)
+    want = da.plain_paged_attention(*args)
+    held = decode_attention_errors(torch, got, want,
+                                   exact_paged_attention(torch, *args))
+    assert held["row_err"] <= DA_ROW_TOL, held
+    assert held["mean_err_kernel"] <= held["mean_err_plain"], held
+    v = args[2]
+    assert torch.equal(got[PARKED_ROW], v[PARKED_ROW])
+    assert torch.equal(want[PARKED_ROW], v[PARKED_ROW])
+
+
+def test_decode_attention_ignores_dead_keys(device):
+    """Junk in every key the kernel must skip (banned prompt keys, columns
+    at and past gen_len, the window's tail) changes no output bit."""
+    from chip_smoke import paged_attention_inputs
+
+    q, k, v, pk, pv, gk, gv, banned, gen_len, tp, rl = paged_attention_inputs(
+        torch, device, 384, 2)
+    got = da.paged_attention(q, k, v, pk, pv, gk, gv, banned, gen_len, tp, rl)
+    pk2, pv2, gk2, gv2 = pk.clone(), pv.clone(), gk.clone(), gv.clone()
+    dead_p = banned[:, None, :, None].expand_as(pk2)
+    pk2[dead_p], pv2[dead_p] = 3e4, -3e4
+    cols = torch.arange(gk.shape[2], device=device)
+    dead_g = (cols[None, :] >= gen_len[:, None])[:, None, :, None].expand_as(gk2)
+    gk2[dead_g], gv2[dead_g] = float("nan"), float("nan")
+    junk = da.paged_attention(q, k, v, pk2, pv2, gk2, gv2, banned, gen_len,
+                              tp, rl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, junk)
+
+
+def test_decode_attention_refuses_what_it_cannot_take(device):
+    """Operands the kernel does not take raise before any launch."""
+    from chip_smoke import paged_attention_inputs
+
+    q, k, v, pk, pv, gk, gv, banned, gen_len, tp, rl = paged_attention_inputs(
+        torch, device, 128, 3)
+    da.reset_launches()
+    with pytest.raises(ValueError):  # fp32 caches beside a bf16 query
+        da.paged_attention(q, k, v, pk.float(), pv, gk, gv, banned, gen_len,
+                           tp, rl)
+    with pytest.raises(ValueError):  # int32 lengths
+        da.paged_attention(q, k, v, pk, pv, gk, gv, banned, gen_len.int(),
+                           tp, rl)
+    with pytest.raises(ValueError):  # a window past the generated cache
+        da.paged_attention(q, k, v, pk, pv, gk, gv, banned, gen_len, tp,
+                           gk.shape[2] + 1)
+    with pytest.raises(ValueError):  # lengths on the host
+        da.paged_attention(q, k, v, pk, pv, gk, gv, banned, gen_len.cpu(),
+                           tp, rl)
+    assert da.launches == 0
+
+
+def test_decode_attention_counts_replayed_launches(device, small_lm):
+    """The paged step captured as a CUDA graph (``graphs.GraphLoop``): the
+    warm-up launches the kernel once a layer, the capture records as many,
+    and every replay adds them to ``decode_attention.launches``; replays
+    give the eager result bit for bit."""
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.models import transformer as ttrf
+
+    cfg, _, gpu = small_lm
+    rng = np.random.default_rng(5)
+    L, H, Dh, D = cfg.num_layers, cfg.nhead, cfg.head_dim, cfg.d_model
+    B, tp, tg, window = 4, 96, 64, 32
+    bf = dict(device=device, dtype=torch.bfloat16)
+    h = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(**bf)
+    pfx = ttrf.KVCache(*(torch.from_numpy(rng.standard_normal(
+        (L, B, H, tp, Dh)).astype(np.float32)).to(**bf) for _ in range(2)), tp)
+    gen = ttrf.KVCache(*(torch.zeros((L, B, H, tg, Dh), **bf)
+                         for _ in range(2)), 0)
+    banned = torch.from_numpy(rng.random((B, tp)) < 0.3).to(device)
+    gen_len = torch.tensor([9, 0, 17, 4], device=device)
+    result = torch.empty((B, D), **bf)
+
+    def body(window, generator):
+        out, _ = ttrf.transformer_decode_step_paged(
+            gpu["decoder"], h, pfx, gen, banned, gen_len, cfg,
+            dtype=torch.bfloat16, read_len=window)
+        result.copy_(out)
+
+    loop = graphs.GraphLoop(device, True)
+    da.reset_launches()
+    loop.run(window, body, None)
+    torch.cuda.synchronize()
+    assert da.launches == L and loop.recorded[window].n == L
+    first = result.clone()
+    for n in range(1, 4):
+        loop.run(window, body, None)
+        torch.cuda.synchronize()
+        assert da.launches == (n + 1) * L
+        assert torch.equal(result, first)
+
+
+def test_served_graphs_launch_decode_attention_once_a_layer_a_step(
+        device, small_lm):
+    """A ContinuousBatcher's replayed chunks launch the kernel once a layer
+    for each step the loop ran (warm-ups and replays, ``UNROLL`` steps
+    each)."""
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.inference import serve as tserve
+
+    cfg, _, gpu = small_lm
+    dec = DecodeConfig(top_k=1, stop_repetition=2, aug_text=True,
+                       cfg_pretrained=True, cfg_stride=5, max_gen_per_span=120)
+    graphs.clear()
+    srv = tserve.ContinuousBatcher(gpu, cfg, dec, 2, sx_pad=64, p_pad=128,
+                                   num_task=2)
+    da.reset_launches()
+    srv.run(_graph_requests(cfg), torch.Generator(device=device).manual_seed(0))
+    loop = srv._loop
+    assert loop.use_graphs and loop.captures >= 1 and loop.replays >= 1
+    assert da.launches == ((loop.captures + loop.replays) * graphs.UNROLL
+                           * cfg.num_layers)
+    graphs.clear()
+
+
+def test_decode_attention_greedy_matches_plain_route_outside_ties(
+        device, small_lm, monkeypatch):
+    """Three requests served greedily through the kernel and, with the
+    route forced to the plain version, through the plain arithmetic on the
+    card: the argmax of every step equal up to the first step where one
+    differs, and there the plain run's top two within twice the step's
+    logit error (``chip_smoke.compare_traces``); with no such step, the
+    codes identical."""
+    from chip_smoke import LogitTrace, compare_traces
+    from ssr_speech_tpu_torch.inference import graphs
+
+    cfg, _, gpu = small_lm
+    runs = {}
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(da, "uses_kernel", lambda *a: False)
+        graphs.clear()
+        da.reset_launches()
+        with LogitTrace(torch) as trace:
+            outs = _decode_path("paged", gpu, cfg, device, True)
+            runs[kernel] = (outs, trace.steps())
+        assert (da.launches > 0) == kernel
+        graphs.clear()
+    (k_out, k_log), (p_out, p_log) = runs[True], runs[False]
+    held = compare_traces(torch, p_log, k_log, "paged kernel vs plain")
+    if held["first_tie"] is None:
+        for a, b in zip(k_out, p_out):
+            np.testing.assert_array_equal(a[0], b[0])

@@ -31,6 +31,7 @@ from ssr_speech_tpu_torch.inference import decode as tdecode
 from ssr_speech_tpu_torch.inference import graphs
 from ssr_speech_tpu_torch.inference import serve as tserve
 from ssr_speech_tpu_torch.models import transformer as ttrf
+from ssr_speech_tpu_torch.ops import cuda_build
 from ssr_speech_tpu_torch.ops import flash_attention as fa
 from tests.test_torch_batched_decode import (CFG, TCFG, TS, _dec, models,
                                              one_torch_thread)
@@ -278,6 +279,9 @@ def test_refill_matches_jax(aug_text):
 class _StubGraph:
     fail = False
 
+    def register_generator_state(self, generator):
+        pass
+
     def replay(self):
         if self.fail:
             raise RuntimeError("replay refused")
@@ -317,11 +321,11 @@ def test_program_counts_the_flash_forwards_it_replays(monkeypatch):
     def fn():
         calls.append(1)
         for _ in range(16):
-            fa._launched()
+            cuda_build.launched(fa._count_forward)
 
     prog = graphs.GraphProgram(torch.device("cpu"), use_graphs=True)
     prog.run(fn)  # warm-up and capture
-    assert len(calls) == 2 and prog.captures == 1 and prog.k1_launches == 16
+    assert len(calls) == 2 and prog.captures == 1 and prog.recorded.n == 16
     me = threading.current_thread().name
     assert fa.launches == 16 and fa.launches_by_thread == {me: 16}
     prog.run(fn)  # a replay: no Python call of fn
@@ -339,3 +343,47 @@ def test_program_counts_the_flash_forwards_it_replays(monkeypatch):
     eager.run(fn)
     assert len(calls) == 3 and eager.captures == 0 and fa.launches == 64
     fa.reset_launches()
+
+
+@pytest.mark.parametrize("kind", ["loop", "program"])
+def test_graphs_count_every_kernel_they_replay(monkeypatch, kind):
+    """A decode loop's window graph and a program each record the launches
+    of every hand-written kernel their capture makes (here 2 flash forwards
+    and 3 decode attentions, by the wrappers' counter logic, without a
+    card) and add each kernel's to its own counter at every replay."""
+    from ssr_speech_tpu_torch.ops import decode_attention as da
+
+    monkeypatch.setattr(torch.cuda, "Stream", _StubStream)
+    monkeypatch.setattr(torch.cuda, "stream", _Ctx)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: _StubStream())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _Ctx)
+    fa.reset_launches()
+    da.reset_launches()
+    calls = []
+
+    def fn(*args):
+        calls.append(1)
+        for count, n in ((fa._count_forward, 2), (da._count, 3)):
+            for _ in range(n):
+                cuda_build.launched(count)
+
+    cpu = torch.device("cpu")
+    if kind == "loop":
+        loop = graphs.GraphLoop(cpu, use_graphs=True)
+        run, recorded = (lambda: loop.run(8, fn, None)), loop.recorded
+    else:
+        prog = graphs.GraphProgram(cpu, use_graphs=True)
+        run, recorded = (lambda: prog.run(fn)), None
+    run()  # warm-up and capture
+    rec = recorded[8] if kind == "loop" else prog.recorded
+    assert len(calls) == 2 and rec.n == 5
+    assert (fa.launches, da.launches) == (2, 3)
+    for n in (1, 2):  # replays: no Python call of fn
+        run()
+        assert len(calls) == 2
+        assert (fa.launches, da.launches) == (2 + 2 * n, 3 + 3 * n)
+    fa.reset_launches()
+    da.reset_launches()
