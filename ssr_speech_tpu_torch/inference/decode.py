@@ -50,6 +50,7 @@ import torch
 from ..config import DecodeConfig, SSRModelConfig
 from ..ops import patterns
 
+from ..models import mla_moe
 from ..models import ssr as ssr_model
 from ..models import transformer as trf
 from ..ops.sampling import categorical, top_k_top_p_filter
@@ -91,6 +92,46 @@ class ChainState:
     consec_silence: torch.Tensor
     num_cfg: torch.Tensor
     done: torch.Tensor  # [S] bool
+
+
+def decoder_dtype(params) -> torch.dtype:
+    """The compute dtype: that of the decoder's matmul weights."""
+    layers = params["decoder"]["layers"]
+    return (layers["qkv_w"] if "qkv_w" in layers else layers["wq_kva"]).dtype
+
+
+def init_cache(cfg: SSRModelConfig, batch: int, max_len: int, *, dtype,
+               device, par=None):
+    """The block's cache: ``KVCache`` for the e830M block, the MLA block's
+    ``LatentCache``."""
+    make = (mla_moe.init_cache if mla_moe.is_mla_moe(cfg)
+            else trf.init_kv_cache)
+    return make(cfg, batch, max_len, dtype=dtype, device=device, par=par)
+
+
+def layer_params(cfg: SSRModelConfig, decoder):
+    return (mla_moe.layer_params(decoder) if mla_moe.is_mla_moe(cfg)
+            else trf.layer_params(decoder))
+
+
+def row_positions(y_pos: torch.Tensor, aug_text: bool) -> torch.Tensor:
+    """The RoPE position of each step row: the chain's audio position,
+    repeated for the uncond rows under CFG."""
+    return torch.cat([y_pos, y_pos]) if aug_text else y_pos
+
+
+def _prefill_block(params, h, cache, cfg, *, key_valid, dtype, sx: int):
+    """The block's prefill over h [B, sx + P, D] into ``cache``; the MLA
+    block's RoPE positions count the text and the audio each from 0, as
+    SSR's sinusoids do."""
+    if mla_moe.is_mla_moe(cfg):
+        pos = torch.cat([torch.arange(sx, device=h.device),
+                         torch.arange(h.shape[1] - sx, device=h.device)])
+        return mla_moe.transformer_prefill(
+            params["decoder"], h, cache, cfg, key_valid=key_valid, pos=pos,
+            dtype=dtype)
+    return trf.transformer_prefill(params["decoder"], h, cache, cfg,
+                                   key_valid=key_valid, dtype=dtype)
 
 
 def _static_ban(ts, device) -> torch.Tensor:
@@ -320,13 +361,14 @@ class DecodeWorkspace:
         par = trf.parallel_of(params)
         i64 = dict(dtype=torch.int64, device=dev)
         ts = cfg.tokens
-        self.pfx = trf.init_kv_cache(cfg, pfx_rows, tmax, dtype=dtype,
-                                     device=dev, par=par)
+        self.device = dev
+        self.pfx = init_cache(cfg, pfx_rows, tmax, dtype=dtype, device=dev,
+                              par=par)
         self.pfx.length = torch.zeros(1, **i64)
         self.gen = None
         if gen_cap:
-            self.gen = trf.init_kv_cache(cfg, rows, gen_cap, dtype=dtype,
-                                         device=dev, par=par)
+            self.gen = init_cache(cfg, rows, gen_cap, dtype=dtype, device=dev,
+                                  par=par)
             self.gen.length = torch.zeros(1, **i64)
         shape, bdtype = banned
         self.banned = torch.zeros(shape, dtype=bdtype, device=dev)
@@ -344,21 +386,21 @@ class DecodeWorkspace:
                                        device=dev)
         self.silence = torch.tensor(silence, **i64)
         self.static_ban = _static_ban(ts, dev)
-        self.layers = trf.layer_params(params["decoder"])
+        self.layers = layer_params(cfg, params["decoder"])
         self.windows = trf.cache_stage_sizes(gen_cap or tmax)
         self.loop = graphs.GraphLoop(dev, use_graphs)
         self.prefills: Dict[tuple, tuple] = {}  # key -> (buffers, program)
         self.lock = threading.RLock()
 
-    def prefill_cache(self) -> trf.KVCache:
+    def prefill_cache(self):
         """The prompt cache, zeroed, for a prefill to fill from 0."""
-        self.pfx.k.zero_()
-        self.pfx.v.zero_()
-        return trf.KVCache(self.pfx.k, self.pfx.v, 0)
+        for buf in self.pfx.buffers():
+            buf.zero_()
+        return replace(self.pfx, length=0)
 
-    def prompt(self) -> trf.KVCache:
+    def prompt(self):
         """The prompt cache with its fill on the device."""
-        return trf.KVCache(self.pfx.k, self.pfx.v, self.pfx.length)
+        return replace(self.pfx, length=self.pfx.length)
 
     def prefill(self, key: tuple, inputs: Dict, fill) -> Dict:
         """Run the prefill program of ``key`` (the prefill's shapes and
@@ -370,11 +412,10 @@ class DecodeWorkspace:
         prog = self.prefills.get(key)
         if prog is None:
             bufs = {name: torch.empty(np.shape(v), dtype=torch.int64,
-                                      device=self.pfx.k.device)
+                                      device=self.device)
                     for name, v in inputs.items()}
             prog = self.prefills[key] = (
-                bufs, graphs.GraphProgram(self.pfx.k.device,
-                                          self.loop.use_graphs))
+                bufs, graphs.GraphProgram(self.device, self.loop.use_graphs))
         bufs, program = prog
         for name, v in inputs.items():
             if isinstance(v, (int, np.integer)):
@@ -384,20 +425,21 @@ class DecodeWorkspace:
         program.run(lambda: fill(**bufs))
         return bufs
 
-    def load(self, cache: trf.KVCache) -> None:
+    def load(self, cache) -> None:
         """Take a prefilled prompt cache: copied in unless it is this
         workspace's own; its fill goes to the device."""
-        if cache.k is not self.pfx.k:
-            self.pfx.k.copy_(cache.k)
-            self.pfx.v.copy_(cache.v)
+        mine = self.pfx.buffers()
+        if cache.buffers()[0] is not mine[0]:
+            for dst, src in zip(mine, cache.buffers()):
+                dst.copy_(src)
         if isinstance(cache.length, torch.Tensor):
             if cache.length is not self.pfx.length:
                 self.pfx.length.copy_(cache.length.reshape(1))
         else:
             self.pfx.length.fill_(int(cache.length))
         if self.gen is not None:
-            self.gen.k.zero_()
-            self.gen.v.zero_()
+            for buf in self.gen.buffers():
+                buf.zero_()
             self.gen.length.zero_()
 
     def start(self, key_banned, y_pos0, sentinel_ids, length_cap, n_tasks,
@@ -477,6 +519,7 @@ def _chain_body(params, ws: DecodeWorkspace, *, cfg: SSRModelConfig,
     S = ws.state.out.shape[0]
     ts = cfg.tokens
     n_tasks = num_task if ws.gen is None else ws.n_tasks
+    mla = mla_moe.is_mla_moe(cfg)
 
     def body(window: int, generator) -> None:
         cur = ws.state
@@ -486,7 +529,12 @@ def _chain_body(params, ws: DecodeWorkspace, *, cfg: SSRModelConfig,
             go = ~cur.done.all() & (step < ws.limit)
             h = _embed_step_tokens(params, cfg, cur.next_tokens, ws.pe,
                                    cur.y_pos, aug_text, dtype)
-            if ws.gen is None:
+            if mla:
+                out_h, _ = mla_moe.decode_step(
+                    params["decoder"], h, replace(ws.pfx, length=fill),
+                    ws.banned, cfg, pos=row_positions(cur.y_pos, aug_text),
+                    dtype=dtype, layers=ws.layers, window=window)
+            elif ws.gen is None:
                 out_h, _ = trf.transformer_decode_step(
                     params["decoder"], h, trf.KVCache(ws.pfx.k, ws.pfx.v, fill),
                     ws.banned, cfg, dtype=dtype, layers=ws.layers,
@@ -549,7 +597,7 @@ def _generate_impl(params, cache: trf.KVCache, key_banned: torch.Tensor,
     elsewhere it runs eagerly. ``stats["decode_steps"]`` gets the steps
     JAX's loop takes. Returns (out [K, CAP], span_end [num_task], out_len)
     as tensors."""
-    ws = single_workspace(params, cfg, dec, rows=cache.k.shape[1],
+    ws = single_workspace(params, cfg, dec, rows=cache.buffers()[0].shape[1],
                           tmax=cache.max_len, num_task=num_task,
                           cap_total=cap_total, dtype=dtype,
                           cuda_graphs=cuda_graphs)
@@ -769,11 +817,11 @@ def _prefill_impl(params, x: torch.Tensor, y_prefix: torch.Tensor, x_len,
         key_banned = banned.copy_(key_banned)
 
     if cache is None:
-        cache = trf.init_kv_cache(cfg, B, tmax, dtype=dtype, device=dev,
-                                  par=trf.parallel_of(params))
-    _, cache = trf.transformer_prefill(params["decoder"], h, cache, cfg,
-                                       key_valid=(~dead).to(torch.int32),
-                                       dtype=dtype)
+        cache = init_cache(cfg, B, tmax, dtype=dtype, device=dev,
+                           par=trf.parallel_of(params))
+    _, cache = _prefill_block(params, h, cache, cfg,
+                              key_valid=(~dead).to(torch.int32), dtype=dtype,
+                              sx=sx)
     # true fill point: the padded text block stays (banned), the prefix is
     # valid up to p_len; decode steps overwrite the padded prefix tail
     return replace(cache, length=(p_len + sx).reshape(1)), key_banned
@@ -891,7 +939,7 @@ def generate(params, cfg: SSRModelConfig, dec: DecodeConfig, x: np.ndarray,
     body eagerly, for comparison)."""
     K = cfg.n_codebooks
     dev = params["text_emb"].device
-    dtype = params["decoder"]["layers"]["qkv_w"].dtype
+    dtype = decoder_dtype(params)
     with annotate("generate", dev, record=stats is not None,
                   text_len=len(x)):
         with annotate("generate.prompt"):
@@ -936,9 +984,10 @@ def generate_batch(params, cfg: SSRModelConfig, dec: DecodeConfig,
     list of per-chain (codes, marks, out_intervals, nm_intervals), the
     contract of :func:`generate`, aug_context included; ``stats`` and
     ``cuda_graphs`` as there (``out_tokens`` [S, K, CAP])."""
+    mla_moe.refuse(cfg, "generate_batch (the shared-prompt step)")
     K = cfg.n_codebooks
     dev = params["text_emb"].device
-    dtype = params["decoder"]["layers"]["qkv_w"].dtype
+    dtype = decoder_dtype(params)
     with annotate("generate", dev, record=stats is not None,
                   text_len=len(x), chains=n_samples):
         with annotate("generate.prompt"):
@@ -1027,11 +1076,11 @@ def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
     dead = multi_dead_keys(x_lens, p_lens, sx, P, aug_text=aug_text,
                            cfg_pretrained=cfg_pretrained)
     if cache is None:
-        cache = trf.init_kv_cache(cfg, R, tmax, dtype=dtype, device=dev,
-                                  par=trf.parallel_of(params))
-    _, cache = trf.transformer_prefill(params["decoder"], h, cache, cfg,
-                                       key_valid=(~dead).to(torch.int32),
-                                       dtype=dtype)
+        cache = init_cache(cfg, R, tmax, dtype=dtype, device=dev,
+                           par=trf.parallel_of(params))
+    _, cache = _prefill_block(params, h, cache, cfg,
+                              key_valid=(~dead).to(torch.int32), dtype=dtype,
+                              sx=sx)
     key_banned = (torch.empty((R, tmax), dtype=torch.bool, device=dev)
                   if banned is None else banned)
     key_banned[:, sx + P:] = True
@@ -1050,11 +1099,12 @@ def generate_multi(params, cfg: SSRModelConfig, dec: DecodeConfig, prompts,
     of per-prompt (codes, marks, out_intervals, nm_intervals). ``stats`` and
     ``cuda_graphs`` as in :func:`generate`, ``stats`` with the prefill's
     layout too (``x_lens`` [R], ``p_lens`` [S], ``sx_pad``, ``p_pad``)."""
+    mla_moe.refuse(cfg, "generate_multi (the shared-prompt step)")
     ts = cfg.tokens
     K = cfg.n_codebooks
     S = len(prompts)
     dev = params["text_emb"].device
-    dtype = params["decoder"]["layers"]["qkv_w"].dtype
+    dtype = decoder_dtype(params)
     with annotate("generate", dev, record=stats is not None, prompts=S):
         with annotate("generate.prompt"):
             built = []

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..config import DecodeConfig, SSRModelConfig
+from ..models import mla_moe
 from ..models import ssr as ssr_model
 from ..models import transformer as trf
 from ..ops import patterns
@@ -64,7 +65,7 @@ class ServeState(dec_mod.ChainState):
     paged cache's write columns and the slots' occupancy, in static buffers
     that the chunk's graphs read and write in place."""
 
-    cache: trf.KVCache  # generated K/V [L, R, H, G, Dh], a column per row
+    cache: trf.KVCache  # generated K/V [L, R, H, G, Dh] or latents, a column a row
     gen_len: torch.Tensor  # [R] write column of each row
     active: torch.Tensor  # [S] slot holds a live (unharvested) request
     steps: torch.Tensor  # [1] steps taken in this chunk (the admission budget)
@@ -96,6 +97,7 @@ def _serve_chunk_body(params, srv: "ContinuousBatcher"):
     (``active=False``) ride along frozen."""
     cfg, dec = srv.cfg, srv.dec
     S, aug_text, dtype = srv.S, srv.aug, srv.dtype
+    mla = mla_moe.is_mla_moe(cfg)
 
     def body(window: int, generator) -> None:
         st = srv.state
@@ -104,11 +106,21 @@ def _serve_chunk_body(params, srv: "ContinuousBatcher"):
         for _ in range(graphs.UNROLL):
             live = st.active & ~cur.done
             go = _chunk_go(st, cur.done, steps)
+            adv = live & go
+            adv_r = torch.cat([adv, adv]) if aug_text else adv
             h = dec_mod._embed_step_tokens(params, cfg, cur.next_tokens,
                                            srv._pe, cur.y_pos, aug_text, dtype)
-            out_h, _ = trf.transformer_decode_step_paged(
-                params["decoder"], h, srv._pfx, st.cache, srv._banned, gen_len,
-                cfg, dtype=dtype, read_len=window, layers=srv._layers)
+            if mla:
+                out_h, _ = mla_moe.decode_step_paged(
+                    params["decoder"], h, srv._pfx, st.cache, srv._banned,
+                    gen_len, cfg, pos=dec_mod.row_positions(cur.y_pos, aug_text),
+                    dtype=dtype, read_len=window, layers=srv._layers,
+                    counts=srv._routing, live=adv_r)
+            else:
+                out_h, _ = trf.transformer_decode_step_paged(
+                    params["decoder"], h, srv._pfx, st.cache, srv._banned,
+                    gen_len, cfg, dtype=dtype, read_len=window,
+                    layers=srv._layers)
             logits = ssr_model.predict_logits(params, out_h)
             lg, num_cfg = dec_mod._mix_cfg(logits, cur, dec, S, aug_text)
             cur = dec_mod._advance_chains(
@@ -116,8 +128,6 @@ def _serve_chunk_body(params, srv: "ContinuousBatcher"):
                 num_task=srv.num_task, length_cap=length_cap,
                 n_tasks=srv._n_tasks, sentinel_ids=srv._sentinels_dev,
                 static_ban=srv._static_ban, silence=srv._silence, go=go)
-            adv = live & go
-            adv_r = torch.cat([adv, adv]) if aug_text else adv
             gen_len = gen_len + adv_r.long()
             steps = steps + go.long()
         dec_mod._store_chains(st, cur)
@@ -155,8 +165,8 @@ def _serve_chunk_impl(params, srv: "ContinuousBatcher",
     return steps
 
 
-def _refill_impl(state: ServeState, pfx: trf.KVCache, key_banned, x_lens,
-                 n_tasks, slot, new_pfx: trf.KVCache, new_banned, x_len, p_len,
+def _refill_impl(state: ServeState, pfx, key_banned, x_lens,
+                 n_tasks, slot, new_pfx, new_banned, x_len, p_len,
                  n_task_new, sentinel0, empty_tok: int, *, aug_text: bool,
                  n_slots: int) -> None:
     """Splice a freshly prefilled request into slot ``slot`` of a running
@@ -174,8 +184,8 @@ def _refill_impl(state: ServeState, pfx: trf.KVCache, key_banned, x_lens,
         for v in (slot, x_len, p_len, n_task_new, sentinel0))
     rows = torch.cat([slot, slot + S]) if aug_text else slot
     n = rows.shape[0]
-    pfx.k.index_copy_(1, rows, new_pfx.k[:, :n])
-    pfx.v.index_copy_(1, rows, new_pfx.v[:, :n])
+    for dst, src in zip(pfx.buffers(), new_pfx.buffers()):
+        dst.index_copy_(1, rows, src[:, :n])
     key_banned.index_copy_(0, rows, new_banned[:n])
     state.gen_len.index_fill_(0, rows, 0)
     state.y_pos.index_copy_(0, slot, p_len)
@@ -196,7 +206,8 @@ def _refill_impl(state: ServeState, pfx: trf.KVCache, key_banned, x_lens,
 class _Staging:
     """One admission's staging area (JAX's ``new_pfx``): the padded text
     rows, the prefix and their true lengths as the prefill's static inputs,
-    the prompt cache [L, 1 or 2, H, tmax, Dh] and banned keys it fills, and
+    the prompt cache [L, 1 or 2, H, tmax, Dh] (or the MLA block's latents)
+    and banned keys it fills, and
     the two programs over them: the prefill (``_prefill_multi_impl``) and
     the splice (:func:`_refill_impl`, which also reads the server's splice
     scalars). ``busy`` from the prefill until the splice."""
@@ -205,10 +216,9 @@ class _Staging:
         cfg, dev = srv.cfg, srv.device
         rows = 2 if srv.aug else 1
         i64 = dict(dtype=torch.int64, device=dev)
-        cache = trf.init_kv_cache(cfg, rows, srv.tmax, dtype=srv.dtype,
-                                  device=dev,
-                                  par=trf.parallel_of(srv.params))
-        self.k, self.v = cache.k, cache.v
+        self._cache = dec_mod.init_cache(cfg, rows, srv.tmax, dtype=srv.dtype,
+                                         device=dev,
+                                         par=trf.parallel_of(srv.params))
         self.banned = torch.ones((rows, srv.tmax), dtype=torch.bool,
                                  device=dev)
         self.x = torch.zeros((rows, srv.sx_pad), **i64)
@@ -220,10 +230,10 @@ class _Staging:
         self.splice = graphs.GraphProgram(dev, use)
         self.busy = False
 
-    def cache(self) -> trf.KVCache:
+    def cache(self):
         """The staged rows, to be filled from 0 (a prefill writes the same
         [0, sx_pad + p_pad) each time; the rest stays zero)."""
-        return trf.KVCache(self.k, self.v, 0)
+        return dataclasses.replace(self._cache, length=0)
 
 
 class ContinuousBatcher:
@@ -253,7 +263,7 @@ class ContinuousBatcher:
         self.sx_pad, self.p_pad = sx_pad, p_pad
         self.num_task = num_task
         self.cap_total = dec.max_gen_per_span * num_task
-        self.dtype = dtype or params["decoder"]["layers"]["qkv_w"].dtype
+        self.dtype = dtype or dec_mod.decoder_dtype(params)
         self.device = params["text_emb"].device
         self.aug = dec.aug_text
         self.tmax = dec_mod._bucket(sx_pad + p_pad + 8, 256)
@@ -267,9 +277,9 @@ class ContinuousBatcher:
         self._gen_cap = gen_cap
         self._windows = trf.cache_stage_sizes(gen_cap)
         par = trf.parallel_of(params)
-        self._pfx = trf.init_kv_cache(cfg, R, self.tmax, dtype=self.dtype,
-                                      device=dev, par=par)
-        self._pfx = trf.KVCache(self._pfx.k, self._pfx.v, sx_pad + p_pad)
+        self._pfx = dec_mod.init_cache(cfg, R, self.tmax, dtype=self.dtype,
+                                       device=dev, par=par)
+        self._pfx.length = sx_pad + p_pad
         self._banned = torch.ones((R, self.tmax), dtype=torch.bool, device=dev)
         self._x_lens = torch.ones(n_slots, dtype=torch.int64, device=dev)
         self._n_tasks = torch.ones(n_slots, dtype=torch.int64, device=dev)
@@ -281,8 +291,8 @@ class ContinuousBatcher:
         chains.done.fill_(True)  # empty slots look finished, but not active
         self.state = ServeState(
             **_chain_fields(chains),
-            cache=trf.init_kv_cache(cfg, R, gen_cap, dtype=self.dtype,
-                                    device=dev, par=par),
+            cache=dec_mod.init_cache(cfg, R, gen_cap, dtype=self.dtype,
+                                     device=dev, par=par),
             gen_len=torch.zeros(R, dtype=torch.int64, device=dev),
             active=torch.zeros(n_slots, dtype=torch.bool, device=dev),
             steps=torch.zeros(1, dtype=torch.int64, device=dev),
@@ -296,7 +306,14 @@ class ContinuousBatcher:
         # the random uncond rows when cfg_pretrained is off: a fresh draw
         # each prefill, from a stream of its own
         self._uncond_gen = torch.Generator(device=dev).manual_seed(7)
-        self._layers = trf.layer_params(params["decoder"])
+        self._layers = dec_mod.layer_params(cfg, params["decoder"])
+        # the MLA block's routing counters, accumulated on the device by
+        # the replayed steps: per MoE layer, the (row, choice) pairs each
+        # expert took and the steps in which it took any [Lm, 2, E]
+        self._routing = (torch.zeros((cfg.n_moe_layers, 2,
+                                      cfg.n_routed_experts),
+                                     dtype=torch.int32, device=dev)
+                         if mla_moe.is_mla_moe(cfg) else None)
         self._pe = ssr_model.sine_table(cfg.max_position, cfg.d_model,
                                         device=dev)
         self._silence = torch.tensor(dec.silence_tokens, dtype=torch.int64,
@@ -441,7 +458,7 @@ class ContinuousBatcher:
                                   meta["ntask"], int(self.sentinels[0])]))
             st.splice.run(lambda: _refill_impl(
                 self.state, self._pfx, self._banned, self._x_lens,
-                self._n_tasks, a[0], trf.KVCache(st.k, st.v, 0), st.banned,
+                self._n_tasks, a[0], st.cache(), st.banned,
                 a[1], a[2], a[3], a[4], self.cfg.tokens.empty,
                 aug_text=self.aug, n_slots=self.S))
         st.busy = False
@@ -467,7 +484,26 @@ class ContinuousBatcher:
                               + time.perf_counter() - t0)
             st["chunks"] = st.get("chunks", 0) + 1
             st["lane_steps"] = st.get("lane_steps", 0) + lanes * steps
+        if self._routing is not None:
+            self._read_routing(self.stats)
         return steps
+
+    def _read_routing(self, st: Optional[Dict]) -> None:
+        """The MLA block's routing counters since the last read, reset,
+        and with ``stats`` added to it: ``expert_tokens`` [Lm, E] (the (row,
+        choice) pairs each expert of each MoE layer took) and
+        ``expert_steps`` [Lm, E] (the steps in which it took any), over the
+        steps the chunk took, the rows of live chains counted (a parked
+        lane reads no routed expert). One read a chunk, after its step
+        count."""
+        with annotate("serve.routing"):
+            got = self._routing.cpu().numpy().astype(np.int64)
+            self._routing.zero_()
+        if st is None:
+            return
+        for key, part in (("expert_tokens", got[:, 0]),
+                          ("expert_steps", got[:, 1])):
+            st[key] = part if key not in st else st[key] + part
 
     def _park(self, slot: int) -> None:
         """Free a harvested slot: its rows ride along frozen, unread."""

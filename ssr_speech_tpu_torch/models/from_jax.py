@@ -143,7 +143,9 @@ def int8_ffn_from_jax(params: Dict[str, Any], device="cpu"):
     ``ops.int8_matmul.int8_megakernel``: ``(w_q int8 [L, K, N], scale fp32
     [L, 1, N])`` on ``device``."""
     from ..ops.int8_matmul import quantize_weight
+    from .mla_moe import refuse_params
 
+    refuse_params(params, "the int8 paths")
     w1 = _as_tensor(params["decoder"]["layers"]["ffn1_w"]).float()
     if w1.dim() != 3:
         raise ValueError(f"ffn1_w: expected [L, K, N], got {tuple(w1.shape)}")

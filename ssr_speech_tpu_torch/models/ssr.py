@@ -29,6 +29,7 @@ from ..ops.fused_ce import fused_ce_head
 from ..ops.masking import make_pad_mask, xy_attn_bias
 from ..parallel import collectives as col
 from ..utils import prng
+from . import mla_moe
 from . import transformer as trf
 
 
@@ -228,6 +229,7 @@ def ssr_forward(params, cfg: SSRModelConfig, batch: Dict[str, torch.Tensor], *,
     those rows, the same on every tp rank. Under sequence parallelism a
     sequence that does not split over tp is padded at its end with
     positions no real query attends (they come after every real one)."""
+    mla_moe.refuse(cfg, "training (ssr_forward)")
     par = par or trf.parallel_of(params)
     tp = col.tp_of(par)
     sp = tp > 1 and par.sequence_parallel

@@ -477,6 +477,11 @@ class KVCache:
     def max_len(self) -> int:
         return self.k.shape[3]
 
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        """The cache's buffers, rows on dim 1 (``mla_moe.LatentCache``
+        answers with its one latent buffer)."""
+        return (self.k, self.v)
+
 
 def init_kv_cache(cfg: SSRModelConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device="cpu",

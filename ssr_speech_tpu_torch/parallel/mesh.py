@@ -234,7 +234,9 @@ def shard_params_for_serving(mesh: Mesh, params, fsdp: bool = False):
     caches hold the rank's heads, and each layer's two row-parallel products
     are summed over tp."""
     from ..models.from_jax import ParamTree
+    from ..models.mla_moe import refuse_params
 
+    refuse_params(params, "tensor-parallel and fsdp serving")
     local = shard_tree(mesh, params.tree(), ssr_param_specs(fsdp=fsdp))
     out = ParamTree(local).to(_device_of(params)).eval()
     out.cfg = getattr(params, "cfg", None)
@@ -260,7 +262,9 @@ def shard_model(mesh: Mesh, params, specs, par: col.Parallel, *,
     buffers, carrying ``parallel`` (on every sub-tree), ``specs`` and
     ``cfg``."""
     from ..models.from_jax import ParamTree
+    from ..models.mla_moe import refuse_params
 
+    refuse_params(params, "tensor-parallel and fsdp training")
     dev = next(t for t in _tensors(params)).device
     model = ParamTree(shard_tree(mesh, params, specs), trainable).to(dev)
     attach(model, par)

@@ -167,7 +167,8 @@ def scanned_sources():
     assert {REPO / "ssr_speech_tpu_torch" / f"{m.rsplit('.', 1)[1]}.py"
             for m in YARDSTICK_MODULES} <= set(files)
     files += [REPO / "chip_smoke.py", REPO / "tools" / "torch_profile_generate.py",
-              REPO / "tests" / "test_torch_cuda.py"]
+              REPO / "tools" / "mla_moe_bench.py", REPO / "tests" / "test_torch_cuda.py",
+              REPO / "tests" / "test_torch_cuda_mla_moe.py"]
     return files
 
 
