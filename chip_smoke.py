@@ -40,7 +40,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    bound (the live keys' K/V bytes) and the plain version over four
    layers' operands in turn (cold in L2, as the step finds them), with
    ``scaled_dot_product_attention`` under a boolean mask as a yardstick
-   (``[decode attention]``). Beside the attention kernels one
+   (``[decode attention]``); the bias + residual + LayerNorm kernel (K13)
+   at the 2-, 16- and 32-row steps and the server's prefill rows, D 2048,
+   in its three modes, against the plain version (h' bit for bit, hn
+   within what two orders of its sums allow, ``hn_gap``), timed beside it,
+   its bound and ``F.layer_norm`` after the same adds
+   (``[add_layer_norm]``). Beside the attention kernels one
    PyTorch call that computes the same function
    (``scaled_dot_product_attention`` and its autograd backward), and beside
    K7, K8's bf16 mode and the megakernel ``torch._weight_int8pack_mm`` (16
@@ -184,7 +189,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    4 to 11, counted from zero before each path, the flash forward's also by
    path, the decode attention's by server path (continuous, streaming,
    HTTP, endurance), each counted from zero and held to one a layer of
-   each step its graph runs took, ``paged_launches``);
+   each step its graph runs took, ``paged_launches``, and K13's the same
+   way, 2L + 1 a step in the chunks; K13's also on the serving, batched,
+   multi, graph and bench paths, counted from zero before each and held
+   to 2L + 1 a decode step and a prefill, ``decode_launches``);
    ``bound_ms`` is the least time the
    card could take for the same work, from the inputs' bytes and operations
    and the published peaks below), the card line, and as the last line
@@ -1194,6 +1202,104 @@ def check_decode_attention(torch, device) -> dict:
             **by_window[640], "by_window": by_window}
 
 
+# K13's shapes: the edit's 2-row step, the server's 16 rows, 32 rows, and the
+# server's prefill (2 rows x 512 positions), all at the 830M width
+ALN_SHAPES = ((2, 2048), (16, 2048), (32, 2048), (1024, 2048))
+
+
+def hn_gap(torch, got, want, h, w, b, eps: float = 1e-5):
+    """K13's norm ``got`` against the plain version's ``want`` of the same
+    ``h`` (h', bf16) and ``w``, ``b``: (the largest |got - want| over what
+    two orders of the norm's sums allow, the share of elements equal bit for
+    bit). Allowed: one bf16 ulp of ``want`` (the two fp32 results round to
+    neighbours), plus 2^-16 of the final add's terms, |t * w| + |b| with t
+    the normed value, for the elements where that add cancels: its fp32
+    error, a few 2^-24 of the terms, is then many ulps of the small result
+    (two CPU sum orders differ by 16 ulps there at 1,280 x 2048 rows)."""
+    xf = h.float()
+    mean = xf.mean(-1, keepdim=True)
+    t = (xf - mean) * torch.rsqrt((xf - mean).square().mean(-1, keepdim=True)
+                                  + eps)
+    _, e = torch.frexp(want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(t), e - 8)  # bf16 keeps 8 bits
+    allowed = ulp + 2.0 ** -16 * ((t * w).abs() + b.abs())
+    err = (got.float() - want.float()).abs()
+    return ((err / allowed).max().item(),
+            (got == want).float().mean().item())
+
+
+def check_add_layer_norm(torch, device) -> dict:
+    """K13 (``ops/add_layer_norm.py``) at ``ALN_SHAPES`` in its three modes:
+    against the plain version (h' bit for bit, hn within :func:`hn_gap`'s
+    allowance and equal in at least 99.9% of its elements, one launch a
+    call, two calls bit for bit), then timed from a replayed graph beside the plain version,
+    ``F.layer_norm`` after the same PyTorch adds (bf16 scale and shift; a
+    yardstick, the port never calls it) and the bound: h, y and the output
+    rows, bias, w and b, at 3.35 TB/s. Returns the kernel report's entry
+    (the 2-row step's ``residual_then_bias`` numbers on top, every shape and
+    mode under ``by_shape``)."""
+    import numpy as np
+
+    from ssr_speech_tpu_torch.ops import add_layer_norm as aln
+
+    F = torch.nn.functional
+    rng = np.random.default_rng(13)
+    by_shape = {}
+    for rows, d in ALN_SHAPES:
+        def normal(*shape, scale=1.0, dtype=torch.bfloat16):
+            return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+                np.float32)).to(device=device, dtype=dtype)
+
+        sets = [(normal(rows, d, scale=4.0), normal(rows, d),
+                 normal(d, scale=0.1),
+                 normal(d, scale=0.2, dtype=torch.float32) + 1,
+                 normal(d, scale=0.2, dtype=torch.float32)) for _ in range(4)]
+        for mode in aln.MODES:
+            args = (*sets[0], mode)
+            aln.reset_launches()
+            got, again = aln.add_layer_norm(*args), aln.add_layer_norm(*args)
+            want = aln.plain_add_layer_norm(*args)
+            torch.cuda.synchronize()
+            gap, same = hn_gap(torch, got[1], want[1], want[0], *args[3:5])
+            if (aln.launches != 2 or not torch.equal(got[0], want[0])
+                    or not all(map(torch.equal, got, again))
+                    or gap > 1 or same < 0.999):
+                raise RuntimeError(
+                    f"add_layer_norm {mode} [{rows}, {d}]: launches "
+                    f"{aln.launches}, h' equal {torch.equal(got[0], want[0])}"
+                    f", hn gap {gap:.3f} of what is allowed, {same:.5f} "
+                    f"equal")
+
+            def library(h, y, bias, w, b, mode=mode):
+                h = aln.plain_add_layer_norm(h, y, bias, w, b, mode)[0]
+                return F.layer_norm(h, (d,), w.to(h.dtype), b.to(h.dtype))
+
+            ms = graph_time_ms(torch, [functools.partial(
+                aln.add_layer_norm, *a, mode) for a in sets] * 5)
+            plain_ms = graph_time_ms(torch, [functools.partial(
+                aln.plain_add_layer_norm, *a, mode) for a in sets])
+            library_ms = graph_time_ms(torch, [
+                functools.partial(library, *a) for a in sets] * 5)
+            fused = mode != aln.NORM
+            n_bytes = (rows * d * 2 * (2 + 2 * fused) + d * 8
+                       + fused * d * 2)
+            entry = dict(shape=[rows, d], mode=mode, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         hn_gap=gap, hn_equal_share=same,
+                         **bound(n_bytes, 10 * rows * d, "fp32"))
+            entry["roofline_pct"] = 100 * entry["bound_ms"] / ms
+            by_shape[f"{rows}x{d}.{mode}"] = entry
+            print(f"[add_layer_norm] [{rows}, {d}] {mode}: kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.4f}, library {library_ms:.4f}, "
+                  f"bound {entry['bound_ms']:.4f} "
+                  f"({entry['roofline_pct']:.1f}% of it); hn {same:.5f} "
+                  f"equal, gap {gap:.3f} of what two sum orders allow")
+        del sets
+    return {"name": "add_layer_norm", "replaces": None,
+            "note": "JAX leaves the residual adds and norms to XLA fusions",
+            **by_shape["2x2048.residual_then_bias"], "by_shape": by_shape}
+
+
 def check_paged_step(torch, device, main: dict) -> dict:
     """The paged decode step at full width, from the server's own state.
     (a) ``SERVE_SLOTS`` lanes filled with the edit request and decoded 12
@@ -1285,27 +1391,31 @@ def check_paged_step(torch, device, main: dict) -> dict:
 
 @contextmanager
 def paged_launches(num_layers: int, path: str):
-    """K10's launches over a served path, held to what they must be: the
-    paged step launches it once a layer a step, and a continuous server's
-    chunk takes ``graphs.UNROLL`` steps a graph run (a capture's warm-up
-    or a replay). Counts from zero, and counts the graph runs of every
-    server's chunks inside the block (on any thread); on leaving it,
-    raises unless there was a run and the launches are runs x UNROLL x
-    ``num_layers``. Yields a dict that then holds ``launches`` and
-    ``runs``."""
+    """K10's and K13's launches over a served path, held to what they must
+    be: the paged step launches K10 once a layer a step and K13 2L + 1
+    times a step, and a continuous server's chunk takes ``graphs.UNROLL``
+    steps a graph run (a capture's warm-up or a replay). Counts K10 from
+    zero, K13 inside the chunks alone (the admission prefills launch it
+    too), and the graph runs of every server's chunks inside the block (on
+    any thread); on leaving it, raises unless there was a run, K10's
+    launches are runs x UNROLL x ``num_layers`` and K13's runs x UNROLL x
+    (2 ``num_layers`` + 1). Yields a dict that then holds ``launches``,
+    ``add_layer_norm`` and ``runs``."""
     from ssr_speech_tpu_torch.inference import graphs, serve
+    from ssr_speech_tpu_torch.ops import add_layer_norm as aln
     from ssr_speech_tpu_torch.ops import decode_attention as da
 
     chunk = serve._serve_chunk_impl
-    counted = {"runs": 0}
+    counted = {"runs": 0, "add_layer_norm": 0}
 
     def counting(params, srv, step_budget):
         loop = srv._loop
-        before = loop.captures + loop.replays
+        before, k13 = loop.captures + loop.replays, aln.launches
         try:
             return chunk(params, srv, step_budget)
         finally:
             counted["runs"] += loop.captures + loop.replays - before
+            counted["add_layer_norm"] += aln.launches - k13
 
     da.reset_launches()
     serve._serve_chunk_impl = counting
@@ -1322,6 +1432,58 @@ def paged_launches(num_layers: int, path: str):
         raise RuntimeError(f"{path}: {da.launches} decode attention launches"
                            f" over {counted['runs']} graph runs, expected "
                            f"{want}: one a layer a step")
+    k13 = counted["add_layer_norm"]
+    want = counted["runs"] * graphs.UNROLL * (2 * num_layers + 1)
+    print(f"[{path}] add_layer_norm launches in the chunks {k13} (expected "
+          f"{want})")
+    if k13 != want:
+        raise RuntimeError(f"{path}: {k13} add_layer_norm launches over "
+                           f"{counted['runs']} graph runs, expected {want}: "
+                           f"2L + 1 a step")
+
+
+@contextmanager
+def decode_launches(num_layers: int, path: str):
+    """K13's launches over a path of decode loops and prefills, held to
+    what they must be: 2L + 1 a decode step and a prefill, a decode loop
+    taking ``graphs.UNROLL`` steps a run (``GraphLoop.run``: a capture's
+    warm-up, a replay, or the eager body) and a prefill launching K1 once a
+    layer. Counts K13 and K1 from zero and the loop runs of every
+    ``GraphLoop`` inside the block (on any thread); on leaving it, raises
+    unless there was a run and a prefill, K1's launches are whole prefills
+    and K13's are (runs x UNROLL + prefills) x (2 ``num_layers`` + 1).
+    Yields a dict that then holds ``add_layer_norm``, ``runs`` and
+    ``prefills``."""
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.ops import add_layer_norm as aln
+    from ssr_speech_tpu_torch.ops import flash_attention as fa
+
+    run = graphs.GraphLoop.run
+    counted = {"runs": 0}
+
+    def counting(self, window, body, generator):
+        counted["runs"] += 1
+        return run(self, window, body, generator)
+
+    aln.reset_launches()
+    fa.reset_launches()
+    graphs.GraphLoop.run = counting
+    try:
+        yield counted
+    finally:
+        graphs.GraphLoop.run = run
+    prefills, part = divmod(fa.launches, num_layers)
+    k13 = aln.launches
+    want = (counted["runs"] * graphs.UNROLL + prefills) * (2 * num_layers + 1)
+    counted.update(add_layer_norm=k13, prefills=prefills)
+    print(f"[{path}] add_layer_norm launches {k13} over {counted['runs']} "
+          f"loop runs of {graphs.UNROLL} steps and {prefills} prefills "
+          f"(expected {want})")
+    if not counted["runs"] or not prefills or part or k13 != want:
+        raise RuntimeError(f"{path}: {k13} add_layer_norm launches over "
+                           f"{counted['runs']} loop runs and {fa.launches} K1 "
+                           f"launches, expected {want}: 2L + 1 a decode step "
+                           f"and a prefill")
 
 
 def drive_continuous_path(torch, device, main: dict, layout: dict, work: Path,
@@ -1413,6 +1575,7 @@ def drive_continuous_path(torch, device, main: dict, layout: dict, work: Path,
           f"step at which each served chain parts from its own generate run "
           f"(None: never): {parts}")
     return dict(launches=launches, decode_attention=paged["launches"],
+                add_layer_norm=paged["add_layer_norm"],
                 stats=runs[0], parts=parts)
 
 
@@ -1486,6 +1649,7 @@ def drive_stream_path(torch, device, main: dict, work: Path, card: str) -> dict:
         raise RuntimeError(f"stream path: {launches} flash launches, expected "
                            f"{cfg.num_layers} a request")
     return dict(launches=launches, decode_attention=paged["launches"],
+                add_layer_norm=paged["add_layer_norm"],
                 causal=causal,
                 requests=[(s["x"], s["prompt_codes"]) for s in st["streams"]])
 
@@ -1599,7 +1763,8 @@ def drive_http_path(torch, device, main: dict, stream: dict, card: str) -> dict:
         raise RuntimeError(f"http path: flash launches by thread {by_thread}, "
                            f"expected {len(reqs) * cfg.num_layers} from the "
                            "engine thread alone")
-    return dict(launches=launches, decode_attention=paged["launches"])
+    return dict(launches=launches, decode_attention=paged["launches"],
+                add_layer_norm=paged["add_layer_norm"])
 
 
 # ------------------------------------------------------------ decode graphs
@@ -2079,10 +2244,10 @@ def _prefill_paths(torch, lm, cfg, device):
 
         def run(srv, i):
             st, meta = staged = srv._prefill_request(*two[i])
-            out = [st.k.clone(), st.v.clone(), st.banned.clone()]
+            out = [t.clone() for t in (*st.cache().buffers(), st.banned)]
             srv._splice_slot(1 + i, i, staged)
             s = srv.state
-            return out + [srv._pfx.k, srv._pfx.v, srv._banned, srv._x_lens,
+            return out + [*srv._pfx.buffers(), srv._banned, srv._x_lens,
                           srv._n_tasks] + [getattr(s, f) for f in (
                               "y_pos", "next_tokens", "out", "out_len",
                               "span_idx", "span_end", "num_gen", "num_eog",
@@ -2437,7 +2602,7 @@ def check_small_reference(torch, device) -> None:
 
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce",
-                  "int8_matmul", "decode_attention")
+                  "int8_matmul", "decode_attention", "add_layer_norm")
 REL = 2e-2  # bf16 outputs: max |kernel - plain| / max |plain|
 LSE_ATOL = 1e-2  # attention log-sum-exp (fp32, natural log): max abs error
 # Besides the training path's own first batch: [B, H, S, Dh] of training
@@ -3539,7 +3704,8 @@ def drive_endurance_path(torch, device, main: dict, card: str) -> dict:
     print(f"[endurance] the stream's codes identical over two runs; flash "
           f"launches {launches}")
     del lm, audio_tok
-    return dict(launches=launches, decode_attention=paged["launches"])
+    return dict(launches=launches, decode_attention=paged["launches"],
+                add_layer_norm=paged["add_layer_norm"])
 
 
 class _StopDecode(Exception):
@@ -5258,15 +5424,22 @@ def main() -> int:
         kernels = [check_flash(torch, device, multi_seg, server_seg), flash_bwd,
                    *check_fused_ce(torch, device, ce_case),
                    *check_int8(torch, device),
-                   check_decode_attention(torch, device)]
+                   check_decode_attention(torch, device),
+                   check_add_layer_norm(torch, device)]
         del attn_case, ce_case
         prng_check = check_prng(torch, device, card)
         check_small_reference(torch, device)
         check_small_train_step(torch, device)
-        serving = drive_main_path(torch, device, work, card)
+        with decode_launches(serving_config().num_layers,
+                             "serving") as k13_serving:
+            serving = drive_main_path(torch, device, work, card)
         check_shared_step(torch, device, serving)
-        batched = drive_batched_path(torch, device, serving, work, card)
-        multi = drive_multi_path(torch, device, serving, layout, card)
+        with decode_launches(serving_config().num_layers,
+                             "batched") as k13_batched:
+            batched = drive_batched_path(torch, device, serving, work, card)
+        with decode_launches(serving_config().num_layers,
+                             "multi") as k13_multi:
+            multi = drive_multi_path(torch, device, serving, layout, card)
         gc.collect()
         torch.cuda.empty_cache()
         paged = check_paged_step(torch, device, serving)
@@ -5279,7 +5452,9 @@ def main() -> int:
         prefill_graph = check_prefill_graph(torch, device, serving, card)
         gc.collect()
         torch.cuda.empty_cache()
-        graph = drive_graph_path(torch, device, serving, tts_stream, card)
+        with decode_launches(serving_config().num_layers,
+                             "graph") as k13_graph:
+            graph = drive_graph_path(torch, device, serving, tts_stream, card)
         window = check_stage_windows(torch, device, serving, card)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5316,7 +5491,9 @@ def main() -> int:
                                   card)
         gc.collect()
         torch.cuda.empty_cache()
-        bench_run = drive_bench_path(torch, device, card)
+        with decode_launches(serving_config().num_layers,
+                             "bench") as k13_bench:
+            bench_run = drive_bench_path(torch, device, card)
         gc.collect()
         torch.cuda.empty_cache()
         rehearsal = drive_rehearsal_path(torch, device, work, card)
@@ -5329,10 +5506,19 @@ def main() -> int:
                    "stream": tts_stream["decode_attention"],
                    "http": http_path["decode_attention"],
                    "endurance": endurance["decode_attention"]}
+    k13_by_path = {path: run["add_layer_norm"] for path, run in (
+        ("serving", k13_serving), ("batched", k13_batched),
+        ("multi", k13_multi), ("continuous", continuous),
+        ("stream", tts_stream), ("http", http_path), ("graph", k13_graph),
+        ("endurance", endurance), ("bench", k13_bench))}
     for entry in kernels:
         if entry["name"] == "decode_attention":
             entry["launches_by_path"] = k10_by_path
             entry["launches"] = sum(k10_by_path.values())
+            continue
+        if entry["name"] == "add_layer_norm":
+            entry["launches_by_path"] = k13_by_path
+            entry["launches"] = sum(k13_by_path.values())
             continue
         entry["launches"] = {**training, **streaming}[entry["name"]]
         if entry["name"] in parallel["launches"] and entry is not kernels[0]:

@@ -14,7 +14,10 @@ kernels on CUDA, forward and backward) where its inputs are bf16 at head width
 ``prefill_uses_kernel``, training by ``cfg.attn_impl``). The paged step's
 one-token attention goes through ``ops.decode_attention`` (a hand-written
 kernel for bf16 at head width 128 on CUDA); the other one-token decode steps'
-attention stays plain matmul/softmax, as JAX leaves it to XLA einsums.
+attention stays plain matmul/softmax, as JAX leaves it to XLA einsums. In
+the prefill and the decode steps each bias + residual + LayerNorm chain is
+one ``ops.add_layer_norm`` call (a hand-written kernel for a bf16 stream on
+CUDA, the same arithmetic elsewhere); the training forward keeps PyTorch ops.
 
 Matmul weights are cast to the activations' dtype at each use, as JAX casts
 them: a no-op for the serving path's stored bf16 (or fp32) weights, and the
@@ -61,7 +64,9 @@ from torch.utils import checkpoint as ckpt
 
 from ..config import SSRModelConfig
 
+from ..ops import add_layer_norm as aln
 from ..ops import decode_attention, scaling
+from ..ops.add_layer_norm import layer_norm
 from ..ops.flash_attention import HEAD_DIM, flash_attend_xy
 from ..parallel import collectives as col
 from ..utils import prng
@@ -110,15 +115,6 @@ def init_transformer(key: torch.Tensor, cfg: SSRModelConfig
     layers.update(ln1_w=ones(L, d), ln1_b=zeros(L, d), qkv_b=zeros(L, 3 * d),
                   ln2_w=ones(L, d), ln2_b=zeros(L, d))
     return dict(layers=layers, final_ln_w=ones(d), final_ln_b=zeros(d))
-
-
-def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * w + b).to(x.dtype)
 
 
 # set while a dropout mask is computed: the dots_masks policy keeps what is
@@ -267,26 +263,57 @@ def _qkv(lp, hn, nhead, par=None):
     return [_split_heads(t, nhead) for t in qkv.chunk(3, dim=-1)]
 
 
-def _post_attention(lp, h, attn, act, *, bias_last: bool, drop=None,
-                    drop_hidden=None, par=None):
-    """out projection + residual, then the FFN block + residual; ``drop`` is
-    the training forward's dropout at JAX's two residual places and
-    ``drop_hidden`` (default ``drop``) the FFN hidden's.
-
-    ``bias_last`` keeps the JAX prefill/decode order of the last residual,
-    ``(h + ff @ w2) + b2``; the training forward adds ``h + (ff @ w2 + b2)``.
-    The two round differently in fp32, and greedy parity is held bit for
-    bit."""
+def _post_attention(lp, h, attn, act, *, drop=None, drop_hidden=None,
+                    par=None):
+    """The training forward's out projection + residual, then the FFN block
+    + residual ``h + (ff @ w2 + b2)``; ``drop`` is its dropout at JAX's two
+    residual places and ``drop_hidden`` (default ``drop``) the FFN hidden's.
+    The prefill and decode steps add JAX's ``(h + ff @ w2) + b2`` instead
+    (:func:`_inference_layers`): the two round differently in fp32, and
+    greedy parity is held bit for bit."""
     drop = drop or (lambda x: x)
     drop_hidden = drop_hidden or drop
     h = h + drop(_row_linear(attn, lp["out_w"], lp["out_b"], par))
     hn = layer_norm(h, lp["ln2_w"], lp["ln2_b"])
     ff = drop_hidden(act(_linear(_tp_in(hn, par), lp["ffn1_w"], lp["ffn1_b"])))
-    if bias_last:
-        if col.tp_of(par) == 1:
-            return h + ff @ lp["ffn2_w"] + lp["ffn2_b"]
-        return h + col.reduce_from_tp(ff @ lp["ffn2_w"], par) + lp["ffn2_b"]
     return h + drop(_row_linear(ff, lp["ffn2_w"], lp["ffn2_b"], par))
+
+
+def _tp_sum(y, par):
+    """A row-parallel product's partial sums added over the tp ranks (JAX
+    order: before the bias); ``y`` itself without tp."""
+    return y if col.tp_of(par) == 1 else col.reduce_from_tp(y, par)
+
+
+def _inference_layers(params, layers, h, attend, act, par, nhead):
+    """The layer loop of the prefill and the decode steps, from the residual
+    stream ``h`` [B, S, D] to the final norm's output. ``attend(l, q, k, v)``
+    is layer l's attention, merged to [B, S, D].
+
+    Each bias + residual + LayerNorm chain is one ``ops.add_layer_norm``
+    call (K13 on the card): layer 0's first norm; the out projection's
+    ``h + (y + b)`` with the layer's second norm; the FFN's ``(h + y) + b2``
+    (JAX's order) with the next layer's first norm, or after the last layer
+    the final norm. So each layer reads its own norm weights and carries
+    the next layer's normed input across the loop."""
+    h = h.contiguous()  # the kernel reads whole rows of D
+    pending = None  # the previous layer's FFN product and bias
+    for l, lp in enumerate(layers):
+        if pending is None:
+            h, hn = aln.add_layer_norm(h, None, None, lp["ln1_w"],
+                                       lp["ln1_b"], aln.NORM)
+        else:
+            h, hn = aln.add_layer_norm(h, *pending, lp["ln1_w"], lp["ln1_b"],
+                                       aln.RESIDUAL_THEN_BIAS)
+        attn = attend(l, *_qkv(lp, hn, nhead, par))
+        y = _tp_sum(attn @ lp["out_w"].to(attn.dtype), par)
+        h, hn = aln.add_layer_norm(h, y, lp["out_b"], lp["ln2_w"],
+                                   lp["ln2_b"], aln.BIAS_THEN_RESIDUAL)
+        ff = act(_linear(_tp_in(hn, par), lp["ffn1_w"], lp["ffn1_b"]))
+        pending = (_tp_sum(ff @ lp["ffn2_w"], par), lp["ffn2_b"])
+    _, out = aln.add_layer_norm(h, *pending, params["final_ln_w"],
+                                params["final_ln_b"], aln.RESIDUAL_THEN_BIAS)
+    return out
 
 
 REMAT_MODES = ("full", "dots", "dots_masks", "mixed", "none")
@@ -425,8 +452,7 @@ def run_layers(layers, h: torch.Tensor, cfg: SSRModelConfig, *, bias=None,
                                    v.contiguous(), key_valid)
         else:
             attn = _attend(q, k, v, bias.float())
-        return _post_attention(lp, h, _merge_heads(attn), act,
-                               bias_last=False, drop=drop,
+        return _post_attention(lp, h, _merge_heads(attn), act, drop=drop,
                                drop_hidden=drop_hidden if tp > 1 else None,
                                par=par)
 
@@ -538,16 +564,16 @@ def transformer_prefill(params, h: torch.Tensor, cache: KVCache,
     if isinstance(start, torch.Tensor):
         raise TypeError("transformer_prefill fills from a host offset; got "
                         "a device tensor as cache.length")
-    for l, lp in enumerate(layer_params(params)):
-        hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-        q, k, v = (t.contiguous() for t in _qkv(lp, hn, nhead, par))
+
+    def attend(l, q, k, v):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         cache.k[l, :, :, start:start + s] = k
         cache.v[l, :, :, start:start + s] = v
-        attn = (flash_attend_xy(q, k, v, key_valid) if use_kernel
-                else _attend(q, k, v, bias))
-        h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True,
-                            par=par)
-    out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
+        return _merge_heads(flash_attend_xy(q, k, v, key_valid) if use_kernel
+                            else _attend(q, k, v, bias))
+
+    out = _inference_layers(params, layer_params(params), h, attend, act,
+                            par, nhead)
     return out, KVCache(cache.k, cache.v, torch.full(
         (1,), start + s, dtype=torch.int64, device=h.device))
 
@@ -617,15 +643,15 @@ def transformer_decode_step(params, h_t: torch.Tensor, cache: KVCache,
     pos_t = _as_pos(pos, h_t.device)
     h = h_t.to(dtype)[:, None, :]
     bias = decode_bias(key_banned, w, pos_t)
-    for l, lp in enumerate(layers or layer_params(params)):
-        hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-        q, k, v = _qkv(lp, hn, nhead, par)
+
+    def attend(l, q, k, v):
         _write_at(cache.k[l], pos_t, k)
         _write_at(cache.v[l], pos_t, v)
-        attn = _attend(q, cache.k[l, :, :, :w], cache.v[l, :, :, :w], bias)
-        h = _post_attention(lp, h, _merge_heads(attn), act, bias_last=True,
-                            par=par)
-    out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
+        return _merge_heads(_attend(q, cache.k[l, :, :, :w],
+                                    cache.v[l, :, :, :w], bias))
+
+    out = _inference_layers(params, layers or layer_params(params), h,
+                            attend, act, par, nhead)
     return out[:, 0, :], KVCache(cache.k, cache.v, pos + 1)
 
 
@@ -679,9 +705,8 @@ def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
     gen_bias = torch.where(gcols > gpos_t, -1e9, zero)  # [wg]
     scale = decode_attention.step_scale(dh, dtype, dev)
     h = h_t.to(dtype)[:, None, :]
-    for l, lp in enumerate(layers or layer_params(params)):
-        hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-        q, k, v = _qkv(lp, hn, nhead, par)  # [B, H, 1, Dh]
+
+    def attend(l, q, k, v):  # q, k, v [B, H, 1, Dh]
         _write_at(gen.k[l], gpos_t, k)
         _write_at(gen.v[l], gpos_t, v)
         qs = q * scale
@@ -697,9 +722,10 @@ def transformer_decode_step_shared(params, h_t: torch.Tensor, pfx: KVCache,
         pg = p[..., tp:].transpose(1, 2).reshape(b, nhead, 1, wg)
         out_g = torch.matmul(pg, gen.v[l, :, :, :wg])  # [B, H, 1, Dh]
         attn = out_p.transpose(1, 2).reshape(b, nhead, 1, dh) + out_g
-        h = _post_attention(lp, h, attn.reshape(b, 1, d), act, bias_last=True,
-                            par=par)
-    out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
+        return attn.reshape(b, 1, d)
+
+    out = _inference_layers(params, layers or layer_params(params), h,
+                            attend, act, par, nhead)
     return out[:, 0, :], KVCache(gen.k, gen.v, gpos + 1)
 
 
@@ -749,20 +775,19 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
     dev = h_t.device
     h = h_t.to(dtype)[:, None, :]
     ks, vs = [], []
-    for l, lp in enumerate(layers or layer_params(params)):
-        hn = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-        q, k, v = _qkv(lp, hn, nhead, par)  # [B, H, 1, Dh]
+
+    def attend(l, q, k, v):  # q, k, v [B, H, 1, Dh]
         ks.append(k[:, :, 0])
         vs.append(v[:, :, 0])
-        out = decode_attention.paged_attention(
+        return decode_attention.paged_attention(
             q, k, v, pfx.k[l], pfx.v[l], gen.k[l], gen.v[l], key_banned,
-            gen_len, tp, rl)
-        h = _post_attention(lp, h, out.reshape(b, 1, d), act, bias_last=True,
-                            par=par)
+            gen_len, tp, rl).reshape(b, 1, d)
+
+    out = _inference_layers(params, layers or layer_params(params), h,
+                            attend, act, par, nhead)
     # one scatter for all layers: row r writes column gen_len[r]
     rows = torch.arange(b, device=dev)
     col = gen_len.clamp(max=tg - 1)
     gen.k[:, rows, :, col] = torch.stack(ks).to(gen.k.dtype).transpose(0, 1)
     gen.v[:, rows, :, col] = torch.stack(vs).to(gen.v.dtype).transpose(0, 1)
-    out = layer_norm(h, params["final_ln_w"], params["final_ln_b"])
     return out[:, 0, :], gen

@@ -2,9 +2,9 @@
 on the card: the flash-attention forward and backward, the fused CE head's
 forward, dhidden and dw2/db2, the int8 weight-streaming matvecs (K7
 ``int8_matvec`` and the chain K8 in both modes, with programmatic dependent
-launch, without it and as a CUDA graph; the megakernel), and the paged
-step's decode attention (K10). Skipped where torch.cuda.is_available() is
-false.
+launch, without it and as a CUDA graph; the megakernel), the paged
+step's decode attention (K10) and the steps' bias + residual + LayerNorm
+(K13). Skipped where torch.cuda.is_available() is false.
 
 Run on a GPU machine (which needs neither JAX nor tests/conftest.py):
 
@@ -1001,8 +1001,10 @@ def test_prefill_graph_matches_the_eager_prefill(device, text_lm, path):
     the caches, banned keys and fill (the server's staged rows, and after
     the splice its whole state) bit for bit at the first request and at a
     second one of other lengths through the same graph; one capture, then a
-    replay; K1 counted once a layer a prefill either way."""
+    replay; K1 counted once a layer a prefill either way, the capture
+    recording K1 once a layer and K13 2L + 1 times."""
     from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.ops import add_layer_norm as aln
 
     cfg, gpu = text_lm
     graphs.clear()
@@ -1016,8 +1018,10 @@ def test_prefill_graph_matches_the_eager_prefill(device, text_lm, path):
         assert all(torch.equal(a, b) for a, b in zip(want, got)), i
         assert fa.launches == 2 * cfg.num_layers
     prog = program(graph)
-    assert (prog.captures, prog.replays, prog.recorded.n) == (
-        1, 1, cfg.num_layers)
+    counts = prog.recorded.counts
+    assert (prog.captures, prog.replays, counts[fa._count_forward],
+            counts[aln._count], prog.recorded.n) == (
+        1, 1, cfg.num_layers, 2 * cfg.num_layers + 1, 3 * cfg.num_layers + 1)
     assert prog.pool_bytes() > 0
     graphs.clear()
 
@@ -1130,10 +1134,12 @@ def test_decode_attention_refuses_what_it_cannot_take(device):
 
 def test_decode_attention_counts_replayed_launches(device, small_lm):
     """The paged step captured as a CUDA graph (``graphs.GraphLoop``): the
-    warm-up launches the kernel once a layer, the capture records as many,
-    and every replay adds them to ``decode_attention.launches``; replays
-    give the eager result bit for bit."""
+    warm-up launches the kernel once a layer, the capture records as many
+    (and K13's 2L + 1), and every replay adds them to
+    ``decode_attention.launches``; replays give the eager result bit for
+    bit."""
     from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.ops import add_layer_norm as aln
     from ssr_speech_tpu_torch.models import transformer as ttrf
 
     cfg, _, gpu = small_lm
@@ -1160,7 +1166,9 @@ def test_decode_attention_counts_replayed_launches(device, small_lm):
     da.reset_launches()
     loop.run(window, body, None)
     torch.cuda.synchronize()
-    assert da.launches == L and loop.recorded[window].n == L
+    counts = loop.recorded[window].counts
+    assert da.launches == L and counts[da._count] == L
+    assert loop.recorded[window].n == L + counts[aln._count] == 3 * L + 1
     first = result.clone()
     for n in range(1, 4):
         loop.run(window, body, None)
@@ -1218,6 +1226,152 @@ def test_decode_attention_greedy_matches_plain_route_outside_ties(
         graphs.clear()
     (k_out, k_log), (p_out, p_log) = runs[True], runs[False]
     held = compare_traces(torch, p_log, k_log, "paged kernel vs plain")
+    if held["first_tie"] is None:
+        for a, b in zip(k_out, p_out):
+            np.testing.assert_array_equal(a[0], b[0])
+
+
+# --------------------------------------- bias + residual + LayerNorm (K13)
+
+ALN_ROWS = [1, 2, 16, 32, 1280]
+
+
+@pytest.mark.parametrize("mode", ["norm", "bias_then_residual",
+                                  "residual_then_bias"])
+@pytest.mark.parametrize("rows", ALN_ROWS)
+def test_add_layer_norm_matches_plain(device, rows, mode):
+    """K13 at D 2048 against the plain version on the card: h' bit for bit,
+    hn within what two orders of its fp32 sums allow (one bf16 ulp, more
+    only where the final add cancels: ``chip_smoke.hn_gap``) and equal in
+    at least 99.9% of its elements; one launch a call, two calls bit for
+    bit."""
+    from chip_smoke import hn_gap
+    from ssr_speech_tpu_torch.ops import add_layer_norm as aln
+
+    rng = np.random.default_rng(rows)
+    d = 2048
+
+    def normal(*shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(device=device, dtype=dtype)
+
+    h, y = normal(rows, 1, d, scale=4.0), normal(rows, 1, d)
+    bias = normal(d, scale=0.1)
+    w = normal(d, scale=0.2, dtype=torch.float32) + 1
+    b = normal(d, scale=0.2, dtype=torch.float32)
+    aln.reset_launches()
+    got_h, got_n = aln.add_layer_norm(h, y, bias, w, b, mode)
+    again = aln.add_layer_norm(h, y, bias, w, b, mode)
+    want_h, want_n = aln.plain_add_layer_norm(h, y, bias, w, b, mode)
+    torch.cuda.synchronize()
+    assert aln.launches == 2
+    assert torch.equal(got_h, want_h)
+    assert torch.equal(got_h, again[0]) and torch.equal(got_n, again[1])
+    gap, same = hn_gap(torch, got_n, want_n, want_h, w, b)
+    assert gap <= 1 and same >= 0.999, (gap, same)
+
+
+def test_add_layer_norm_refuses_what_it_cannot_take(device):
+    """A CUDA fp32 h handed to the kernel raises (the route gives it the
+    plain version, with no launch); so do a bias of another dtype, a
+    non-contiguous h and an unknown mode. A CUDA bf16 h is always the
+    kernel's: through the route, a width that is not a multiple of 8 or is
+    over ``MAX_D``, and bf16 norm weights, raise with no launch."""
+    from ssr_speech_tpu_torch.ops import add_layer_norm as aln
+
+    d = 256
+    w = torch.ones(d, device=device)
+    b = torch.zeros(d, device=device)
+    h32 = torch.randn(2, 2, d, device=device)
+    aln.reset_launches()
+    with pytest.raises(ValueError):
+        aln.kernel_add_layer_norm(h32, h32, h32[0, 0], w, b,
+                                  "bias_then_residual")
+    got = aln.add_layer_norm(h32, h32, h32[0, 0], w, b, "bias_then_residual")
+    want = aln.plain_add_layer_norm(h32, h32, h32[0, 0], w, b,
+                                    "bias_then_residual")
+    assert torch.equal(got[1], want[1])
+    h = h32.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        aln.kernel_add_layer_norm(h, h, h32[0, 0], w, b, "residual_then_bias")
+    with pytest.raises(ValueError):
+        aln.kernel_add_layer_norm(h.transpose(0, 1), None, None, w, b, "norm")
+    with pytest.raises(ValueError):
+        aln.kernel_add_layer_norm(h, h, h[0, 0], w, b, "bias_last")
+    for dd in (d - 4, aln.MAX_D + 8):
+        hd = torch.randn(2, 1, dd, device=device).to(torch.bfloat16)
+        wd = torch.ones(dd, device=device)
+        with pytest.raises(ValueError):
+            aln.add_layer_norm(hd, None, None, wd, wd, "norm")
+    with pytest.raises(ValueError):
+        aln.add_layer_norm(h, h, h[0, 0], w.to(h.dtype), b.to(h.dtype),
+                           "bias_then_residual")
+    torch.cuda.synchronize()
+    assert aln.launches == 0
+
+
+def _replayed_launches(path, gpu, cfg, device):
+    """One replayed run of ``path`` (``_decode_path``'s requests; the paged
+    path through one ContinuousBatcher of 2 lanes): returns (outputs,
+    K13 launches, decode graph runs, prefills). A graph run is a capture's
+    warm-up or a replay of ``UNROLL`` steps; a prefill is one K1 launch a
+    layer."""
+    from ssr_speech_tpu_torch.config import DecodeConfig
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.inference import serve as tserve
+    from ssr_speech_tpu_torch.ops import add_layer_norm as aln
+
+    graphs.clear()
+    aln.reset_launches()
+    fa.reset_launches()
+    if path == "paged":
+        dec = DecodeConfig(top_k=1, stop_repetition=2, aug_text=True,
+                           cfg_pretrained=True, cfg_stride=5,
+                           max_gen_per_span=120)
+        srv = tserve.ContinuousBatcher(gpu, cfg, dec, 2, sx_pad=64,
+                                       p_pad=128, num_task=2)
+        outs = srv.run(_graph_requests(cfg),
+                       torch.Generator(device=device).manual_seed(0))
+        loops = [srv._loop]
+    else:
+        outs = _decode_path(path, gpu, cfg, device, True)
+        loops = [ws.loop for ws in graphs.kept()]
+    torch.cuda.synchronize()
+    runs = sum(loop.captures + loop.replays for loop in loops)
+    counts = (outs, aln.launches, runs, fa.launches // cfg.num_layers)
+    graphs.clear()
+    return counts
+
+
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_add_layer_norm_in_replayed_steps(device, small_lm, path,
+                                          monkeypatch):
+    """Each decode path replayed as CUDA graphs with K13 and, with the route
+    forced to the plain version, with the plain arithmetic on the card:
+    2L + 1 launches a decode step (a graph run is ``UNROLL`` steps) and a
+    prefill, none on the plain route; the argmax of every step equal up to
+    the first step where one differs, and there the plain run's top two
+    within twice the step's logit error (``chip_smoke.compare_traces``);
+    with no such step, the codes identical."""
+    from chip_smoke import LogitTrace, compare_traces
+    from ssr_speech_tpu_torch.inference import graphs
+    from ssr_speech_tpu_torch.ops import add_layer_norm as aln
+
+    cfg, _, gpu = small_lm
+    per_call = 2 * cfg.num_layers + 1
+    runs = {}
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(aln, "uses_kernel", lambda *a: False)
+        with LogitTrace(torch) as trace:
+            outs, launches, graph_runs, prefills = _replayed_launches(
+                path, gpu, cfg, device)
+            runs[kernel] = (outs, trace.steps())
+        assert graph_runs >= 1 and prefills >= 1
+        want = (graph_runs * graphs.UNROLL + prefills) * per_call
+        assert launches == (want if kernel else 0), (path, launches, want)
+    (k_out, k_log), (p_out, p_log) = runs[True], runs[False]
+    held = compare_traces(torch, p_log, k_log, f"{path} K13 vs plain")
     if held["first_tie"] is None:
         for a, b in zip(k_out, p_out):
             np.testing.assert_array_equal(a[0], b[0])

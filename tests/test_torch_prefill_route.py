@@ -170,9 +170,11 @@ def test_no_handler_around_the_prefill_route():
     """The route's source: decided from the config and dtype, no ``try``."""
     src = inspect.getsource(ttrf.transformer_prefill)
     assert "prefill_uses_kernel(cfg, dtype)" in src
-    assert src.index("prefill_uses_kernel(cfg, dtype)") < src.index("for l, lp")
+    assert (src.index("prefill_uses_kernel(cfg, dtype)")
+            < src.index("_inference_layers("))
     for fn in (ttrf.transformer_prefill, ttrf.prefill_uses_kernel,
-               tdecode._prefill_impl, tdecode._prefill_multi_impl):
+               ttrf._inference_layers, tdecode._prefill_impl,
+               tdecode._prefill_multi_impl):
         assert "except" not in inspect.getsource(fn)
     assert ttrf.prefill_uses_kernel(tiny_ssr_config(d_model=256, nhead=2),
                                     torch.bfloat16)
