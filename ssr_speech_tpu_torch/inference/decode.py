@@ -34,6 +34,10 @@ rank it is captured once per prefill shape (``graphs.GraphProgram``) and
 replayed by every later request of that shape. JAX clamps out-of-range
 gathers and drops out-of-range scatters where torch raises (a device-side
 assert on CUDA), so every such index is clamped here explicitly.
+
+The decoder block (its cache, prefill and steps) is the one
+``models.ssr.decoder_block`` picks for the config; nothing here depends on
+which it is.
 """
 
 from __future__ import annotations
@@ -50,7 +54,6 @@ import torch
 from ..config import DecodeConfig, SSRModelConfig
 from ..ops import patterns
 
-from ..models import mla_moe
 from ..models import ssr as ssr_model
 from ..models import transformer as trf
 from ..ops.sampling import categorical, top_k_top_p_filter
@@ -92,46 +95,6 @@ class ChainState:
     consec_silence: torch.Tensor
     num_cfg: torch.Tensor
     done: torch.Tensor  # [S] bool
-
-
-def decoder_dtype(params) -> torch.dtype:
-    """The compute dtype: that of the decoder's matmul weights."""
-    layers = params["decoder"]["layers"]
-    return (layers["qkv_w"] if "qkv_w" in layers else layers["wq_kva"]).dtype
-
-
-def init_cache(cfg: SSRModelConfig, batch: int, max_len: int, *, dtype,
-               device, par=None):
-    """The block's cache: ``KVCache`` for the e830M block, the MLA block's
-    ``LatentCache``."""
-    make = (mla_moe.init_cache if mla_moe.is_mla_moe(cfg)
-            else trf.init_kv_cache)
-    return make(cfg, batch, max_len, dtype=dtype, device=device, par=par)
-
-
-def layer_params(cfg: SSRModelConfig, decoder):
-    return (mla_moe.layer_params(decoder) if mla_moe.is_mla_moe(cfg)
-            else trf.layer_params(decoder))
-
-
-def row_positions(y_pos: torch.Tensor, aug_text: bool) -> torch.Tensor:
-    """The RoPE position of each step row: the chain's audio position,
-    repeated for the uncond rows under CFG."""
-    return torch.cat([y_pos, y_pos]) if aug_text else y_pos
-
-
-def _prefill_block(params, h, cache, cfg, *, key_valid, dtype, sx: int):
-    """The block's prefill over h [B, sx + P, D] into ``cache``; the MLA
-    block's RoPE positions count the text and the audio each from 0, as
-    SSR's sinusoids do."""
-    if mla_moe.is_mla_moe(cfg):
-        pos = torch.cat([torch.arange(sx, device=h.device),
-                         torch.arange(h.shape[1] - sx, device=h.device)])
-        return mla_moe.transformer_prefill(
-            params["decoder"], h, cache, cfg, key_valid=key_valid, pos=pos,
-            dtype=dtype)
-    return trf.transformer_prefill(params["decoder"], h, cache, cfg,
-                                   key_valid=key_valid, dtype=dtype)
 
 
 def _static_ban(ts, device) -> torch.Tensor:
@@ -362,13 +325,14 @@ class DecodeWorkspace:
         i64 = dict(dtype=torch.int64, device=dev)
         ts = cfg.tokens
         self.device = dev
-        self.pfx = init_cache(cfg, pfx_rows, tmax, dtype=dtype, device=dev,
-                              par=par)
+        self.block = block = ssr_model.decoder_block(cfg)
+        self.pfx = block.init_cache(cfg, pfx_rows, tmax, dtype=dtype,
+                                    device=dev, par=par)
         self.pfx.length = torch.zeros(1, **i64)
         self.gen = None
         if gen_cap:
-            self.gen = init_cache(cfg, rows, gen_cap, dtype=dtype, device=dev,
-                                  par=par)
+            self.gen = block.init_cache(cfg, rows, gen_cap, dtype=dtype,
+                                        device=dev, par=par)
             self.gen.length = torch.zeros(1, **i64)
         shape, bdtype = banned
         self.banned = torch.zeros(shape, dtype=bdtype, device=dev)
@@ -386,7 +350,7 @@ class DecodeWorkspace:
                                        device=dev)
         self.silence = torch.tensor(silence, **i64)
         self.static_ban = _static_ban(ts, dev)
-        self.layers = layer_params(cfg, params["decoder"])
+        self.layers = block.layers(params["decoder"])
         self.windows = trf.cache_stage_sizes(gen_cap or tmax)
         self.loop = graphs.GraphLoop(dev, use_graphs)
         self.prefills: Dict[tuple, tuple] = {}  # key -> (buffers, program)
@@ -519,7 +483,7 @@ def _chain_body(params, ws: DecodeWorkspace, *, cfg: SSRModelConfig,
     S = ws.state.out.shape[0]
     ts = cfg.tokens
     n_tasks = num_task if ws.gen is None else ws.n_tasks
-    mla = mla_moe.is_mla_moe(cfg)
+    block = ws.block
 
     def body(window: int, generator) -> None:
         cur = ws.state
@@ -529,21 +493,16 @@ def _chain_body(params, ws: DecodeWorkspace, *, cfg: SSRModelConfig,
             go = ~cur.done.all() & (step < ws.limit)
             h = _embed_step_tokens(params, cfg, cur.next_tokens, ws.pe,
                                    cur.y_pos, aug_text, dtype)
-            if mla:
-                out_h, _ = mla_moe.decode_step(
+            if ws.gen is None:
+                out_h, _ = block.step(
                     params["decoder"], h, replace(ws.pfx, length=fill),
-                    ws.banned, cfg, pos=row_positions(cur.y_pos, aug_text),
-                    dtype=dtype, layers=ws.layers, window=window)
-            elif ws.gen is None:
-                out_h, _ = trf.transformer_decode_step(
-                    params["decoder"], h, trf.KVCache(ws.pfx.k, ws.pfx.v, fill),
-                    ws.banned, cfg, dtype=dtype, layers=ws.layers,
-                    window=window)
+                    ws.banned, cfg, y_pos=cur.y_pos, dtype=dtype,
+                    layers=ws.layers, window=window)
             else:
-                out_h, _ = trf.transformer_decode_step_shared(
-                    params["decoder"], h, ws.pfx,
-                    trf.KVCache(ws.gen.k, ws.gen.v, fill), ws.banned, cfg,
-                    n_groups=ws.pfx.k.shape[1], dtype=dtype,
+                out_h, _ = block.shared_step(
+                    params["decoder"], h, ws.pfx, replace(ws.gen, length=fill),
+                    ws.banned, cfg, y_pos=cur.y_pos,
+                    n_groups=ws.pfx.buffers()[0].shape[1], dtype=dtype,
                     layers=ws.layers, window=window)
             logits = ssr_model.predict_logits(params, out_h)
             lg, num_cfg = _mix_cfg(logits, cur, dec, S, aug_text)
@@ -582,7 +541,7 @@ def _run_chains(params, ws: DecodeWorkspace, generator, *, start: int,
 
 
 @torch.no_grad()
-def _generate_impl(params, cache: trf.KVCache, key_banned: torch.Tensor,
+def _generate_impl(params, cache, key_banned: torch.Tensor,
                    generator: torch.Generator, sentinel_ids: torch.Tensor,
                    x_len: int, y_pos0: int, *, cfg: SSRModelConfig,
                    dec: DecodeConfig, num_task: int, cap_total: int,
@@ -618,7 +577,7 @@ def _generate_impl(params, cache: trf.KVCache, key_banned: torch.Tensor,
 
 
 @torch.no_grad()
-def _generate_shared_impl(params, pfx: trf.KVCache, key_banned: torch.Tensor,
+def _generate_shared_impl(params, pfx, key_banned: torch.Tensor,
                           generator: torch.Generator,
                           sentinel_ids: torch.Tensor, y_pos0: torch.Tensor,
                           length_cap, n_tasks, *, cfg: SSRModelConfig,
@@ -627,7 +586,7 @@ def _generate_shared_impl(params, pfx: trf.KVCache, key_banned: torch.Tensor,
                           stats: Optional[Dict] = None,
                           cuda_graphs: bool = True):
     """The decode loop of S = ``n_chains`` chains over a shared prompt cache
-    ``pfx`` [L, G, H, Tp, Dh] (the loop of JAX's ``_generate_batched_impl``
+    ``pfx`` (G rows; the loop of JAX's ``_generate_batched_impl``
     and ``_generate_multi_impl``, which differ only in the arguments below).
 
     Rows are [cond_0..cond_{S-1} ; uncond_0..uncond_{S-1}] under CFG; the G
@@ -640,7 +599,7 @@ def _generate_shared_impl(params, pfx: trf.KVCache, key_banned: torch.Tensor,
     first), replayed as CUDA graphs as ``_generate_impl`` says. Returns (out
     [S, K, CAP], span_end [S, num_task], out_len [S]) as tensors."""
     ws = shared_workspace(
-        params, cfg, dec, groups=pfx.k.shape[1], n_chains=n_chains,
+        params, cfg, dec, groups=pfx.buffers()[0].shape[1], n_chains=n_chains,
         tmax=pfx.max_len, banned_bool=key_banned.dtype == torch.bool,
         num_task=num_task, cap_total=cap_total, aug_text=aug_text,
         dtype=dtype, cuda_graphs=cuda_graphs)
@@ -772,11 +731,10 @@ def _prefill_impl(params, x: torch.Tensor, y_prefix: torch.Tensor, x_len,
                   p_len, *, cfg: SSRModelConfig, tmax: int, dtype,
                   cfg_pretrained: bool = False, aug_text: bool = False,
                   uncond_row_start: int = 1,
-                  cache: Optional[trf.KVCache] = None,
-                  pe: Optional[torch.Tensor] = None,
+                  cache=None, pe: Optional[torch.Tensor] = None,
                   banned: Optional[torch.Tensor] = None):
-    """Fill a KV cache of ``tmax`` slots with [x ; y_prefix] (``cache``, a
-    workspace's zeroed cache of that size, or a new one).
+    """Fill the block's cache of ``tmax`` slots with [x ; y_prefix]
+    (``cache``, a workspace's zeroed cache of that size, or a new one).
 
     x: [B, Sx_pad] text ids; y_prefix: [K, P_pad] prefix tokens; ``x_len``
     and ``p_len`` host ints or device scalars (JAX traces them: a captured
@@ -816,12 +774,13 @@ def _prefill_impl(params, x: torch.Tensor, y_prefix: torch.Tensor, x_len,
     if banned is not None:
         key_banned = banned.copy_(key_banned)
 
+    block = ssr_model.decoder_block(cfg)
     if cache is None:
-        cache = init_cache(cfg, B, tmax, dtype=dtype, device=dev,
-                           par=trf.parallel_of(params))
-    _, cache = _prefill_block(params, h, cache, cfg,
-                              key_valid=(~dead).to(torch.int32), dtype=dtype,
-                              sx=sx)
+        cache = block.init_cache(cfg, B, tmax, dtype=dtype, device=dev,
+                                 par=trf.parallel_of(params))
+    _, cache = block.prefill(params["decoder"], h, cache, cfg,
+                             key_valid=(~dead).to(torch.int32), dtype=dtype,
+                             sx=sx)
     # true fill point: the padded text block stays (banned), the prefix is
     # valid up to p_len; decode steps overwrite the padded prefix tail
     return replace(cache, length=(p_len + sx).reshape(1)), key_banned
@@ -939,7 +898,7 @@ def generate(params, cfg: SSRModelConfig, dec: DecodeConfig, x: np.ndarray,
     body eagerly, for comparison)."""
     K = cfg.n_codebooks
     dev = params["text_emb"].device
-    dtype = decoder_dtype(params)
+    dtype = ssr_model.decoder_block(cfg).dtype(params)
     with annotate("generate", dev, record=stats is not None,
                   text_len=len(x)):
         with annotate("generate.prompt"):
@@ -984,10 +943,11 @@ def generate_batch(params, cfg: SSRModelConfig, dec: DecodeConfig,
     list of per-chain (codes, marks, out_intervals, nm_intervals), the
     contract of :func:`generate`, aug_context included; ``stats`` and
     ``cuda_graphs`` as there (``out_tokens`` [S, K, CAP])."""
-    mla_moe.refuse(cfg, "generate_batch (the shared-prompt step)")
+    block = ssr_model.decoder_block(cfg)
+    block.require_shared("generate_batch (the shared-prompt step)")
     K = cfg.n_codebooks
     dev = params["text_emb"].device
-    dtype = decoder_dtype(params)
+    dtype = block.dtype(params)
     with annotate("generate", dev, record=stats is not None,
                   text_len=len(x), chains=n_samples):
         with annotate("generate.prompt"):
@@ -1044,8 +1004,7 @@ def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
                         x_lens: torch.Tensor, p_lens: torch.Tensor, *,
                         cfg: SSRModelConfig, tmax: int, dtype,
                         cfg_pretrained: bool = False, aug_text: bool = False,
-                        cache: Optional[trf.KVCache] = None,
-                        pe: Optional[torch.Tensor] = None,
+                        cache=None, pe: Optional[torch.Tensor] = None,
                         banned: Optional[torch.Tensor] = None):
     """Prefill for different prompts in one batch (into ``cache``, a
     workspace's or a server's cache of ``tmax`` slots, or a new one; the
@@ -1075,12 +1034,13 @@ def _prefill_multi_impl(params, x: torch.Tensor, y_prefix: torch.Tensor,
 
     dead = multi_dead_keys(x_lens, p_lens, sx, P, aug_text=aug_text,
                            cfg_pretrained=cfg_pretrained)
+    block = ssr_model.decoder_block(cfg)
     if cache is None:
-        cache = init_cache(cfg, R, tmax, dtype=dtype, device=dev,
-                           par=trf.parallel_of(params))
-    _, cache = _prefill_block(params, h, cache, cfg,
-                              key_valid=(~dead).to(torch.int32), dtype=dtype,
-                              sx=sx)
+        cache = block.init_cache(cfg, R, tmax, dtype=dtype, device=dev,
+                                 par=trf.parallel_of(params))
+    _, cache = block.prefill(params["decoder"], h, cache, cfg,
+                             key_valid=(~dead).to(torch.int32), dtype=dtype,
+                             sx=sx)
     key_banned = (torch.empty((R, tmax), dtype=torch.bool, device=dev)
                   if banned is None else banned)
     key_banned[:, sx + P:] = True
@@ -1099,12 +1059,13 @@ def generate_multi(params, cfg: SSRModelConfig, dec: DecodeConfig, prompts,
     of per-prompt (codes, marks, out_intervals, nm_intervals). ``stats`` and
     ``cuda_graphs`` as in :func:`generate`, ``stats`` with the prefill's
     layout too (``x_lens`` [R], ``p_lens`` [S], ``sx_pad``, ``p_pad``)."""
-    mla_moe.refuse(cfg, "generate_multi (the shared-prompt step)")
+    block = ssr_model.decoder_block(cfg)
+    block.require_shared("generate_multi (the shared-prompt step)")
     ts = cfg.tokens
     K = cfg.n_codebooks
     S = len(prompts)
     dev = params["text_emb"].device
-    dtype = decoder_dtype(params)
+    dtype = block.dtype(params)
     with annotate("generate", dev, record=stats is not None, prompts=S):
         with annotate("generate.prompt"):
             built = []

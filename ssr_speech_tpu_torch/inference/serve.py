@@ -10,8 +10,8 @@ the decode loop full instead:
 - the host harvests finished slots, prefills the next queued request and
   splices it into the same state (prefix-cache rows, per-slot bookkeeping)
   without touching the other chains;
-- the generated-KV cache has a write column per row
-  (:func:`models.transformer.transformer_decode_step_paged`): a refilled
+- the generated cache has a write column per row (the block's paged step,
+  ``models.ssr.decoder_block``): a refilled
   slot restarts at column 0 of its own row, so cache memory is bounded per
   request. Column indices carry no positional meaning (the sine position is
   added at embed time from the chain's own ``y_pos``), which is what makes
@@ -48,7 +48,6 @@ import numpy as np
 import torch
 
 from ..config import DecodeConfig, SSRModelConfig
-from ..models import mla_moe
 from ..models import ssr as ssr_model
 from ..models import transformer as trf
 from ..ops import patterns
@@ -65,7 +64,7 @@ class ServeState(dec_mod.ChainState):
     paged cache's write columns and the slots' occupancy, in static buffers
     that the chunk's graphs read and write in place."""
 
-    cache: trf.KVCache  # generated K/V [L, R, H, G, Dh] or latents, a column a row
+    cache: object  # the block's generated cache, a column a row
     gen_len: torch.Tensor  # [R] write column of each row
     active: torch.Tensor  # [S] slot holds a live (unharvested) request
     steps: torch.Tensor  # [1] steps taken in this chunk (the admission budget)
@@ -97,7 +96,7 @@ def _serve_chunk_body(params, srv: "ContinuousBatcher"):
     (``active=False``) ride along frozen."""
     cfg, dec = srv.cfg, srv.dec
     S, aug_text, dtype = srv.S, srv.aug, srv.dtype
-    mla = mla_moe.is_mla_moe(cfg)
+    step = srv.block.paged_step
 
     def body(window: int, generator) -> None:
         st = srv.state
@@ -110,17 +109,10 @@ def _serve_chunk_body(params, srv: "ContinuousBatcher"):
             adv_r = torch.cat([adv, adv]) if aug_text else adv
             h = dec_mod._embed_step_tokens(params, cfg, cur.next_tokens,
                                            srv._pe, cur.y_pos, aug_text, dtype)
-            if mla:
-                out_h, _ = mla_moe.decode_step_paged(
-                    params["decoder"], h, srv._pfx, st.cache, srv._banned,
-                    gen_len, cfg, pos=dec_mod.row_positions(cur.y_pos, aug_text),
-                    dtype=dtype, read_len=window, layers=srv._layers,
-                    counts=srv._routing, live=adv_r)
-            else:
-                out_h, _ = trf.transformer_decode_step_paged(
-                    params["decoder"], h, srv._pfx, st.cache, srv._banned,
-                    gen_len, cfg, dtype=dtype, read_len=window,
-                    layers=srv._layers)
+            out_h, _ = step(
+                params["decoder"], h, srv._pfx, st.cache, srv._banned,
+                gen_len, cfg, y_pos=cur.y_pos, dtype=dtype, read_len=window,
+                layers=srv._layers, counts=srv._counters, live=adv_r)
             logits = ssr_model.predict_logits(params, out_h)
             lg, num_cfg = dec_mod._mix_cfg(logits, cur, dec, S, aug_text)
             cur = dec_mod._advance_chains(
@@ -206,9 +198,8 @@ def _refill_impl(state: ServeState, pfx, key_banned, x_lens,
 class _Staging:
     """One admission's staging area (JAX's ``new_pfx``): the padded text
     rows, the prefix and their true lengths as the prefill's static inputs,
-    the prompt cache [L, 1 or 2, H, tmax, Dh] (or the MLA block's latents)
-    and banned keys it fills, and
-    the two programs over them: the prefill (``_prefill_multi_impl``) and
+    the block's prompt cache of 1 or 2 rows and the banned keys it fills,
+    and the two programs over them: the prefill (``_prefill_multi_impl``) and
     the splice (:func:`_refill_impl`, which also reads the server's splice
     scalars). ``busy`` from the prefill until the splice."""
 
@@ -216,9 +207,9 @@ class _Staging:
         cfg, dev = srv.cfg, srv.device
         rows = 2 if srv.aug else 1
         i64 = dict(dtype=torch.int64, device=dev)
-        self._cache = dec_mod.init_cache(cfg, rows, srv.tmax, dtype=srv.dtype,
-                                         device=dev,
-                                         par=trf.parallel_of(srv.params))
+        self._cache = srv.block.init_cache(cfg, rows, srv.tmax,
+                                           dtype=srv.dtype, device=dev,
+                                           par=trf.parallel_of(srv.params))
         self.banned = torch.ones((rows, srv.tmax), dtype=torch.bool,
                                  device=dev)
         self.x = torch.zeros((rows, srv.sx_pad), **i64)
@@ -244,7 +235,8 @@ class ContinuousBatcher:
     lanes. The geometry (text and prefix pads, the span count, the
     per-request generation cap) is fixed at construction; requests beyond
     it are rejected, before any decoding. ``dtype`` is the compute dtype,
-    by default that of the decoder's matmul weights (bf16 on CUDA).
+    by default that of the decoder's matmul weights (bf16 on CUDA). The
+    decoder block is ``models.ssr.decoder_block(cfg)``.
 
     The server owns its static buffers (the prompt and generated caches,
     the slots' state) and the CUDA graphs of its chunk, one a stage window
@@ -263,7 +255,8 @@ class ContinuousBatcher:
         self.sx_pad, self.p_pad = sx_pad, p_pad
         self.num_task = num_task
         self.cap_total = dec.max_gen_per_span * num_task
-        self.dtype = dtype or dec_mod.decoder_dtype(params)
+        self.block = ssr_model.decoder_block(cfg)
+        self.dtype = dtype or self.block.dtype(params)
         self.device = params["text_emb"].device
         self.aug = dec.aug_text
         self.tmax = dec_mod._bucket(sx_pad + p_pad + 8, 256)
@@ -277,8 +270,8 @@ class ContinuousBatcher:
         self._gen_cap = gen_cap
         self._windows = trf.cache_stage_sizes(gen_cap)
         par = trf.parallel_of(params)
-        self._pfx = dec_mod.init_cache(cfg, R, self.tmax, dtype=self.dtype,
-                                       device=dev, par=par)
+        self._pfx = self.block.init_cache(cfg, R, self.tmax, dtype=self.dtype,
+                                          device=dev, par=par)
         self._pfx.length = sx_pad + p_pad
         self._banned = torch.ones((R, self.tmax), dtype=torch.bool, device=dev)
         self._x_lens = torch.ones(n_slots, dtype=torch.int64, device=dev)
@@ -291,8 +284,8 @@ class ContinuousBatcher:
         chains.done.fill_(True)  # empty slots look finished, but not active
         self.state = ServeState(
             **_chain_fields(chains),
-            cache=dec_mod.init_cache(cfg, R, gen_cap, dtype=self.dtype,
-                                     device=dev, par=par),
+            cache=self.block.init_cache(cfg, R, gen_cap, dtype=self.dtype,
+                                        device=dev, par=par),
             gen_len=torch.zeros(R, dtype=torch.int64, device=dev),
             active=torch.zeros(n_slots, dtype=torch.bool, device=dev),
             steps=torch.zeros(1, dtype=torch.int64, device=dev),
@@ -306,14 +299,10 @@ class ContinuousBatcher:
         # the random uncond rows when cfg_pretrained is off: a fresh draw
         # each prefill, from a stream of its own
         self._uncond_gen = torch.Generator(device=dev).manual_seed(7)
-        self._layers = dec_mod.layer_params(cfg, params["decoder"])
-        # the MLA block's routing counters, accumulated on the device by
-        # the replayed steps: per MoE layer, the (row, choice) pairs each
-        # expert took and the steps in which it took any [Lm, 2, E]
-        self._routing = (torch.zeros((cfg.n_moe_layers, 2,
-                                      cfg.n_routed_experts),
-                                     dtype=torch.int32, device=dev)
-                         if mla_moe.is_mla_moe(cfg) else None)
+        self._layers = self.block.layers(params["decoder"])
+        # the block's step counters (None for a block without), which the
+        # replayed steps accumulate on the device
+        self._counters = self.block.counters(cfg, dev)
         self._pe = ssr_model.sine_table(cfg.max_position, cfg.d_model,
                                         device=dev)
         self._silence = torch.tensor(dec.silence_tokens, dtype=torch.int64,
@@ -484,25 +473,21 @@ class ContinuousBatcher:
                               + time.perf_counter() - t0)
             st["chunks"] = st.get("chunks", 0) + 1
             st["lane_steps"] = st.get("lane_steps", 0) + lanes * steps
-        if self._routing is not None:
-            self._read_routing(self.stats)
+        if self._counters is not None:
+            self._read_counters(self.stats)
         return steps
 
-    def _read_routing(self, st: Optional[Dict]) -> None:
-        """The MLA block's routing counters since the last read, reset,
-        and with ``stats`` added to it: ``expert_tokens`` [Lm, E] (the (row,
-        choice) pairs each expert of each MoE layer took) and
-        ``expert_steps`` [Lm, E] (the steps in which it took any), over the
-        steps the chunk took, the rows of live chains counted (a parked
-        lane reads no routed expert). One read a chunk, after its step
-        count."""
+    def _read_counters(self, st: Optional[Dict]) -> None:
+        """The block's step counters since the last read
+        (``block.read_counters``, which resets them), and with ``stats``
+        each of its entries added to the entry of that name there (the MLA
+        block's: ``expert_tokens`` and ``expert_steps``). One read a chunk,
+        after its step count."""
         with annotate("serve.routing"):
-            got = self._routing.cpu().numpy().astype(np.int64)
-            self._routing.zero_()
+            got = self.block.read_counters(self._counters)
         if st is None:
             return
-        for key, part in (("expert_tokens", got[:, 0]),
-                          ("expert_steps", got[:, 1])):
+        for key, part in got.items():
             st[key] = part if key not in st else st[key] + part
 
     def _park(self, slot: int) -> None:

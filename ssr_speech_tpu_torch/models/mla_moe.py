@@ -54,7 +54,9 @@ so that a kernel streams one output's weights contiguously:
     moe/experts_down [Lm, E, D, F], moe/shared_gu [Lm, D, 2*Fs],
     moe/shared_down [Lm, Fs, D], final_norm [D].
 
-Not for this block: the shared-prompt step (``generate_batch``,
+The inference layer runs the block through :data:`BLOCK`
+(``transformer.DecoderBlock``), which also holds the paged steps' routing
+counters. Not for this block: the shared-prompt step (``generate_batch``,
 ``generate_multi``), training, tensor and fully sharded parallelism and the
 int8 paths refuse it (:func:`refuse`).
 """
@@ -72,6 +74,7 @@ import torch.nn.functional as F
 from ..config import SSRModelConfig, TokenSpace
 from ..ops import mla_attention, moe_experts
 from .from_jax import ParamTree, _check_shape
+from .transformer import DecoderBlock, _as_pos, decode_bias
 
 LAYER_KEYS = ("attn_norm", "wq_kva", "kv_norm", "kvb_k", "kvb_v", "wo",
               "ffn_norm")
@@ -136,9 +139,7 @@ def is_mla_moe(cfg) -> bool:
 def refuse(cfg, what: str) -> None:
     """Raise for a path this block does not run."""
     if is_mla_moe(cfg):
-        raise ValueError(f"{what} does not run the MLA + MoE block "
-                         f"(MLAMoEConfig): it runs on decode.generate and "
-                         f"the continuous server only")
+        BLOCK.refuse(what)
 
 
 def refuse_params(params, what: str) -> None:
@@ -435,9 +436,10 @@ def _attn_out(lp, o_lat, h):
 
 def transformer_prefill(params, h: torch.Tensor, cache: LatentCache,
                         cfg: MLAMoEConfig, *, key_valid: torch.Tensor,
-                        pos: torch.Tensor, dtype=torch.bfloat16
+                        sx: int, dtype=torch.bfloat16
                         ) -> Tuple[torch.Tensor, LatentCache]:
-    """Forward over the prompt h [B, S, D] (RoPE positions ``pos`` [S])
+    """Forward over the prompt h [B, S, D], a text block of ``sx`` then
+    the audio (RoPE positions: each counts from 0, as SSR's sinusoids do),
     while writing each layer's latents at the cache's host offset. The
     attention is the expanded form through ``scaled_dot_product_attention``:
     query i attends key j <= i that ``key_valid`` [B, S] leaves open (every
@@ -448,6 +450,8 @@ def transformer_prefill(params, h: torch.Tensor, cache: LatentCache,
     start, S = cache.length, h.shape[1]
     if isinstance(start, torch.Tensor):
         raise TypeError("transformer_prefill fills from a host offset")
+    pos = torch.cat([torch.arange(sx, device=h.device),
+                     torch.arange(S - sx, device=h.device)])
     B = h.shape[0]
     H, nope, r = cfg.nhead, cfg.qk_nope_head_dim, cfg.kv_lora_rank
     h = h.to(dtype)
@@ -475,6 +479,13 @@ def transformer_prefill(params, h: torch.Tensor, cache: LatentCache,
 
 # ------------------------------------------------------------ decode steps
 
+def _row_pos(y_pos: torch.Tensor, rows: int) -> torch.Tensor:
+    """The RoPE position of each of ``rows`` step rows: the chain's audio
+    position ``y_pos`` [S], repeated for the uncond rows under CFG."""
+    n = rows // y_pos.shape[0]
+    return y_pos if n == 1 else torch.cat([y_pos] * n)
+
+
 def _moe_kernel_step(counts=None, live=None):
     def step(b, idx, w, lp):
         return moe_experts.moe_experts(
@@ -485,18 +496,17 @@ def _moe_kernel_step(counts=None, live=None):
 
 def decode_step(params, h_t: torch.Tensor, cache: LatentCache,
                 key_banned: torch.Tensor, cfg: MLAMoEConfig, *,
-                pos: torch.Tensor, dtype=torch.bfloat16, layers=None,
+                y_pos: torch.Tensor, dtype=torch.bfloat16, layers=None,
                 window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, LatentCache]:
     """One-token decode of ``decode.generate`` (the single path): h_t [B, D]
     at cache column ``cache.length`` (a [1] device tensor, or a host int)
-    and RoPE positions ``pos`` [B]. The new latents are written at that
+    and at its chain's audio position ``y_pos`` [S] (:func:`_row_pos`, the
+    rows' RoPE positions). The new latents are written at that
     column first; the attention is the absorbed form in plain PyTorch over
     columns [0, ``window``) (default the whole cache) with -1e9 on the
     banned range ``key_banned`` [B, 2] and past the column; the experts are
     ``ops.moe_experts``. Returns (out [B, D], cache advanced by one)."""
-    from .transformer import _as_pos, decode_bias
-
     fill = cache.length
     w = cache.max_len if window is None else min(int(window), cache.max_len)
     col = _as_pos(fill, h_t.device)
@@ -505,7 +515,7 @@ def decode_step(params, h_t: torch.Tensor, cache: LatentCache,
     r = cfg.kv_lora_rank
     h = h_t.to(dtype)[:, None, :]
     step = _moe_kernel_step()
-    rot = rope_rotation(pos[:, None], cfg)
+    rot = rope_rotation(_row_pos(y_pos, h_t.shape[0])[:, None], cfg)
     for l, lp in enumerate(layers or layer_params(params)):
         q_nope, q_pe, lat = _attn_in(lp, h, cfg, rot)
         buf = cache.c[l]
@@ -524,13 +534,14 @@ def decode_step(params, h_t: torch.Tensor, cache: LatentCache,
 def decode_step_paged(params, h_t: torch.Tensor, pfx: LatentCache,
                       gen: LatentCache, key_banned: torch.Tensor,
                       gen_len: torch.Tensor, cfg: MLAMoEConfig, *,
-                      pos: torch.Tensor, dtype=torch.bfloat16, read_len=None,
+                      y_pos: torch.Tensor, dtype=torch.bfloat16, read_len=None,
                       layers=None, counts: Optional[torch.Tensor] = None,
                       live: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, LatentCache]:
     """The continuous server's step (the contract of
     ``transformer.transformer_decode_step_paged``) for this block: row r at
-    RoPE position ``pos[r]`` attends its prompt latents [0, pfx.length)
+    its chain's audio position (``y_pos`` [S], :func:`_row_pos`) attends
+    its prompt latents [0, pfx.length)
     less ``key_banned`` [B, >= Tp], its generated latents [0, gen_len[r])
     (read through [0, ``read_len``)) and its own new latent, through
     ``ops.mla_attention.paged_mla_attention`` (K12 on the card); the
@@ -546,7 +557,7 @@ def decode_step_paged(params, h_t: torch.Tensor, pfx: LatentCache,
     h = h_t.to(dtype)[:, None, :]
     step = _moe_kernel_step(counts, live)
     lats = []
-    rot = rope_rotation(pos[:, None], cfg)
+    rot = rope_rotation(_row_pos(y_pos, b)[:, None], cfg)
     for l, lp in enumerate(layers or layer_params(params)):
         q_nope, q_pe, lat = _attn_in(lp, h, cfg, rot)
         lats.append(lat[:, 0])
@@ -561,3 +572,31 @@ def decode_step_paged(params, h_t: torch.Tensor, pfx: LatentCache,
     gen.c[:, rows, col] = torch.stack(lats).to(gen.c.dtype)
     out = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return out[:, 0], gen
+
+
+# ------------------------------------------------------------- the block
+
+def init_counters(cfg: MLAMoEConfig, device) -> torch.Tensor:
+    """The routing counters the paged steps add into on the device (their
+    ``counts``): per MoE layer, the (row, choice) pairs each expert took
+    and the steps in which it took any [Lm, 2, E] int32."""
+    return torch.zeros((cfg.n_moe_layers, 2, cfg.n_routed_experts),
+                       dtype=torch.int32, device=device)
+
+
+def read_counters(counts: torch.Tensor) -> Dict[str, object]:
+    """The counts since the last read, reset: ``expert_tokens`` [Lm, E]
+    (the (row, choice) pairs each expert of each MoE layer took) and
+    ``expert_steps`` [Lm, E] (the steps in which it took any), int64
+    numpy, over the rows of live chains (a parked lane reads no routed
+    expert)."""
+    got = counts.cpu().long().numpy()
+    counts.zero_()
+    return dict(expert_tokens=got[:, 0], expert_steps=got[:, 1])
+
+
+BLOCK = DecoderBlock(
+    name="the MLA + MoE block (MLAMoEConfig)", init_cache=init_cache,
+    layers=layer_params, dtype=compute_dtype_of, prefill=transformer_prefill,
+    step=decode_step, shared_step=None, paged_step=decode_step_paged,
+    counters=init_counters, read_counters=read_counters)

@@ -13,6 +13,9 @@ before the bias). The fused CE head gathers the hidden and ``head2_w`` over
 tp and runs its kernels on the whole head on every tp rank, so K4-K6 see
 the shapes they see on one device; the gradient of each gathered block goes
 back to its rank.
+
+:func:`decoder_block` is the one place that knows which decoder blocks
+exist: the inference layer runs the block it returns and names none.
 """
 
 from __future__ import annotations
@@ -31,6 +34,13 @@ from ..parallel import collectives as col
 from ..utils import prng
 from . import mla_moe
 from . import transformer as trf
+
+
+def decoder_block(cfg: SSRModelConfig) -> trf.DecoderBlock:
+    """The decoder block of ``cfg``: the MLA + MoE block for an
+    ``MLAMoEConfig``, else the e830M block. Adding a block touches its own
+    module and this function."""
+    return mla_moe.BLOCK if mla_moe.is_mla_moe(cfg) else trf.BLOCK
 
 
 def sine_table(max_len: int, d_model: int, device="cpu") -> torch.Tensor:

@@ -56,7 +56,7 @@ import functools
 import math
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -504,8 +504,8 @@ class KVCache:
         return self.k.shape[3]
 
     def buffers(self) -> Tuple[torch.Tensor, ...]:
-        """The cache's buffers, rows on dim 1 (``mla_moe.LatentCache``
-        answers with its one latent buffer)."""
+        """The cache's buffers, rows on dim 1 (every block's cache answers
+        this: the decode loops copy and splice caches through it)."""
         return (self.k, self.v)
 
 
@@ -791,3 +791,73 @@ def transformer_decode_step_paged(params, h_t: torch.Tensor, pfx: KVCache,
     gen.k[:, rows, :, col] = torch.stack(ks).to(gen.k.dtype).transpose(0, 1)
     gen.v[:, rows, :, col] = torch.stack(vs).to(gen.v.dtype).transpose(0, 1)
     return out[:, 0, :], gen
+
+
+# ------------------------------------------------------------ the block seam
+
+@dataclass(frozen=True)
+class DecoderBlock:
+    """A decoder block as the inference layer runs it: ``models.ssr.
+    decoder_block`` picks one a config, and ``inference/`` calls these and
+    names no block. Each step takes its chains' audio positions ``y_pos``
+    [S] (rows are [cond; uncond] under CFG), which a block with RoPE turns
+    into its own positions and this module's block ignores.
+
+    - ``init_cache(cfg, batch, max_len, *, dtype, device, par)``: a zeroed
+      cache whose ``buffers()`` hold rows on dim 1;
+    - ``layers(decoder)``: the per-layer views the steps take as ``layers``;
+    - ``dtype(params)``: the compute dtype, that of the matmul weights;
+    - ``prefill(decoder, h, cache, cfg, *, key_valid, dtype, sx)``, ``sx``
+      the text block's width;
+    - ``step(decoder, h, cache, banned, cfg, *, y_pos, dtype, layers,
+      window)``: ``decode.generate``'s step;
+    - ``shared_step(decoder, h, pfx, gen, banned, cfg, *, y_pos, n_groups,
+      dtype, layers, window)``: the shared-prompt step, or None (then
+      ``generate_batch`` and ``generate_multi`` refuse the block);
+    - ``paged_step(decoder, h, pfx, gen, banned, gen_len, cfg, *, y_pos,
+      dtype, read_len, layers, counts, live)``: the continuous server's;
+    - ``counters(cfg, device)``: the tensor the paged steps count into
+      (``counts``), or None; ``read_counters(counts)`` returns the counts
+      since the last read as ``stats`` entries and resets them."""
+
+    name: str
+    init_cache: Callable
+    layers: Callable
+    dtype: Callable
+    prefill: Callable
+    step: Callable
+    shared_step: Optional[Callable]
+    paged_step: Callable
+    counters: Callable = lambda cfg, device: None
+    read_counters: Optional[Callable] = None
+
+    def refuse(self, what: str) -> None:
+        """Raise for ``what``, a path this block does not run."""
+        raise ValueError(f"{what} does not run {self.name}: it runs on "
+                         f"decode.generate and the continuous server only")
+
+    def require_shared(self, what: str) -> None:
+        """Raise for ``what``, a path of the shared-prompt step, unless the
+        block has one."""
+        if self.shared_step is None:
+            self.refuse(what)
+
+
+def _ignoring(fn, *names):
+    """``fn`` taking the block's keywords ``names``, which it has no use
+    for, and dropping them."""
+    def call(*args, **kw):
+        for name in names:
+            del kw[name]
+        return fn(*args, **kw)
+    return call
+
+
+BLOCK = DecoderBlock(
+    name="the e830M block", init_cache=init_kv_cache, layers=layer_params,
+    dtype=lambda params: params["decoder"]["layers"]["qkv_w"].dtype,
+    prefill=_ignoring(transformer_prefill, "sx"),
+    step=_ignoring(transformer_decode_step, "y_pos"),
+    shared_step=_ignoring(transformer_decode_step_shared, "y_pos"),
+    paged_step=_ignoring(transformer_decode_step_paged, "y_pos", "counts",
+                         "live"))

@@ -7,10 +7,13 @@ and single steps teacher-forced against the full forward's logits; greedy
 against the reference's argmax; the absorbed decode attention against the
 expanded one; the router against a hand computation; the routing counters
 against a hand count; RoPE positions unmoved by the text padding; the
-config's JSON; and the paths that refuse the block."""
+config's JSON; the paths that refuse the block; and that no module of the
+inference layer names a block (``models.ssr.decoder_block`` chooses)."""
 
 import dataclasses
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -93,7 +96,7 @@ def test_prefill_and_steps_match_the_full_forward(lm):
             h = decode._embed_step_tokens(model, CFG, torch.as_tensor(fed[None, :, t]),
                                           pe, p_len + t, True, torch.float32)
             out, cache = mla_moe.decode_step(model["decoder"], h, cache, banned, CFG,
-                                             pos=torch.full((2,), p_len + t),
+                                             y_pos=torch.full((1,), p_len + t),
                                              dtype=torch.float32)
             got.append(ssr.predict_logits(model, out))
     got = torch.stack(got)  # [n, 2, K, card]
@@ -256,3 +259,16 @@ def _refusals():
 def test_paths_refuse_the_block(lm, path):
     with pytest.raises(ValueError, match="MLA"):
         _refusals()[path](lm[0])
+
+
+def test_inference_names_no_block():
+    """``models.ssr.decoder_block`` is the one place that knows the blocks:
+    no module of ``inference/`` imports the MLA + MoE module, asks
+    ``is_mla_moe`` or tests a config against ``MLAMoEConfig``."""
+    names = re.compile(r"\bmla_moe\b|\bis_mla_moe\b|\bMLAMoEConfig\b")
+    root = Path(ssr.__file__).parents[1] / "inference"
+    found = [f"{p.name}:{i}: {line.strip()}"
+             for p in sorted(root.glob("*.py"))
+             for i, line in enumerate(p.read_text().splitlines(), 1)
+             if names.search(line)]
+    assert found == []
